@@ -1,0 +1,84 @@
+"""Shared set-up of the PyTorch-port parity tests (no tests here).
+
+Both packages load the same stand-in humanoid files: the port with its own
+MJCF loader, the JAX package with `uhc_tpu.smpl.mjcf.load_mjcf_humanoid`
+on its numpy/scipy mesh path (the native mesh toolkit is switched off for
+that one call, so both sides compute mass properties the same way).
+Inputs are made from a seed with numpy and handed to both sides.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+GAIT = "sample_data/gait_clips.pkl"
+
+
+def load_both(directory):
+    """(jax (topo, model f32), port (topo, model numpy)) of the stand-in."""
+    import jax.numpy as jnp
+
+    import uhc_tpu.native.meshtools as native
+    from uhc_tpu.physics.model import model_to_dtype
+    from uhc_tpu.smpl.mjcf import load_mjcf_humanoid as jax_load
+    from uhc_tpu_torch.smpl.fixture_humanoid import write_fixture_humanoid
+    from uhc_tpu_torch.smpl.mjcf import load_mjcf_humanoid as port_load
+
+    xml = write_fixture_humanoid(str(directory))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "_load", lambda: None)
+        jt, jm = jax_load(xml)
+    tt, tm = port_load(xml)
+    return (jt, model_to_dtype(jm, jnp.float32)), (tt, tm)
+
+
+def states(lib_qpos, rng, B, qvel_scale=0.05):
+    """Clip frames (qpos), seeded qvel noise and the next frames' joints —
+    the state recipe of tests/test_fused_split.py, over clip frames."""
+    S, T = lib_qpos.shape[:2]
+    si = rng.integers(0, S, B)
+    ti = rng.integers(0, T - 1, B)
+    qpos = np.asarray(lib_qpos[si, ti], np.float32)
+    qvel = (qvel_scale * rng.standard_normal((B, 75))).astype(np.float32)
+    tb = np.asarray(lib_qpos[si, ti + 1, 7:], np.float32)
+    return qpos, qvel, tb
+
+
+def random_states(rng, B):
+    """Standing-height states with large random joint angles and rates:
+    many ground contacts, some self-collisions and joint-limit hits."""
+    qpos = np.zeros((B, 76), np.float32)
+    qpos[:, :2] = rng.standard_normal((B, 2))
+    qpos[:, 2] = 0.9
+    q = np.array([0.7071, 0.7071, 0.0, 0.0]) + 0.1 * rng.standard_normal(
+        (B, 4))
+    qpos[:, 3:7] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    qpos[:, 7:] = 0.8 * rng.standard_normal((B, 69))
+    qvel = (0.5 * rng.standard_normal((B, 75))).astype(np.float32)
+    return qpos, qvel
+
+
+def close(a, b, atol, rtol=0.0):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b.detach().cpu().numpy() if isinstance(b, torch.Tensor)
+                   else b, np.float64)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    err = np.abs(a - b) - rtol * np.abs(a)
+    assert np.all(err <= atol), f"max excess {err.max()} over atol {atol}"
+
+
+def env_cfgs():
+    """The uhc_implicit env (plain PD) and its meta-PD variant."""
+    from uhc_tpu_torch.config.config import Config
+
+    env = Config.uhc_implicit().env
+    return {"plain_pd": env,
+            "meta_pd": dataclasses.replace(env, meta_pd=True)}
+
+
+def jax_cfg(port_env_cfg):
+    """The JAX EnvConfig with the same field values."""
+    from uhc_tpu.config.config import EnvConfig
+
+    return EnvConfig(**dataclasses.asdict(port_env_cfg))

@@ -1,0 +1,112 @@
+"""Policy evaluation on the device (PyTorch twin of uhc_tpu.learn.evaluate).
+
+All test sequences advance lock-step through one batched env step, with a
+Python loop over time in place of `lax.scan`. On failure mid-clip the
+state is teleported back onto the expert and the sequence is marked
+unsuccessful (the reference's fail-safe). The collected trajectories feed
+`compute_metrics` on the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+from uhc_tpu_torch.config.config import EnvConfig
+from uhc_tpu_torch.envs import humanoid_im as H
+from uhc_tpu_torch.learn import running_norm as RN
+from uhc_tpu_torch.learn.metrics import compute_metrics
+from uhc_tpu_torch.physics import engine as E
+from uhc_tpu_torch.physics.model import Model, Topology
+
+
+def make_eval_fn(topo: Topology, cfg: EnvConfig, policy_mean_fn,
+                 max_steps: int, clip_obs: float = 5.0,
+                 fused_model: Model = None):
+    """Returns eval_all(model, expert_lib, aux, rs) -> (traj, fail_safe,
+    percent), `traj` holding (S, T, ...) pred_qpos / pred_jpos / active.
+    `policy_mean_fn(normalized_obs) -> actions`. With `fused_model` the
+    physics runs through the control-step kernel."""
+    if cfg.t_max >= max_steps and cfg.env_episode_len >= max_steps:
+        eval_cfg = cfg
+    else:
+        eval_cfg = dataclasses.replace(cfg, t_max=10 ** 9,
+                                       env_episode_len=10 ** 9)
+    env_step_batched = H.make_env_step_batched(topo, eval_cfg,
+                                               fused_model=fused_model)
+
+    @torch.no_grad()
+    def eval_all(model, expert_lib, aux, rs):
+        S = expert_lib["len"].shape[0]
+        dev = expert_lib["len"].device
+        seq_idx = torch.arange(S, device=dev)
+        lengths = expert_lib["len"]
+        states = H.env_reset(topo, model, eval_cfg, seq_idx, expert_lib,
+                             aux["neutral_qpos"], aux["neutral_qvel"],
+                             start_ind=0, train=False)
+        fail_safe = torch.zeros(S, dtype=torch.bool, device=dev)
+        pred_qpos, pred_jpos, actives = [], [], []
+        for t in range(max_steps):
+            active = t < (lengths - 1)
+            obs = H.get_obs(topo, model, eval_cfg, states,
+                                    expert_lib)
+            actions = policy_mean_fn(RN.normalize(rs, obs, clip_obs))
+            states2, _, _, _, _ = env_step_batched(
+                model, states, actions, expert_lib, aux["jpos_diffw"],
+                aux["body_diffw"], train=False)
+            exp = H.expert_at(expert_lib, seq_idx, states2.cur_t)
+            tele = states2.fail & active
+            states2 = dataclasses.replace(
+                states2,
+                qpos=torch.where(tele[:, None], exp["qpos"], states2.qpos),
+                qvel=torch.where(tele[:, None], exp["qvel"], states2.qvel),
+                done=torch.zeros_like(states2.done),
+                fail=torch.zeros_like(states2.fail))
+            fail_safe = fail_safe | tele
+            # only advance while the clip is active
+            states = _state_where(active, states2, states)
+            kin = E.fk(topo, model, states.qpos)
+            pred_qpos.append(states.qpos)
+            pred_jpos.append(kin["xpos"].reshape(S, -1))
+            actives.append(active)
+        traj = {"pred_qpos": torch.stack(pred_qpos, 1),
+                "pred_jpos": torch.stack(pred_jpos, 1),
+                "active": torch.stack(actives, 1)}
+        return traj, fail_safe, states.percent
+
+    return eval_all
+
+
+def _state_where(mask, new: H.EnvState, old: H.EnvState) -> H.EnvState:
+    """Per-env select between two states."""
+    out = {}
+    for f in dataclasses.fields(H.EnvState):
+        a, b = getattr(new, f.name), getattr(old, f.name)
+        m = mask.reshape((-1,) + (1,) * (a.dim() - 1))
+        out[f.name] = torch.where(m, a, b)
+    return H.EnvState(**out)
+
+
+def summarize(traj, fail_safe, percent, expert_lib, seq_keys) -> Dict:
+    """Host-side per-sequence compute_metrics + the coverage aggregate."""
+    traj = {k: v.cpu().numpy() for k, v in traj.items()}
+    fail_safe = fail_safe.cpu().numpy()
+    percent = percent.cpu().numpy()
+    lens = expert_lib["len"].cpu().numpy()
+    gt_qpos = expert_lib["qpos"].cpu().numpy()
+    gt_jpos = expert_lib["wbpos"].cpu().numpy()
+    results, agg = {}, {}
+    for s, key in enumerate(seq_keys):
+        T = int(lens[s]) - 1
+        m = compute_metrics(traj["pred_qpos"][s][:T], gt_qpos[s][1:T + 1],
+                            traj["pred_jpos"][s][:T], gt_jpos[s][1:T + 1],
+                            bool(fail_safe[s]), float(percent[s]))
+        results[key] = m
+        for k, v in m.items():
+            agg.setdefault(k, []).append(v)
+    summary = {k: float(np.mean(v)) for k, v in agg.items()}
+    summary["coverage"] = int(sum(m["succ"] for m in results.values()))
+    summary["num_seqs"] = len(seq_keys)
+    return {"per_seq": results, "summary": summary}

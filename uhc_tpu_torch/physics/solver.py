@@ -1,0 +1,128 @@
+"""Batched substep chain with the maintained-inverse solver (PyTorch twin
+of uhc_tpu.physics.solver).
+
+Substep 0 of each 30 Hz control step computes exact inverses of A_pd and
+A_fd by blocked Cholesky against the identity; every substep then solves
+both systems by preconditioned conjugate gradient warm-started from those
+inverses, with `(pd_iters, fd_iters)` iterations.
+"""
+from __future__ import annotations
+
+import torch
+
+from uhc_tpu_torch.maths import (heading_quat, quat_inv, quat_mul,
+                                 quat_rotate, wrap_to_pi)
+from uhc_tpu_torch.physics import engine as E
+from uhc_tpu_torch.physics import linalg as LA
+from uhc_tpu_torch.physics.model import Model, Topology
+
+
+def exact_inverse(A: torch.Tensor) -> torch.Tensor:
+    """(..., n, n) SPD -> inverse via blocked Cholesky vs the identity."""
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
+    return LA.blocked_cho_solve(LA.blocked_cholesky(A), eye)
+
+
+def _mv(A, x):
+    return torch.matmul(A, x[..., None])[..., 0]
+
+
+def _dot(a, b):
+    return (a * b).sum(-1, keepdim=True)
+
+
+def pcg_solve(A, b, X, iters: int = 5):
+    """Preconditioned CG with warm start x₀ = X·b (X ≈ A⁻¹)."""
+    x = _mv(X, b)
+    r = b - _mv(A, x)
+    z = _mv(X, r)
+    p = z
+    rz = _dot(r, z)
+    for _ in range(iters):
+        Ap = _mv(A, p)
+        alpha = rz / (_dot(p, Ap) + 1e-12)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = _mv(X, r)
+        rz_new = _dot(r, z)
+        beta = rz_new / (rz + 1e-12)
+        p = z + beta * p
+        rz = rz_new
+    return x
+
+
+def action_dims(topo: Topology, cfg):
+    """(ndof, vf_dim, meta_dim) of the action vector."""
+    ndof = topo.ndof
+    vf_dim = 6 if cfg.residual_force else 0
+    meta_dim = 2 * cfg.frame_skip if cfg.meta_pd else 0
+    return ndof, vf_dim, meta_dim
+
+
+def check_supported(cfg) -> None:
+    """The ported control step covers plain PD and meta-PD, implicit RFC
+    or none, position control with action_v 0/1."""
+    if cfg.residual_force and cfg.residual_force_mode != "implicit":
+        raise NotImplementedError("explicit RFC is not ported yet")
+    if cfg.meta_pd_joint:
+        raise NotImplementedError("per-joint meta-PD is not ported yet")
+    if cfg.action_type != "position":
+        raise NotImplementedError("torque control is not ported yet")
+
+
+def gain_scales(cfg, actions: torch.Tensor, ndof: int, vf_dim: int):
+    """Per-substep (B, frame_skip) kp / kd scales."""
+    B, fs = actions.shape[0], cfg.frame_skip
+    if cfg.meta_pd:
+        meta = actions[:, ndof + vf_dim: ndof + vf_dim + 2 * fs]
+        return (torch.clamp(meta[:, :fs] + 1.0, 0.0, 10.0),
+                torch.clamp(meta[:, fs:] + 1.0, 0.0, 10.0))
+    one = actions.new_ones((B, fs))
+    return one, one
+
+
+def do_simulation(topo: Topology, cfg, model: Model, qpos, qvel, actions,
+                  target_base, rfc_rate, pcg_iters=(1, 2), trace=None):
+    """One control step (frame_skip substeps) for a batch of envs.
+
+    `pcg_iters` is an int or a (pd_iters, fd_iters) pair. A `trace` list
+    receives each substep's (B, nb) ground-contact sets."""
+    check_supported(cfg)
+    pd_iters, fd_iters = ((pcg_iters, pcg_iters)
+                          if isinstance(pcg_iters, int) else pcg_iters)
+    ndof, vf_dim, _ = action_dims(topo, cfg)
+    kp_scale, kd_scale = gain_scales(cfg, actions, ndof, vf_dim)
+    base_rot = qpos.new_tensor(cfg.base_rot)
+    B = qpos.shape[0]
+    Xpd = Xfd = None
+    for i in range(cfg.frame_skip):
+        if cfg.action_v == 1:
+            base = qpos[:, 7:] + wrap_to_pi(target_base - qpos[:, 7:])
+        else:
+            base = torch.zeros_like(qpos[:, 7:])
+        target_pos = base + actions[:, :ndof]
+        qfrc = qpos.new_zeros((B, topo.nv))
+        if cfg.residual_force:
+            vf = actions[:, ndof:ndof + vf_dim] * (
+                cfg.residual_force_scale * rfc_rate)
+            hq = heading_quat(quat_mul(qpos[:, 3:7], quat_inv(base_rot)))
+            vf = torch.cat([quat_rotate(hq, vf[:, :3]), vf[:, 3:]], 1)
+            qfrc[:, :6] = torch.clamp(vf, -cfg.residual_force_lim,
+                                      cfg.residual_force_lim)
+        kp = model.jkp[None] * kp_scale[:, i:i + 1]
+        kd = model.jkd[None] * kd_scale[:, i:i + 1]
+        out = E.assemble(topo, model, qpos, qvel, target_pos, kp, kd, qfrc,
+                         cfg.self_collision)
+        if trace is not None:
+            trace.append(out["contact_active"].cpu().numpy())
+        if i == 0:
+            Xpd, Xfd = exact_inverse(out["A_pd"]), exact_inverse(out["A_fd"])
+        qacc_des = pcg_solve(out["A_pd"], out["pd_rhs"], Xpd, pd_iters)
+        tau = E.pd_torque_from_accel(model, qvel, out["qpos_err"], kp, kd,
+                                     qacc_des)
+        rhs = out["rhs_base"].clone()
+        rhs[:, 6:] += tau
+        qacc = pcg_solve(out["A_fd"], rhs, Xfd, fd_iters)
+        qpos, qvel = E.integrate(model, qpos, qvel, qacc)
+    return qpos, qvel
