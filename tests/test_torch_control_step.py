@@ -9,6 +9,9 @@ import pytest
 import torch
 
 from test_torch_helpers import GAIT, env_cfgs, states
+from test_torch_helpers import few_threads
+
+pytestmark = pytest.mark.usefixtures(few_threads.__name__)
 
 
 @pytest.fixture(scope="module")

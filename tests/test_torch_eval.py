@@ -12,6 +12,9 @@ import torch
 import jax.numpy as jnp
 
 from test_torch_helpers import GAIT, close, env_cfgs, jax_cfg, load_both
+from test_torch_helpers import few_threads
+
+pytestmark = pytest.mark.usefixtures(few_threads.__name__)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(REPO, "results", "uhc_implicit", "models", "iter_best.p")

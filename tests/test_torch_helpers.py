@@ -15,6 +15,18 @@ import torch
 GAIT = "sample_data/gait_clips.pkl"
 
 
+@pytest.fixture(scope="module")
+def few_threads():
+    """Two intra-op threads for torch while a module runs: the suite runs
+    several test processes side by side, and small eager ops gain nothing
+    from more threads but slow every process down when they oversubscribe
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def load_both(directory):
     """(jax (topo, model f32), port (topo, model numpy)) of the stand-in."""
     import jax.numpy as jnp

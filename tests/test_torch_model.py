@@ -106,12 +106,18 @@ bad = [n for n in sys.modules if n.split(".")[0] in
        ("jax", "jaxlib", "uhc_tpu", "joblib", "yaml", "triton")
        and sys.modules[n] is not None]
 assert not bad, bad
-print(len(mods))
+print(" ".join(mods))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 25
+    mods = set(out.stdout.split())
+    assert len(mods) >= 43
+    # the training slice and K2
+    assert {f"uhc_tpu_torch.{m}" for m in (
+        "cli.train", "learn.agent", "learn.rollout", "learn.gae",
+        "learn.ppo", "data.sampling", "utils.metrics_sink",
+        "physics.control_step_split")} <= mods
 
 
 def test_chip_smoke_fails_without_card(tmp_path):

@@ -9,6 +9,9 @@ import jax.numpy as jnp
 
 from test_torch_helpers import (close, env_cfgs, jax_cfg, load_both,
                                 random_states, states)
+from test_torch_helpers import few_threads
+
+pytestmark = pytest.mark.usefixtures(few_threads.__name__)
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,8 @@ import glob
 import os.path as osp
 from typing import Any, Dict, Tuple
 
+import numpy as np
+
 
 @dataclasses.dataclass(frozen=True)
 class EnvConfig:
@@ -155,6 +157,23 @@ class Config:
     env: EnvConfig = dataclasses.field(default_factory=EnvConfig)
     data_specs: Dict[str, Any] = dataclasses.field(default_factory=dict)
     results_dir: str = "results"
+
+    def adaptive_params(self, i_iter: int):
+        """Piecewise-linear schedules for noise / log_std / lr
+        (copycat_config.py:151 update_adaptive_params)."""
+        cp = np.array(self.adp_iter_cp)
+
+        def interp(vals):
+            vals = np.pad(np.array(vals, float), (0, len(cp) - len(vals)),
+                          "edge")
+            ind = int(np.where(i_iter >= cp)[0][-1])
+            nind = ind + int(ind < len(cp) - 1)
+            t = ((i_iter - cp[ind]) / (cp[nind] - cp[ind])) if nind > ind \
+                else 0.0
+            return float(vals[ind] * (1 - t) + vals[nind] * t)
+
+        return (interp(self.adp_noise_rate_cp), interp(self.adp_log_std_cp),
+                interp(self.adp_policy_lr_cp))
 
     @classmethod
     def from_yaml(cls, cfg_id: str, search_dirs=("config",)) -> "Config":

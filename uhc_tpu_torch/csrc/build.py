@@ -77,11 +77,17 @@ def _build(kind: str) -> str:
     return out
 
 
-def _bind(lib, entry: str, stream: bool):
-    fn = getattr(lib, entry)
+def _bind(lib, suffix: str, stream: bool):
+    """Declare the entry points: uhc_control_step (K1) takes 8 pointers,
+    uhc_control_step_head / _tail (K2) take 9 (the last is Xp/Xf), then
+    B, act_dim, rfc_rate and, on CUDA, the stream."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [ptr] * 8 + [i32, i32, f32] + ([ptr] if stream else [])
-    fn.restype = i32
+    for entry, nptr in (("uhc_control_step", 8), ("uhc_control_step_head", 9),
+                        ("uhc_control_step_tail", 9)):
+        fn = getattr(lib, entry + suffix)
+        fn.argtypes = [ptr] * nptr + [i32, i32, f32] + ([ptr] if stream
+                                                        else [])
+        fn.restype = i32
     lib.uhc_control_step_layout.argtypes = [ptr]
     lib.uhc_control_step_layout.restype = i32
     return lib
@@ -90,16 +96,16 @@ def _bind(lib, entry: str, stream: bool):
 def load_library():
     """The CUDA kernel library (built on first use)."""
     if "cuda" not in _loaded:
-        _loaded["cuda"] = _bind(ctypes.CDLL(_build("cuda")),
-                                "uhc_control_step", stream=True)
+        _loaded["cuda"] = _bind(ctypes.CDLL(_build("cuda")), "", stream=True)
     return _loaded["cuda"]
 
 
 def load_host_library():
-    """The same kernel source compiled as host C++ (for CPU tests)."""
+    """The same kernel source compiled as host C++ (for CPU tests); its
+    entry points carry a `_host` suffix and take no stream."""
     if "host" not in _loaded:
-        _loaded["host"] = _bind(ctypes.CDLL(_build("host")),
-                                "uhc_control_step_host", stream=False)
+        _loaded["host"] = _bind(ctypes.CDLL(_build("host")), "_host",
+                                stream=False)
     return _loaded["host"]
 
 

@@ -1,11 +1,24 @@
 // One 30 Hz control step of the 24-body humanoid (15 stable-PD substeps at
-// 450 Hz) for a batch of envs: one thread block per env.
+// 450 Hz) for a batch of envs: one thread block per env. Three kernels
+// share one copy of the physics (`control_step_env`):
 //
-// Replaces the TPU kernel uhc_tpu/physics/pallas_lane.py:83
-// make_fused_do_simulation_lane (kernel body :393-1195, with the
-// pallas_substep.py Cholesky / triangular-inverse / PCG helpers). Its plain
-// PyTorch version is uhc_tpu_torch/physics/solver.py do_simulation with
-// the same (pd_iters, fd_iters) schedule.
+//  * K1, `control_step_kernel`, all substeps in one launch. Replaces the
+//    TPU kernel uhc_tpu/physics/pallas_lane.py:83
+//    make_fused_do_simulation_lane (kernel body :393-1195, with the
+//    pallas_substep.py Cholesky / triangular-inverse / PCG helpers).
+//  * K2, `control_step_head_kernel` + `control_step_tail_kernel`, the
+//    head/tail split of uhc_tpu/physics/pallas_substep.py:284
+//    make_fused_do_simulation (split=True, :1020-1058): the head runs
+//    substep 0 and writes the state and the exact inverses Xp, Xf of A_pd,
+//    A_fd to device memory as (B, 2, 75, 75) float32; the tail reads them
+//    and runs substeps 1..14. qpos, qvel, Xp and Xf are all the state one
+//    substep hands the next, so head + tail equals K1 bit for bit at the
+//    same schedule. The round trip adds 2 * 45 KB per env of device
+//    memory traffic, small beside the arithmetic.
+//
+// The plain PyTorch version is uhc_tpu_torch/physics/solver.py
+// do_simulation (K1) and its head/tail pieces `substeps` (K2) with the
+// same (pd_iters, fd_iters) schedule.
 //
 // What bounds it on the H100: float32 arithmetic outside the tensor cores
 // (67 TFLOP/s). Per env and substep the dense algorithm assembles
@@ -331,6 +344,12 @@ HD void exact_inverses(float* sm, int tid, int nth) {
   SYNC();
 }
 
+// Which substeps a launch runs: all (K1), substep 0 (K2 head) or
+// substeps 1.. (K2 tail).
+enum { PART_FULL = 0, PART_HEAD = 1, PART_TAIL = 2 };
+
+// Substeps of one env. The head stores Xp, Xf to X (env-major, Xp then
+// Xf); the tail loads them from X.
 HD void control_step_env(int env, int tid, int nth, float* sm,
                          const float* __restrict__ P,
                          const int* __restrict__ I,
@@ -340,7 +359,7 @@ HD void control_step_env(int env, int tid, int nth, float* sm,
                          const float* __restrict__ tb_in,
                          float* __restrict__ qpos_out,
                          float* __restrict__ qvel_out, int act_dim,
-                         float rfc_rate) {
+                         float rfc_rate, int part, float* X) {
   const float* S = P + P_SCALAR;
   const float dt = S[S_DT];
   const int fs = I[I_FRAME_SKIP];
@@ -366,10 +385,15 @@ HD void control_step_env(int env, int tid, int nth, float* sm,
     act[t] = act_in[(size_t)env * act_dim + t];
   for (int t = tid; t < NDOF; t += nth)
     sm[SM_TB + t] = tb_in[(size_t)env * NDOF + t];
+  if (part == PART_TAIL)
+    for (int t = tid; t < 2 * NV * NV; t += nth)
+      sm[SM_XP + t] = X[(size_t)env * 2 * NV * NV + t];
   SYNC();
 
+  const int s_begin = part == PART_TAIL ? 1 : 0;
+  const int s_end = part == PART_HEAD ? 1 : fs;
 #pragma unroll 1
-  for (int s = 0; s < fs; ++s) {
+  for (int s = s_begin; s < s_end; ++s) {
     const float ks = meta ? clampf(act[NDOF + vf_dim + s] + 1.0f, 0.f, 10.f)
                           : 1.0f;
     const float ds = meta
@@ -860,6 +884,9 @@ HD void control_step_env(int env, int tid, int nth, float* sm,
     SYNC();
   }
 
+  if (part == PART_HEAD)
+    for (int t = tid; t < 2 * NV * NV; t += nth)
+      X[(size_t)env * 2 * NV * NV + t] = sm[SM_XP + t];
   for (int t = tid; t < NQ; t += nth) qpos_out[(size_t)env * NQ + t] = qpos[t];
   for (int t = tid; t < NV; t += nth) qvel_out[(size_t)env * NV + t] = qvel[t];
 }
@@ -875,46 +902,113 @@ extern "C" int uhc_control_step_layout(int* out) {
 }
 
 #ifdef __CUDACC__
+#define KERNEL_ARGS                                                         \
+  const float* __restrict__ P, const int* __restrict__ I,                  \
+      const float* __restrict__ qpos_in, const float* __restrict__ qvel_in, \
+      const float* __restrict__ act_in, const float* __restrict__ tb_in,    \
+      float* __restrict__ qpos_out, float* __restrict__ qvel_out,           \
+      int act_dim, float rfc_rate
+
 __global__ void __launch_bounds__(NTHREADS, 1)
-control_step_kernel(const float* __restrict__ P, const int* __restrict__ I,
-                    const float* __restrict__ qpos_in,
-                    const float* __restrict__ qvel_in,
-                    const float* __restrict__ act_in,
-                    const float* __restrict__ tb_in,
-                    float* __restrict__ qpos_out,
-                    float* __restrict__ qvel_out, int act_dim,
-                    float rfc_rate) {
+control_step_kernel(KERNEL_ARGS) {
   extern __shared__ float sm[];
   control_step_env(blockIdx.x, threadIdx.x, blockDim.x, sm, P, I, qpos_in,
                    qvel_in, act_in, tb_in, qpos_out, qvel_out, act_dim,
-                   rfc_rate);
+                   rfc_rate, PART_FULL, nullptr);
 }
 
-// Launches on `stream`; returns the CUDA error code of the launch (0 = ok).
+__global__ void __launch_bounds__(NTHREADS, 1)
+control_step_head_kernel(KERNEL_ARGS, float* __restrict__ X) {
+  extern __shared__ float sm[];
+  control_step_env(blockIdx.x, threadIdx.x, blockDim.x, sm, P, I, qpos_in,
+                   qvel_in, act_in, tb_in, qpos_out, qvel_out, act_dim,
+                   rfc_rate, PART_HEAD, X);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+control_step_tail_kernel(KERNEL_ARGS, float* __restrict__ X) {
+  extern __shared__ float sm[];
+  control_step_env(blockIdx.x, threadIdx.x, blockDim.x, sm, P, I, qpos_in,
+                   qvel_in, act_in, tb_in, qpos_out, qvel_out, act_dim,
+                   rfc_rate, PART_TAIL, X);
+}
+
+template <typename Kernel, typename... Args>
+static int launch(Kernel kernel, int B, void* stream, Args... args) {
+  const int smem = SM_TOTAL * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<B, NTHREADS, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// Each launches on `stream` and returns the CUDA error code of the launch
+// (0 = ok). X is (B, 2, NV, NV) float32: written by the head, read by the
+// tail.
 extern "C" int uhc_control_step(const float* P, const int* I,
                                 const float* qpos, const float* qvel,
                                 const float* act, const float* tb,
                                 float* qpos_out, float* qvel_out, int B,
                                 int act_dim, float rfc_rate, void* stream) {
-  const int smem = SM_TOTAL * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      control_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  control_step_kernel<<<B, NTHREADS, smem, (cudaStream_t)stream>>>(
-      P, I, qpos, qvel, act, tb, qpos_out, qvel_out, act_dim, rfc_rate);
-  return (int)cudaGetLastError();
+  return launch(control_step_kernel, B, stream, P, I, qpos, qvel, act, tb,
+                qpos_out, qvel_out, act_dim, rfc_rate);
+}
+
+extern "C" int uhc_control_step_head(const float* P, const int* I,
+                                     const float* qpos, const float* qvel,
+                                     const float* act, const float* tb,
+                                     float* qpos_out, float* qvel_out,
+                                     float* X, int B, int act_dim,
+                                     float rfc_rate, void* stream) {
+  return launch(control_step_head_kernel, B, stream, P, I, qpos, qvel, act,
+                tb, qpos_out, qvel_out, act_dim, rfc_rate, X);
+}
+
+extern "C" int uhc_control_step_tail(const float* P, const int* I,
+                                     const float* qpos, const float* qvel,
+                                     const float* act, const float* tb,
+                                     float* qpos_out, float* qvel_out,
+                                     float* X, int B, int act_dim,
+                                     float rfc_rate, void* stream) {
+  return launch(control_step_tail_kernel, B, stream, P, I, qpos, qvel, act,
+                tb, qpos_out, qvel_out, act_dim, rfc_rate, X);
 }
 #else
 // Host build: every env on one thread, in order.
+static int run_host(const float* P, const int* I, const float* qpos,
+                    const float* qvel, const float* act, const float* tb,
+                    float* qpos_out, float* qvel_out, int B, int act_dim,
+                    float rfc_rate, int part, float* X) {
+  std::vector<float> sm(SM_TOTAL);
+  for (int env = 0; env < B; ++env)
+    control_step_env(env, 0, 1, sm.data(), P, I, qpos, qvel, act, tb,
+                     qpos_out, qvel_out, act_dim, rfc_rate, part, X);
+  return 0;
+}
+
 extern "C" int uhc_control_step_host(const float* P, const int* I,
                                      const float* qpos, const float* qvel,
                                      const float* act, const float* tb,
                                      float* qpos_out, float* qvel_out, int B,
                                      int act_dim, float rfc_rate) {
-  std::vector<float> sm(SM_TOTAL);
-  for (int env = 0; env < B; ++env)
-    control_step_env(env, 0, 1, sm.data(), P, I, qpos, qvel, act, tb,
-                     qpos_out, qvel_out, act_dim, rfc_rate);
-  return 0;
+  return run_host(P, I, qpos, qvel, act, tb, qpos_out, qvel_out, B, act_dim,
+                  rfc_rate, PART_FULL, nullptr);
+}
+
+extern "C" int uhc_control_step_head_host(
+    const float* P, const int* I, const float* qpos, const float* qvel,
+    const float* act, const float* tb, float* qpos_out, float* qvel_out,
+    float* X, int B, int act_dim, float rfc_rate) {
+  return run_host(P, I, qpos, qvel, act, tb, qpos_out, qvel_out, B, act_dim,
+                  rfc_rate, PART_HEAD, X);
+}
+
+extern "C" int uhc_control_step_tail_host(
+    const float* P, const int* I, const float* qpos, const float* qvel,
+    const float* act, const float* tb, float* qpos_out, float* qvel_out,
+    float* X, int B, int act_dim, float rfc_rate) {
+  return run_host(P, I, qpos, qvel, act, tb, qpos_out, qvel_out, B, act_dim,
+                  rfc_rate, PART_TAIL, X);
 }
 #endif

@@ -4,8 +4,9 @@ of uhc_tpu.envs.humanoid_im).
 The env is a set of functions over an `EnvState` of (B, ...) tensors and a
 device-resident expert library. One 30 Hz control step is frame_skip
 stable-PD substeps at 450 Hz; `make_env_step_batched` routes them through
-the hand-written CUDA control-step kernel (`physics.control_step`) when
-given the model to bake, else through the plain PCG chain.
+a hand-written CUDA control-step kernel (K1 `physics.control_step`, or K2
+`physics.control_step_split` under UHC_TPU_LANE=0) when given the model to
+bake, else through the plain PCG chain.
 
 Ported: obs v1, the world_rfc_implicit reward, implicit RFC, plain and
 meta-PD, body-diff termination.
@@ -13,6 +14,7 @@ meta-PD, body-diff termination.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict
 
 import torch
@@ -40,6 +42,17 @@ class EnvState:
     fail: Any          # (B,) bool
     end: Any           # (B,) bool
     percent: Any       # (B,) float
+
+
+def state_where(mask, new: EnvState, old: EnvState) -> EnvState:
+    """Per-env select between two states: `new` where the (B,) mask is
+    true."""
+    out = {}
+    for f in dataclasses.fields(EnvState):
+        a, b = getattr(new, f.name), getattr(old, f.name)
+        m = mask.reshape((-1,) + (1,) * (a.dim() - 1))
+        out[f.name] = torch.where(m, a, b)
+    return EnvState(**out)
 
 
 PER_SEQ_KEYS = ("len", "height_lb", "head_height_lb")
@@ -258,13 +271,25 @@ def env_step(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
 def make_env_step_batched(topo: Topology, cfg: EnvConfig,
                           fused_model: Model = None):
     """Batched control step. With `fused_model` (the model the episode will
-    simulate) the substeps run through the control-step kernel with the
-    production (1, 2) PCG schedule; otherwise through the plain PCG chain
-    with 5 iterations (the JAX default)."""
+    simulate) the substeps run through a control-step kernel, chosen by
+    UHC_TPU_LANE when the step is built, as in the JAX package: "1" (the
+    default) gives K1 (`ControlStep`) with the production (1, 2) PCG
+    schedule, "0" gives K2's head/tail split (`ControlStepSplit`) with
+    symmetric PCG-2. Without `fused_model` the substeps run through the
+    plain PCG chain with 5 iterations (the JAX default). The returned step
+    carries the kernel wrapper it calls as `step.kernel` (None for the
+    plain chain)."""
+    kernel = None
     if fused_model is not None:
-        from uhc_tpu_torch.physics.control_step import ControlStep
+        if os.environ.get("UHC_TPU_LANE", "1") == "1":
+            from uhc_tpu_torch.physics.control_step import ControlStep
 
-        kernel = ControlStep(topo, cfg, fused_model, pcg_iters=(1, 2))
+            kernel = ControlStep(topo, cfg, fused_model, pcg_iters=(1, 2))
+        else:
+            from uhc_tpu_torch.physics.control_step_split import \
+                ControlStepSplit
+
+            kernel = ControlStepSplit(topo, cfg, fused_model, pcg_iters=2)
 
         def sim(model, qpos, qvel, actions, target_base, rfc_rate):
             return kernel(qpos, qvel, actions, target_base, rfc_rate)
@@ -286,6 +311,7 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
         return env_post_step(topo, model, cfg, states, actions, expert_lib,
                              jpos_diffw, body_diffw, train)
 
+    step.kernel = kernel
     return step
 
 

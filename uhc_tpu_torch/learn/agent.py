@@ -1,0 +1,275 @@
+"""Copycat training agent (PyTorch twin of uhc_tpu.learn.agent
+CopycatAgent) on the 24-body stand-in humanoid.
+
+One epoch (agent_copycat.py:326 optimize_policy): the adaptive schedules,
+a rollout of B humanoids × T control steps on the device (physics, obs,
+reward, auto-reset), GAE, the PPO update, and the hard-mining telemetry
+back to the host sampler. On CUDA the physics runs through a control-step
+kernel (K1, or K2 under UHC_TPU_LANE=0); on the CPU, which the caller asks
+for with device="cpu", through the plain PCG-5 chain, as the JAX agent
+does off the TPU.
+
+The reset pose for reactive initialization is the first frame of the
+first clip at rest (the reference's standing_neutral.pkl is not in the
+repository). Checkpoints are pickles of numpy arrays in the JAX package's
+layout, so either package loads the other's.
+"""
+from __future__ import annotations
+
+import glob
+import json
+import os
+import pickle
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from uhc_tpu_torch.config.config import Config
+from uhc_tpu_torch.data import joblib_compat
+from uhc_tpu_torch.data.dataset import (build_expert_library,
+                                        load_motion_file,
+                                        neutral_from_library)
+from uhc_tpu_torch.data.sampling import FailureFrequencySampler
+from uhc_tpu_torch.device import resolve_device
+from uhc_tpu_torch.envs import humanoid_im as H
+from uhc_tpu_torch.learn import nets, running_norm as RN
+from uhc_tpu_torch.learn.gae import estimate_advantages
+from uhc_tpu_torch.learn.ppo import ppo_update
+from uhc_tpu_torch.learn.rollout import init_env_states, make_rollout_fn
+from uhc_tpu_torch.physics.model import model_from_numpy
+from uhc_tpu_torch.smpl.constants import default_diff_weights
+from uhc_tpu_torch.smpl.fixture_humanoid import load_fixture_humanoid
+
+
+class CopycatAgent:
+    def __init__(self, cfg: Config, motion_file: str, num_envs: int = 1024,
+                 horizon: int = 48, seed: Optional[int] = None,
+                 max_seq_len: Optional[int] = None,
+                 results_dir: Optional[str] = None, device=None):
+        if cfg.actor_type != "mcp" or not cfg.fix_std:
+            raise NotImplementedError("the port trains the MCP policy with a "
+                                      "scheduled (fixed) std")
+        self.cfg, self.env_cfg = cfg, cfg.env
+        self.num_envs, self.horizon = num_envs, horizon
+        self.device = dev = resolve_device(device)
+        self.results_dir = results_dir or os.path.join(
+            "results", cfg.cfg_id + "_torch")
+        os.makedirs(os.path.join(self.results_dir, "models"), exist_ok=True)
+
+        self.topo, model_np = load_fixture_humanoid()
+        self.model = model_from_numpy(model_np, dev)
+        self.expert_lib, self.seq_keys = build_expert_library(
+            self.topo, self.model, load_motion_file(motion_file),
+            max_len=max_seq_len)
+        nq, nv = neutral_from_library(self.expert_lib)
+        jpw, bdw = default_diff_weights()
+        self.aux = {"neutral_qpos": nq, "neutral_qvel": nv,
+                    "jpos_diffw": torch.as_tensor(jpw, device=dev),
+                    "body_diffw": torch.as_tensor(bdw, device=dev)}
+        self.action_dim = sum(H.action_dims(self.topo, self.env_cfg))
+        self.obs_dim = H.obs_dim(self.topo, self.env_cfg)
+
+        seed = cfg.seed if seed is None else seed
+        init_gen = torch.Generator().manual_seed(seed)
+        self.policy = nets.policy_mcp_init(
+            self.obs_dim, self.action_dim, cfg.policy_hsize, cfg.composer_dim,
+            cfg.num_primitive, init_gen, cfg.policy_htype, dev)
+        self.value = nets.value_init(self.obs_dim, cfg.value_hsize, init_gen,
+                                     cfg.value_htype, dev)
+        self.log_std = torch.full((self.action_dim,), cfg.log_std,
+                                  device=dev)
+        self._make_optimizers()
+        # every draw of rollouts and PPO shuffles, on the device
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
+
+        self.rs = RN.init(self.obs_dim, dev)
+        self.env_states = init_env_states(self.topo, self.env_cfg,
+                                          self.model, self.expert_lib,
+                                          self.aux, self.gen, num_envs)
+        self.sampler = FailureFrequencySampler(
+            len(self.seq_keys), cfg.sampling_temp, cfg.sampling_freq)
+        self.precision_mode = cfg.precision_mode
+
+        self._fused_model = self.model if dev.type == "cuda" else None
+        self._rollout = make_rollout_fn(
+            self.topo, self.env_cfg, lambda x: self.policy(x), horizon,
+            fused_model=self._fused_model)
+        self.minibatch = min(cfg.mini_batch_size, num_envs * horizon)
+        self.epoch = 0
+        # episode-end reward bonus from the previous epoch's average custom
+        # reward (agent_copycat.py:333-334)
+        self.end_reward = 0.0
+        self._eval_fn = None
+
+    def _make_optimizers(self):
+        self.policy_opt = torch.optim.Adam(self.policy.parameters(),
+                                           lr=self.cfg.policy_lr)
+        self.value_opt = torch.optim.Adam(self.value.parameters(),
+                                          lr=self.cfg.value_lr)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- one PPO epoch --------------------------------------------------------
+    def optimize_policy(self, epoch: int) -> dict:
+        """Adaptive schedules + rollout + GAE + PPO + mining telemetry
+        (agent_copycat.py:326 optimize_policy / :279 per_epoch_update)."""
+        cfg, dev = self.cfg, self.device
+        t0 = time.perf_counter()
+        noise_rate, log_std_sched, _lr = cfg.adaptive_params(epoch)
+        self.log_std = torch.full_like(self.log_std, log_std_sched)
+        rfc_rate = (max(0.0, 1.0 - epoch / 10000.0)
+                    if self.env_cfg.rfc_decay else 1.0)
+        seq_logits = torch.as_tensor(self.sampler.logits(), device=dev)
+        fail_pool = torch.as_tensor(self.sampler.fail_start_pool(),
+                                    dtype=torch.int64, device=dev)
+        precision_freq = cfg.sampling_freq if self.precision_mode else 0.0
+
+        self.env_states, self.rs, traj, last_obs = self._rollout(
+            self.model, self.expert_lib, self.aux, self.log_std, self.rs,
+            self.env_states, self.gen, noise_rate, rfc_rate, seq_logits,
+            self.end_reward, fail_pool, precision_freq)
+        self._sync()
+        t1 = time.perf_counter()
+
+        T, B = traj.rewards.shape
+        states = traj.states.reshape(T * B, self.obs_dim)
+        with torch.no_grad():
+            values = self.value(states).reshape(T, B)
+            bootstrap = self.value(last_obs)
+        adv, ret = estimate_advantages(traj.rewards, traj.masks, values,
+                                       bootstrap, cfg.gamma, cfg.tau)
+        batch = {"states": states,
+                 "actions": traj.actions.reshape(T * B, self.action_dim),
+                 "advantages": adv.reshape(-1), "returns": ret.reshape(-1),
+                 "exps": traj.exps.reshape(-1)}
+        ppo_stats = ppo_update(self.policy, self.value, self.policy_opt,
+                               self.value_opt, self.log_std, batch, self.gen,
+                               cfg.clip_epsilon, cfg.num_optim_epoch,
+                               self.minibatch)
+        self._sync()
+        t2 = time.perf_counter()
+
+        done_f = traj.dones.to(torch.float32)
+        n_done = torch.clamp(done_f.sum(), min=1.0)
+        scalars = {
+            "reward_mean": traj.rewards.mean(),
+            "c_reward_mean": traj.c_rewards.mean(),
+            "episodes": done_f.sum(),
+            "avg_percent": (traj.percents * done_f).sum() / n_done,
+            # 1-ulp tolerance, as in learn/metrics.py succ
+            "success_rate": ((traj.percents >= 1.0 - 1e-5) * done_f).sum()
+            / n_done,
+            "avg_eps_len": self.horizon * self.num_envs / n_done,
+            **ppo_stats}
+        stats = dict(zip(scalars, torch.stack(
+            [torch.as_tensor(v, dtype=torch.float32, device=dev)
+             for v in scalars.values()]).tolist()))
+        stats["reward_terms"] = traj.reward_terms.mean((0, 1)).tolist()
+        if cfg.end_reward:
+            self.end_reward = stats["c_reward_mean"] * cfg.gamma / (
+                1.0 - cfg.gamma)
+        self.sampler.update_from_rollout(
+            *(x.cpu().numpy() for x in (traj.seq_idx, traj.dones,
+                                        traj.percents, traj.start_inds)))
+        stats["T_total"] = time.perf_counter() - t0
+        stats["T_rollout"] = t1 - t0
+        stats["T_update"] = t2 - t1
+        stats["steps"] = T * B
+        stats["steps_per_sec"] = stats["steps"] / stats["T_total"]
+        stats["rollout_steps_per_sec"] = stats["steps"] / stats["T_rollout"]
+        self.epoch = epoch
+        return stats
+
+    # -- evaluation during training (agent_copycat.py:346-349) ----------------
+    def eval_policy(self, track_best: bool = True) -> dict:
+        """Deterministic eval over the whole library; returns the
+        summarize() dict and keeps iter_best.p for the best coverage
+        (agent_copycat.py:216-236)."""
+        from uhc_tpu_torch.learn.evaluate import make_eval_fn, summarize
+
+        if self._eval_fn is None:
+            max_steps = int(self.expert_lib["len"].max()) - 1
+            self._eval_fn = make_eval_fn(
+                self.topo, self.env_cfg, lambda x: self.policy(x), max_steps,
+                fused_model=self._fused_model)
+        traj, fail_safe, percent = self._eval_fn(self.model, self.expert_lib,
+                                                 self.aux, self.rs)
+        res = summarize(traj, fail_safe, percent, self.expert_lib,
+                        self.seq_keys)
+        cov = res["summary"]["coverage"]
+        if not track_best:
+            return res
+        if not hasattr(self, "_best_coverage"):
+            # a fresh run must not clobber a better iter_best.p
+            self._best_coverage = self._read_best_coverage()
+        if cov > self._best_coverage or (cov == self._best_coverage
+                                         and self._owns_best):
+            self._best_coverage = cov
+            self._owns_best = True
+            self.save_checkpoint(self.epoch, name="iter_best.p",
+                                 extra={"coverage": cov})
+        return res
+
+    _owns_best = False
+
+    def _read_best_coverage(self):
+        path = os.path.join(self.results_dir, "models", "iter_best.p")
+        if not os.path.exists(path):
+            return -1
+        cov = joblib_compat.load(path).get("coverage")
+        if cov is not None:
+            return cov
+        # an iter_best.p without a coverage key: the best of the eval
+        # history
+        best = 0
+        for fn in glob.glob(os.path.join(self.results_dir, "eval_*.json")):
+            with open(fn) as f:
+                best = max(best, json.load(f).get("coverage", 0))
+        return best
+
+    # -- checkpointing (pickle, like the reference iter_%04d.p) ---------------
+    def checkpoint_path(self, epoch: int) -> str:
+        return os.path.join(self.results_dir, "models", f"iter_{epoch:04d}.p")
+
+    def save_checkpoint(self, epoch: int, name: str | None = None,
+                        extra: dict | None = None):
+        state = {
+            "policy_params": nets.policy_to_numpy(self.policy),
+            "value_params": nets.value_to_numpy(self.value),
+            "log_std": self.log_std.cpu().numpy(),
+            "running_stats": RN.to_numpy(self.rs),
+            "sampler": self.sampler.state_dict(),
+            "epoch": epoch,
+            **(extra or {}),
+        }
+        path = (os.path.join(self.results_dir, "models", name)
+                if name else self.checkpoint_path(epoch))
+        with open(path, "wb") as f:
+            pickle.dump(state, f)
+        return path
+
+    def load_checkpoint(self, epoch: int):
+        self.load_checkpoint_file(self.checkpoint_path(epoch))
+
+    def load_checkpoint_file(self, path: str, warm_start: bool = False):
+        """Restore networks and running stats from a checkpoint of either
+        package (fresh optimizer state). warm_start=True leaves the epoch
+        counter and the sampler fresh (cross-run warm start)."""
+        state = joblib_compat.load(path)
+        dev = self.device
+        self.log_std = torch.as_tensor(np.asarray(state["log_std"],
+                                                  np.float32), device=dev)
+        self.policy = nets.policy_from_numpy(state["policy_params"],
+                                             self.cfg.policy_htype, dev)
+        self.value = nets.value_from_numpy(state["value_params"],
+                                           self.cfg.value_htype, dev)
+        self._make_optimizers()
+        self.rs = RN.from_numpy(state["running_stats"], dev)
+        if warm_start:
+            return
+        self.sampler.load_state_dict(state["sampler"])
+        self.epoch = state["epoch"]

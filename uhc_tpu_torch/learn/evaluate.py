@@ -66,7 +66,7 @@ def make_eval_fn(topo: Topology, cfg: EnvConfig, policy_mean_fn,
                 fail=torch.zeros_like(states2.fail))
             fail_safe = fail_safe | tele
             # only advance while the clip is active
-            states = _state_where(active, states2, states)
+            states = H.state_where(active, states2, states)
             kin = E.fk(topo, model, states.qpos)
             pred_qpos.append(states.qpos)
             pred_jpos.append(kin["xpos"].reshape(S, -1))
@@ -77,16 +77,6 @@ def make_eval_fn(topo: Topology, cfg: EnvConfig, policy_mean_fn,
         return traj, fail_safe, states.percent
 
     return eval_all
-
-
-def _state_where(mask, new: H.EnvState, old: H.EnvState) -> H.EnvState:
-    """Per-env select between two states."""
-    out = {}
-    for f in dataclasses.fields(H.EnvState):
-        a, b = getattr(new, f.name), getattr(old, f.name)
-        m = mask.reshape((-1,) + (1,) * (a.dim() - 1))
-        out[f.name] = torch.where(m, a, b)
-    return H.EnvState(**out)
 
 
 def summarize(traj, fail_safe, percent, expert_lib, seq_keys) -> Dict:

@@ -4,7 +4,8 @@ policy mean and the value head).
 
 Weights use the JAX package's (in, out) layout so a checkpoint's parameter
 tree carries across unchanged: `policy_from_numpy` / `value_from_numpy`
-take the nested dicts and lists of numpy arrays of a checkpoint pickle.
+take the nested dicts and lists of numpy arrays of a checkpoint pickle,
+`policy_to_numpy` / `value_to_numpy` write them.
 """
 from __future__ import annotations
 
@@ -147,8 +148,58 @@ def value_from_numpy(params, activation: str = "relu",
     return m.to(device).eval()
 
 
+def _dump_trunk(mlp: MLP, head: bool):
+    def arr(p):
+        return p.detach().cpu().numpy().copy()
+
+    layers = [{"w": arr(w), "b": arr(b)} for w, b in zip(mlp.ws, mlp.bs)]
+    return layers, ({"w": arr(mlp.head_w), "b": arr(mlp.head_b)}
+                    if head else None)
+
+
+def policy_to_numpy(m: nn.Module) -> dict:
+    """PolicyMCP / PolicyGaussian -> the JAX parameter tree (numpy)."""
+    if isinstance(m, PolicyMCP):
+        trunk, head = _dump_trunk(m.prims, True)
+        return {"prims": {"trunk": trunk, "head": head},
+                "composer": {"trunk": _dump_trunk(m.composer, False)[0]}}
+    trunk, head = _dump_trunk(m.net, True)
+    return {"trunk": trunk, "mean": head}
+
+
+def value_to_numpy(m: Value) -> dict:
+    trunk, head = _dump_trunk(m.net, True)
+    return {"trunk": trunk, "head": head}
+
+
+def gaussian_log_prob(mean, log_std, action):
+    """Diagonal Gaussian log-density, summed over the action axis."""
+    var = torch.exp(2.0 * log_std)
+    lp = -((action - mean) ** 2) / (2 * var) - 0.5 * np.log(2 * np.pi) \
+        - log_std
+    return lp.sum(-1)
+
+
 def _uniform(shape, lim, gen):
     return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * lim
+
+
+@torch.no_grad()
+def _init_trunks(generator, *mlps):
+    """torch nn.Linear's U(±1/√fan_in) init of every trunk layer."""
+    for mlp in mlps:
+        for w, b in zip(mlp.ws, mlp.bs):
+            lim = 1.0 / np.sqrt(w.shape[-2])
+            w.copy_(_uniform(w.shape, lim, generator))
+            b.copy_(_uniform(b.shape, lim, generator))
+
+
+@torch.no_grad()
+def _init_head(mlp: MLP, generator):
+    """The JAX init of an output head: 0.1-scaled weights, zero bias."""
+    lim = 1.0 / np.sqrt(mlp.head_w.shape[-2])
+    mlp.head_w.copy_(0.1 * _uniform(mlp.head_w.shape, lim, generator))
+    mlp.head_b.zero_()
 
 
 def policy_mcp_init(state_dim, action_dim, hidden, composer_hidden,
@@ -158,14 +209,15 @@ def policy_mcp_init(state_dim, action_dim, hidden, composer_hidden,
     heads scaled by 0.1 with zero bias, as the JAX init)."""
     m = PolicyMCP(state_dim, action_dim, hidden, composer_hidden,
                   num_primitive, activation)
-    with torch.no_grad():
-        for mlp in (m.prims, m.composer):
-            for w, b in zip(mlp.ws, mlp.bs):
-                lim = 1.0 / np.sqrt(w.shape[-2])
-                w.copy_(_uniform(w.shape, lim, generator))
-                b.copy_(_uniform(b.shape, lim, generator))
-        lim = 1.0 / np.sqrt(m.prims.head_w.shape[-2])
-        m.prims.head_w.copy_(0.1 * _uniform(m.prims.head_w.shape, lim,
-                                            generator))
-        m.prims.head_b.zero_()
+    _init_trunks(generator, m.prims, m.composer)
+    _init_head(m.prims, generator)
+    return m.to(device).eval()
+
+
+def value_init(state_dim, hidden, generator: torch.Generator,
+               activation="relu", device="cuda") -> Value:
+    """Seeded random value net, initialized as the policy."""
+    m = Value(state_dim, hidden, activation)
+    _init_trunks(generator, m.net)
+    _init_head(m.net, generator)
     return m.to(device).eval()

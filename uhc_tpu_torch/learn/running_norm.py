@@ -1,5 +1,6 @@
 """Running observation normalization (ZFilter twin of
-uhc_tpu.learn.running_norm): evaluation only reads the statistics."""
+uhc_tpu.learn.running_norm): Welford statistics, merged batch by batch
+during rollouts (Chan et al.'s parallel update) and read by evaluation."""
 from __future__ import annotations
 
 import dataclasses
@@ -25,6 +26,31 @@ def from_numpy(d, device="cuda") -> RunningStats:
     def t(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=device)
     return RunningStats(t(d["n"]), t(d["mean"]), t(d["m2"]))
+
+
+def update_batch(rs: RunningStats, x: torch.Tensor,
+                 mask=None) -> RunningStats:
+    """Merge a (B, D) batch (optionally row-masked) into the stats."""
+    if mask is None:
+        bn = x.new_tensor(float(x.shape[0]))
+        bmean = x.mean(0)
+        bm2 = ((x - bmean) ** 2).sum(0)
+    else:
+        m = mask.to(x.dtype)[:, None]
+        bn = torch.clamp(m.sum(), min=1e-8)
+        bmean = (x * m).sum(0) / bn
+        bm2 = (((x - bmean) ** 2) * m).sum(0)
+    n = rs.n + bn
+    delta = bmean - rs.mean
+    mean = rs.mean + delta * bn / n
+    m2 = rs.m2 + bm2 + delta ** 2 * rs.n * bn / n
+    return RunningStats(n, mean, m2)
+
+
+def to_numpy(rs: RunningStats) -> dict:
+    """The checkpoint layout {n, mean, m2} of numpy float32 arrays."""
+    return {k: getattr(rs, k).detach().cpu().numpy()
+            for k in ("n", "mean", "m2")}
 
 
 def std(rs: RunningStats) -> torch.Tensor:

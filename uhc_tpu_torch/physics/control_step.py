@@ -176,13 +176,15 @@ class ControlStep:
         return qpos_out, qvel_out
 
 
-def control_step_flops(topo: Topology, cfg, active, pcg_iters=(1, 2)):
+def control_step_flops(topo: Topology, cfg, active, pcg_iters=(1, 2),
+                       start: int = 0):
     """Floating-point operations (multiply-add = 2) the kernel's algorithm
     needs for one control step of a batch, from the data: `active` holds,
     per substep, the (B, nb) bool ground-contact sets (as recorded by
-    `solver.do_simulation(..., trace=...)`). Counts the subtree-limited
-    M, J6ᵀ·wrench and CD sums (CD and K = W·J6 only over bodies in
-    contact), the substep-0 Cholesky inverses and the PCG matvecs."""
+    `solver.do_simulation(..., trace=...)`), starting at substep `start`
+    (1 counts K2's tail alone). Counts the subtree-limited M, J6ᵀ·wrench
+    and CD sums (CD and K = W·J6 only over bodies in contact), the
+    substep-0 Cholesky inverses and the PCG matvecs."""
     pd_iters, fd_iters = ((pcg_iters, pcg_iters)
                           if isinstance(pcg_iters, int) else pcg_iters)
     end = topo.subtree_end()
@@ -211,6 +213,7 @@ def control_step_flops(topo: Topology, cfg, active, pcg_iters=(1, 2)):
     for s, act in enumerate(active):
         act = np.asarray(act, bool)
         B = act.shape[0]
-        total += B * (m_flops + proj + pcg + (inv if s == 0 else 0.0))
+        total += B * (m_flops + proj + pcg + (inv if s + start == 0
+                                              else 0.0))
         total += (act * (2.0 * 6 * pairs_with + 2.0 * 36 * NV)).sum()
     return total

@@ -1,0 +1,120 @@
+"""K2: the head/tail control step as two hand-written CUDA kernels
+(`csrc/control_step.cu` `control_step_head_kernel` /
+`control_step_tail_kernel`), replacing the TPU kernel
+uhc_tpu/physics/pallas_substep.py:284 make_fused_do_simulation with
+split=True, the route the JAX package takes under UHC_TPU_LANE=0.
+
+`ControlStepSplit(topo, cfg, model, pcg_iters=2)` runs the symmetric PCG
+schedule (pcg_iters on both the PD and the FD solve). A call launches the
+head (substep 0: state and the exact inverses Xp, Xf of A_pd, A_fd, written
+to a (B, 2, 75, 75) float32 buffer) and then the tail (substeps 1..14,
+warm-started from Xp, Xf) on the current stream. On CPU tensors it runs
+the plain version: `solver.substeps` over substep 0, then over 1..14.
+Its one-launch counterpart is K1 with the same schedule,
+`ControlStep(..., pcg_iters=(p, p))`, which head + tail equal bit for bit.
+
+`HEAD_LAUNCHES` / `TAIL_LAUNCHES` count kernel launches (not plain-version
+calls); `reset_launches` sets both to 0.
+"""
+from __future__ import annotations
+
+import torch
+
+from uhc_tpu_torch.physics import solver as S
+from uhc_tpu_torch.physics.control_step import NV, ControlStep
+
+HEAD_LAUNCHES = 0
+TAIL_LAUNCHES = 0
+
+
+def reset_launches() -> None:
+    global HEAD_LAUNCHES, TAIL_LAUNCHES
+    HEAD_LAUNCHES = TAIL_LAUNCHES = 0
+
+
+def head_reference(topo, cfg, model, qpos, qvel, actions, target_base,
+                   rfc_rate=1.0, pcg_iters=2):
+    """Plain head: substep 0 -> (qpos, qvel, X (B, 2, 75, 75))."""
+    q, v, (xp, xf) = S.substeps(topo, cfg, model, qpos, qvel, actions,
+                                target_base, rfc_rate, pcg_iters, 0, 1)
+    return q, v, torch.stack([xp, xf], 1)
+
+
+def tail_reference(topo, cfg, model, qpos, qvel, actions, target_base, X,
+                   rfc_rate=1.0, pcg_iters=2):
+    """Plain tail: substeps 1..frame_skip-1 from the head's state and X."""
+    return S.substeps(topo, cfg, model, qpos, qvel, actions, target_base,
+                      rfc_rate, pcg_iters, 1, cfg.frame_skip,
+                      inverses=(X[:, 0], X[:, 1]))[:2]
+
+
+class ControlStepSplit(ControlStep):
+    """K2 with the model baked in (the tables and input checks of K1)."""
+
+    def __init__(self, topo, cfg, model, pcg_iters: int = 2):
+        if not isinstance(pcg_iters, int):
+            raise TypeError("K2 runs one PCG count on both solves")
+        super().__init__(topo, cfg, model, (pcg_iters, pcg_iters))
+
+    def _launch(self, entry, qpos, qvel, actions, target_base, X, rfc_rate):
+        from uhc_tpu_torch.csrc import build
+
+        lib = build.load_library()
+        P, I = self._device_tables(qpos.device)
+        q_out, v_out = torch.empty_like(qpos), torch.empty_like(qvel)
+        stream = torch.cuda.current_stream(qpos.device).cuda_stream
+        rc = getattr(lib, entry)(
+            P.data_ptr(), I.data_ptr(), qpos.data_ptr(), qvel.data_ptr(),
+            actions.data_ptr(), target_base.data_ptr(), q_out.data_ptr(),
+            v_out.data_ptr(), X.data_ptr(), qpos.shape[0], self.act_dim,
+            float(rfc_rate), stream)
+        if rc != 0:
+            raise RuntimeError(f"{entry} kernel launch failed: CUDA error "
+                               f"{rc}")
+        return q_out, v_out
+
+    def _check(self, qpos, qvel, actions, target_base) -> int:
+        if qpos.device.type != "cuda":
+            raise ValueError(f"unsupported device {qpos.device}")
+        return self.check_inputs(qpos, qvel, actions, target_base)
+
+    def head(self, qpos, qvel, actions, target_base, rfc_rate=1.0):
+        """Substep 0 -> (qpos, qvel, X (B, 2, 75, 75) = [Xp, Xf])."""
+        global HEAD_LAUNCHES
+        if qpos.device.type == "cpu":
+            return head_reference(self.topo, self.cfg, self.model_on("cpu"),
+                                  qpos, qvel, actions, target_base,
+                                  rfc_rate, self.pcg_iters[0])
+        B = self._check(qpos, qvel, actions, target_base)
+        X = torch.empty((B, 2, NV, NV), dtype=qpos.dtype, device=qpos.device)
+        if B == 0:
+            return torch.empty_like(qpos), torch.empty_like(qvel), X
+        q, v = self._launch("uhc_control_step_head", qpos, qvel, actions,
+                            target_base, X, rfc_rate)
+        HEAD_LAUNCHES += 1
+        return q, v, X
+
+    def tail(self, qpos, qvel, actions, target_base, X, rfc_rate=1.0):
+        """Substeps 1.. from the head's state and X -> (qpos, qvel)."""
+        global TAIL_LAUNCHES
+        if qpos.device.type == "cpu":
+            return tail_reference(self.topo, self.cfg, self.model_on("cpu"),
+                                  qpos, qvel, actions, target_base, X,
+                                  rfc_rate, self.pcg_iters[0])
+        B = self._check(qpos, qvel, actions, target_base)
+        if tuple(X.shape) != (B, 2, NV, NV) or X.dtype != torch.float32 \
+                or X.device != qpos.device or not X.is_contiguous():
+            raise ValueError(f"X: {tuple(X.shape)} {X.dtype} on {X.device}, "
+                             f"expected contiguous float32 ({B}, 2, {NV}, "
+                             f"{NV}) on {qpos.device}")
+        if B == 0:
+            return torch.empty_like(qpos), torch.empty_like(qvel)
+        q, v = self._launch("uhc_control_step_tail", qpos, qvel, actions,
+                            target_base, X, rfc_rate)
+        TAIL_LAUNCHES += 1
+        return q, v
+
+    def __call__(self, qpos, qvel, actions, target_base, rfc_rate=1.0):
+        q, v, X = self.head(qpos, qvel, actions, target_base, rfc_rate)
+        return self.tail(q, v, actions, target_base, X, rfc_rate)
+

@@ -4,7 +4,9 @@ of uhc_tpu.physics.solver).
 Substep 0 of each 30 Hz control step computes exact inverses of A_pd and
 A_fd by blocked Cholesky against the identity; every substep then solves
 both systems by preconditioned conjugate gradient warm-started from those
-inverses, with `(pd_iters, fd_iters)` iterations.
+inverses, with `(pd_iters, fd_iters)` iterations. `substeps` runs a range
+of them: substep 0 alone returns the inverses (the plain version of K2's
+head), substeps 1.. take them (its tail).
 """
 from __future__ import annotations
 
@@ -88,6 +90,16 @@ def do_simulation(topo: Topology, cfg, model: Model, qpos, qvel, actions,
 
     `pcg_iters` is an int or a (pd_iters, fd_iters) pair. A `trace` list
     receives each substep's (B, nb) ground-contact sets."""
+    return substeps(topo, cfg, model, qpos, qvel, actions, target_base,
+                    rfc_rate, pcg_iters, 0, cfg.frame_skip, trace=trace)[:2]
+
+
+def substeps(topo: Topology, cfg, model: Model, qpos, qvel, actions,
+             target_base, rfc_rate, pcg_iters, start: int, stop: int,
+             inverses=None, trace=None):
+    """Substeps [start, stop) of one control step -> (qpos, qvel,
+    (Xpd, Xfd)). A range that starts at 0 computes the exact inverses at
+    substep 0; a later start takes them as `inverses`."""
     check_supported(cfg)
     pd_iters, fd_iters = ((pcg_iters, pcg_iters)
                           if isinstance(pcg_iters, int) else pcg_iters)
@@ -95,8 +107,11 @@ def do_simulation(topo: Topology, cfg, model: Model, qpos, qvel, actions,
     kp_scale, kd_scale = gain_scales(cfg, actions, ndof, vf_dim)
     base_rot = qpos.new_tensor(cfg.base_rot)
     B = qpos.shape[0]
-    Xpd = Xfd = None
-    for i in range(cfg.frame_skip):
+    if (start == 0) == (inverses is not None):
+        raise ValueError("the inverses come from substep 0: pass them "
+                         "exactly when start > 0")
+    Xpd, Xfd = (None, None) if inverses is None else inverses
+    for i in range(start, stop):
         if cfg.action_v == 1:
             base = qpos[:, 7:] + wrap_to_pi(target_base - qpos[:, 7:])
         else:
@@ -125,4 +140,4 @@ def do_simulation(topo: Topology, cfg, model: Model, qpos, qvel, actions,
         rhs[:, 6:] += tau
         qacc = pcg_solve(out["A_fd"], rhs, Xfd, fd_iters)
         qpos, qvel = E.integrate(model, qpos, qvel, qacc)
-    return qpos, qvel
+    return qpos, qvel, (Xpd, Xfd)
