@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch port (uhc_tpu_torch) runs on an NVIDIA
 H100: builds every hand-written kernel from this checkout (K1, the
-one-launch control step, and K2, its head/tail split), holds each against
-its plain PyTorch version on the card, drives the main paths at full
-width with seeded weights -- closed-loop copycat evaluation of every clip
-of sample_data/gait_clips.pkl through K1, and PPO training through
-cli/train with 1024 envs × 48 steps, through K1 (default routing) and
-through K2 (UHC_TPU_LANE=0) -- checks their output, and times the kernels
-at B=2048.
+one-launch control step, K2, its head/tail split, and K1e / K2 over a
+per-env model library), holds each against its plain PyTorch version on
+the card, drives the main paths at full width with seeded weights --
+closed-loop copycat evaluation of every clip of sample_data/gait_clips.pkl
+through K1, PPO training through cli/train with 1024 envs × 48 steps,
+through K1 (default routing) and through K2 (UHC_TPU_LANE=0), and the
+shape-conditioned uhc_implicit_shape config over the 8 bodies of
+sample_data/shape_clips.pkl: eval through K1e, training through K1e and
+K2 over the library, and domain-randomized training through K1e -- checks
+their output, and times the kernels at B=2048.
 
 Usage: python3 chip_smoke.py        (needs one CUDA card; no arguments)
 
@@ -26,7 +29,7 @@ import sys
 import time
 import traceback
 
-DEADLINE_S = 600
+DEADLINE_S = 900
 H100_F32_FLOPS = 67e12      # float32 outside the tensor cores (data sheet)
 H100_BYTES_PER_S = 3.35e12  # HBM3
 # kernel vs plain, one control step: the bounds of tests/test_fused_split.py
@@ -38,6 +41,12 @@ QPOS_TOL, QVEL_TOL = 1e-5, 1e-3
 X_REL_TOL = 1e-4
 B_CHECK, B_TIME = 256, 2048
 TRAIN_ARGS = ["--num-envs", "1024", "--horizon", "48", "--no-train-eval"]
+SHAPE_CLIPS = "sample_data/shape_clips.pkl"
+# the shape run of the JAX package (tools/train_queue.sh:36-38)
+SHAPE_TRAIN_ARGS = ["--cfg", "uhc_implicit_shape", "--motion-file",
+                    SHAPE_CLIPS, "--num-envs", "1024", "--horizon", "32",
+                    "--no-train-eval"]
+DR_TRAIN_ARGS = TRAIN_ARGS + ["--dr-variants", "4"]
 
 _phase = ["start"]
 
@@ -94,12 +103,37 @@ def double_model(model):
                           for f in dataclasses.fields(model)})
 
 
-def run_train(lane, epochs: int, name: str, dev) -> dict:
+def reset_counts() -> None:
+    from uhc_tpu_torch.physics import control_step as CS
+    from uhc_tpu_torch.physics import control_step_split as K2
+
+    CS.reset_launches()
+    K2.reset_launches()
+
+
+def counts() -> dict:
+    """Launches of every kernel since the last reset_counts()."""
+    from uhc_tpu_torch.physics import control_step as CS
+    from uhc_tpu_torch.physics import control_step_split as K2
+
+    return {"k1": CS.LAUNCHES, "k2_head": K2.HEAD_LAUNCHES,
+            "k2_tail": K2.TAIL_LAUNCHES, "k1e": CS.PE_LAUNCHES,
+            "k2e_head": K2.HEAD_PE_LAUNCHES, "k2e_tail": K2.TAIL_PE_LAUNCHES}
+
+
+def expect(steps: int, *kernels) -> dict:
+    """The counts a run of `steps` control steps through `kernels` gives."""
+    return {k: (steps if k in kernels else 0) for k in counts()}
+
+
+def run_train(lane, epochs: int, name: str, dev, args=TRAIN_ARGS,
+              per_env: bool = False) -> dict:
     """Drive cli/train on the card with UHC_TPU_LANE=`lane` (None: unset,
-    the default routing) and check it: launches of the routed kernel
-    exactly one per control step and none of the other, finite stats, the
-    value loss falling across every update, and a checkpoint that reloads
-    to the same policy bit for bit. Returns the launch counts."""
+    the default routing) and check it: launches of the routed kernel (the
+    per-env variant over a model library) exactly one per control step
+    and none of any other, finite stats, the value loss falling across
+    every update, and a checkpoint that reloads to the same policy bit
+    for bit. Returns the launch counts."""
     import tempfile
 
     import numpy as np
@@ -108,8 +142,6 @@ def run_train(lane, epochs: int, name: str, dev) -> dict:
     from uhc_tpu_torch.cli import train
     from uhc_tpu_torch.data import joblib_compat
     from uhc_tpu_torch.learn import nets
-    from uhc_tpu_torch.physics import control_step as CS
-    from uhc_tpu_torch.physics import control_step_split as K2
 
     if lane is None:
         os.environ.pop("UHC_TPU_LANE", None)
@@ -117,15 +149,15 @@ def run_train(lane, epochs: int, name: str, dev) -> dict:
         os.environ["UHC_TPU_LANE"] = lane
     try:
         with tempfile.TemporaryDirectory() as out:
-            CS.reset_launches()
-            K2.reset_launches()
-            agent, hist = train.main(TRAIN_ARGS + [
+            reset_counts()
+            agent, hist = train.main(args + [
                 "--epochs", str(epochs), "--results-dir", out])
-            got = {"k1": CS.LAUNCHES, "k2_head": K2.HEAD_LAUNCHES,
-                   "k2_tail": K2.TAIL_LAUNCHES}
+            got = counts()
             steps = epochs * agent.horizon
-            want = ({"k1": steps, "k2_head": 0, "k2_tail": 0} if lane is None
-                    else {"k1": 0, "k2_head": steps, "k2_tail": steps})
+            routed = {(None, False): ("k1",), (None, True): ("k1e",),
+                      ("0", False): ("k2_head", "k2_tail"),
+                      ("0", True): ("k2e_head", "k2e_tail")}[lane, per_env]
+            want = expect(steps, *routed)
             if got != want:
                 raise RuntimeError(f"{name}: launches {got}, expected {want}")
             for i, st in enumerate(hist):
@@ -138,7 +170,8 @@ def run_train(lane, epochs: int, name: str, dev) -> dict:
                         f"not below {st['value_loss_before']} before the "
                         f"update")
             ck = joblib_compat.load(agent.checkpoint_path(epochs))
-            policy = nets.policy_from_numpy(ck["policy_params"], "relu", dev)
+            policy = nets.policy_from_numpy(ck["policy_params"],
+                                            agent.cfg.policy_htype, dev)
             x = torch.randn((agent.num_envs, agent.obs_dim),
                             generator=torch.Generator().manual_seed(5)).to(dev)
             with torch.no_grad():
@@ -148,7 +181,9 @@ def run_train(lane, epochs: int, name: str, dev) -> dict:
                                    f"another policy mean")
     finally:
         os.environ.pop("UHC_TPU_LANE", None)
-    done(name, launches=got, epochs=epochs,
+    done(name, launches=got, epochs=epochs, cfg=agent.cfg.cfg_id,
+         seqs=len(agent.seq_keys), obs_dim=agent.obs_dim,
+         action_dim=agent.action_dim,
          rollout_env_steps_per_s=[st["rollout_steps_per_sec"]
                                   for st in hist],
          ppo_update_ms=[1e3 * st["T_update"] for st in hist],
@@ -158,6 +193,101 @@ def run_train(lane, epochs: int, name: str, dev) -> dict:
          value_loss_after=[st["value_loss"] for st in hist],
          episodes=[st["episodes"] for st in hist], checkpoint_equal=True)
     return got
+
+
+def shaped_library(topo, model, max_len=None):
+    """The 8 shape clips, each on its own body (synthetic blendshapes):
+    (expert library, keys, model library)."""
+    from uhc_tpu_torch.config.config import Config
+    from uhc_tpu_torch.data.dataset import (build_shaped_library,
+                                            load_motion_file)
+    from uhc_tpu_torch.smpl.lbs import synthetic_smpl_data_like
+
+    return build_shaped_library(
+        topo, model, load_motion_file(SHAPE_CLIPS),
+        synthetic_smpl_data_like(topo, model),
+        Config.uhc_implicit_shape().env, max_len=max_len)
+
+
+def draw_lib_states(lib, B, gen, dev):
+    """draw_states over a library with seq_idx spread evenly over all its
+    rows: (qpos, qvel, target_base, seq_idx int32)."""
+    import torch
+
+    S = lib["qpos"].shape[0]
+    si = (torch.arange(B) % S)[torch.randperm(B, generator=gen)].to(dev)
+    ti = torch.randint(0, int(lib["len"].min()) - 1, (B,),
+                       generator=gen).to(dev)
+    qvel = 0.05 * torch.randn((B, 75), generator=gen).to(dev)
+    return (lib["qpos"][si, ti].contiguous(), qvel.contiguous(),
+            lib["qpos"][si, ti + 1, 7:].contiguous(),
+            si.to(torch.int32).contiguous())
+
+
+def gate(name, out, plain32, plain64) -> tuple:
+    """A kernel's (qpos, qvel) against its float32 and float64 plain
+    versions at the kernel bounds -> (errors, failures).
+
+    Every env is held to the float32 plain version. An env where the
+    float32 plain version is itself outside the bounds of the float64 one
+    sits on a contact discontinuity that float32 rounding crosses (a hull
+    point at the ground plane switches its damper on or off): there the
+    float64 comparison cannot tell the kernel from float32 arithmetic, so
+    such envs are counted and printed with both distances and held to the
+    float32 plain version alone; every other env is held to the float64
+    one as well. More than one such env in eight fails."""
+    import torch
+
+    def per_env(a, b):
+        return (a.double() - b.double()).abs().amax(1)
+
+    k64 = [per_env(a, b) for a, b in zip(out, plain64)]
+    p64 = [per_env(a, b) for a, b in zip(plain32, plain64)]
+    edge = (p64[0] > QPOS_TOL) | (p64[1] > QVEL_TOL)
+
+    def mx(x, mask):
+        return x[mask].max().item() if bool(mask.any()) else 0.0
+
+    every = torch.ones_like(edge)
+    errs = {"kernel_vs_plain64": [mx(k64[0], ~edge), mx(k64[1], ~edge)],
+            "kernel_vs_plain32": [mx(per_env(a, b), every)
+                                  for a, b in zip(out, plain32)],
+            "plain32_vs_plain64": [mx(p64[0], every), mx(p64[1], every)],
+            "edge_envs": int(edge.sum()),
+            "edge_kernel_vs_plain64": [mx(k64[0], edge), mx(k64[1], edge)],
+            "edge_plain32_vs_plain64": [mx(p64[0], edge), mx(p64[1], edge)]}
+    fails = []
+    for yardstick in ("kernel_vs_plain64", "kernel_vs_plain32"):
+        dq, dv = errs[yardstick]
+        if not (dq <= QPOS_TOL and dv <= QVEL_TOL):
+            fails.append(f"{name}: {yardstick} |dqpos| {dq} (bound "
+                         f"{QPOS_TOL}), |dqvel| {dv} (bound {QVEL_TOL})")
+    if int(edge.sum()) * 8 > edge.numel():
+        fails.append(f"{name}: {int(edge.sum())} of {edge.numel()} envs "
+                     "have the float32 plain version outside the bounds of "
+                     "the float64 one")
+    return errs, fails
+
+
+def k1e_check(topo, env_cfg, lib_model, ins, name):
+    """K1e over `lib_model` on `ins` (qpos, qvel, act, tb, seq) through
+    `gate` -> (errors, failures)."""
+    import torch
+
+    from uhc_tpu_torch.physics import control_step as CS
+
+    qpos, qvel, act, tb, seq = ins
+    step = CS.ControlStep(topo, env_cfg, lib_model, pcg_iters=(1, 2))
+    out = step(qpos, qvel, act, tb, 1.0, seq)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(t).all()) for t in out):
+        raise RuntimeError(f"{name}: K1e output not finite")
+    plain64 = CS.control_step_reference(
+        topo, env_cfg, double_model(lib_model),
+        *[t.double() for t in (qpos, qvel, act, tb)], 1.0, (1, 2), seq)
+    plain32 = CS.control_step_reference(topo, env_cfg, lib_model, qpos,
+                                        qvel, act, tb, 1.0, (1, 2), seq)
+    return gate(f"K1e {name}", out, plain32, plain64)
 
 
 def run() -> int:
@@ -308,13 +438,102 @@ def run() -> int:
     done("k2_vs_plain", **errs2, qpos_tol=QPOS_TOL, qvel_tol=QVEL_TOL,
          x_rel_tol=X_REL_TOL)
 
-    def reset_counts():
-        CS.reset_launches()
-        K2.reset_launches()
+    phase("k1e_vs_plain", f"(B={B_CHECK}, shaped and DR libraries, plain PD "
+                          "and meta-PD)")
+    from uhc_tpu_torch.data.dataset import build_dr_library
 
-    def counts():
-        return {"k1": CS.LAUNCHES, "k2_head": K2.HEAD_LAUNCHES,
-                "k2_tail": K2.TAIL_LAUNCHES}
+    gen_e = torch.Generator().manual_seed(11)
+    slib, skeys, smodel = shaped_library(topo, model)
+    dlib, _, dmodel = build_dr_library(
+        topo, model, load_motion_file("sample_data/gait_clips.pkl"), 4)
+    k1e_err = 0.0
+    errs_e = {}
+    k1e_fails = []
+    for mode, env_cfg in (("plain_pd", cfg.env),
+                          ("meta_pd", dataclasses.replace(cfg.env,
+                                                          meta_pd=True))):
+        act_dim = 75 + (30 if env_cfg.meta_pd else 0)
+        for lname, elib, emodel in (("shape", slib, smodel),
+                                    ("dr", dlib, dmodel)):
+            qpos, qvel, tb, seq = draw_lib_states(elib, B_CHECK, gen_e, dev)
+            act = (0.02 * torch.randn((B_CHECK, act_dim),
+                                      generator=gen_e)).to(dev)
+            errs_e[f"{lname}_{mode}"], fails = k1e_check(
+                topo, env_cfg, emodel, (qpos, qvel, act, tb, seq),
+                f"{lname} {mode}")
+            k1e_fails += fails
+            k1e_err = max(k1e_err, *errs_e[f"{lname}_{mode}"][
+                "kernel_vs_plain64"], *errs_e[f"{lname}_{mode}"][
+                "kernel_vs_plain32"])
+            if lname != "shape":
+                continue
+            # K2 over the library, head + tail, equals K1e at (2, 2)
+            split = K2.ControlStepSplit(topo, env_cfg, emodel, 2)
+            qh, vh, X = split.head(qpos, qvel, act, tb, 1.0, seq)
+            q2, v2 = split.tail(qh, vh, act, tb, X, 1.0, seq)
+            q1, v1 = CS.ControlStep(topo, env_cfg, emodel, (2, 2))(
+                qpos, qvel, act, tb, 1.0, seq)
+            torch.cuda.synchronize()
+            if not (torch.equal(q1, q2) and torch.equal(v1, v2)):
+                raise RuntimeError(
+                    f"{mode}: K2 over the library differs from K1e at "
+                    f"(2, 2): |dqpos| {(q1 - q2).abs().max().item()}, "
+                    f"|dqvel| {(v1 - v2).abs().max().item()}")
+            ins64 = [t.double() for t in (qpos, qvel, act, tb)]
+            plain64 = CS.control_step_reference(
+                topo, env_cfg, double_model(emodel), *ins64, 1.0, (2, 2),
+                seq)
+            plain32 = CS.control_step_reference(
+                topo, env_cfg, emodel, qpos, qvel, act, tb, 1.0, (2, 2),
+                seq)
+            qh64, vh64, _ = K2.head_reference(
+                topo, env_cfg, double_model(emodel), *ins64, 1.0, 2, seq)
+            e2, fails = gate(f"K2 over the library {mode}", (q2, v2),
+                             plain32, plain64)
+            k1e_fails += fails
+            e2.update(head_vs_plain64=[(qh.double() - qh64).abs().max()
+                                       .item(), (vh.double() - vh64).abs()
+                                       .max().item()],
+                      split_equals_k1e=True)
+            errs_e[f"k2e_{mode}"] = e2
+            k2_err["head_pe"] = max(k2_err.get("head_pe", 0.0),
+                                    *e2["head_vs_plain64"])
+            k2_err["tail_pe"] = max(k2_err.get("tail_pe", 0.0),
+                                    *e2["kernel_vs_plain64"],
+                                    *e2["kernel_vs_plain32"])
+        # a library whose rows all equal the shared model gives K1's
+        # results bit for bit
+        same = dataclasses.replace(
+            model, body_pos=model.body_pos.expand(8, -1, -1).clone(),
+            friction=model.friction.expand(8).clone())
+        qpos, qvel, tb, seq = draw_lib_states(slib, B_CHECK, gen_e, dev)
+        act = (0.02 * torch.randn((B_CHECK, act_dim),
+                                  generator=gen_e)).to(dev)
+        qs, vs = CS.ControlStep(topo, env_cfg, model, (1, 2))(
+            qpos, qvel, act, tb, 1.0)
+        qe, ve = CS.ControlStep(topo, env_cfg, same, (1, 2))(
+            qpos, qvel, act, tb, 1.0, seq)
+        torch.cuda.synchronize()
+        if not (torch.equal(qs, qe) and torch.equal(vs, ve)):
+            raise RuntimeError(f"{mode}: equal-row library differs from "
+                               "the shared model")
+        # two bodies integrate differently from the same state
+        one = [t[:1].repeat(2, 1) for t in (qpos, qvel, act, tb)]
+        one[0][:] = slib["qpos"][4, 0]
+        q2b, _ = CS.ControlStep(topo, env_cfg, smodel, (1, 2))(
+            *one, 1.0, torch.tensor([0, 5], dtype=torch.int32, device=dev))
+        shape_gap = (q2b[0] - q2b[1]).abs().max().item()
+        if not shape_gap > 1e-6:
+            raise RuntimeError(f"{mode}: two bodies integrate alike "
+                               f"({shape_gap})")
+        errs_e[f"equal_rows_{mode}"] = True
+        errs_e[f"shape_gap_{mode}"] = shape_gap
+    done("k1e_vs_plain", **errs_e, library_rows={"shape": len(skeys),
+                                                  "dr": int(dmodel.friction
+                                                            .shape[0])},
+         qpos_tol=QPOS_TOL, qvel_tol=QVEL_TOL)
+    if k1e_fails:
+        raise RuntimeError("; ".join(k1e_fails))
 
     phase("eval", "(all clips, full length, seeded weights, kernel)")
     from uhc_tpu_torch.cli.eval import run_eval
@@ -325,7 +544,7 @@ def run() -> int:
     launches = eval_counts["k1"]
     traj = res["traj"]
     S, T = len(keys), res["control_steps"]
-    if eval_counts != {"k1": T, "k2_head": 0, "k2_tail": 0}:
+    if eval_counts != expect(T, "k1"):
         raise RuntimeError(f"eval launched {eval_counts} for {T} control "
                            f"steps")
     if tuple(traj["pred_qpos"].shape) != (S, T, 76) or not bool(
@@ -337,13 +556,40 @@ def run() -> int:
     done("eval", launches=launches, control_steps=T,
          ms_per_step=res["ms_per_step"], summary=res["summary"])
 
+    phase("eval_shape", "(uhc_implicit_shape, 8 bodies, full length, "
+                        "seeded weights, K1e)")
+    reset_counts()
+    res_s = run_eval(SHAPE_CLIPS, device=dev, seed=0,
+                     cfg="uhc_implicit_shape")
+    shape_counts = counts()
+    T_s = res_s["control_steps"]
+    if shape_counts != expect(T_s, "k1e"):
+        raise RuntimeError(f"eval_shape launched {shape_counts} for {T_s} "
+                           f"control steps")
+    if tuple(res_s["traj"]["pred_qpos"].shape) != (8, T_s, 76) or not bool(
+            torch.isfinite(res_s["traj"]["pred_qpos"]).all()):
+        raise RuntimeError("eval_shape trajectory has the wrong shape or is "
+                           "not finite")
+    if not all(np.isfinite(v) for v in res_s["summary"].values()) or not {
+            "penetration", "skate"} <= set(res_s["summary"]):
+        raise RuntimeError(f"eval_shape summary: {res_s['summary']}")
+    done("eval_shape", launches=shape_counts["k1e"], control_steps=T_s,
+         ms_per_step=res_s["ms_per_step"], summary=res_s["summary"])
+
     train_counts = {}
     for train_phase, lane, epochs in (("train_lane", None, 3),
                                       ("train_split", "0", 2)):
         phase(train_phase, f"(cli/train, 1024 envs × 48 steps, {epochs} "
                            f"epochs, UHC_TPU_LANE={lane or 'unset'})")
         train_counts[train_phase] = run_train(lane, epochs, train_phase, dev)
-
+    for train_phase, lane, epochs, args in (
+            ("train_shape", None, 3, SHAPE_TRAIN_ARGS),
+            ("train_shape_split", "0", 2, SHAPE_TRAIN_ARGS),
+            ("train_dr", None, 2, DR_TRAIN_ARGS)):
+        phase(train_phase, f"(cli/train {' '.join(args[:-1])}, {epochs} "
+                           f"epochs, UHC_TPU_LANE={lane or 'unset'})")
+        train_counts[train_phase] = run_train(lane, epochs, train_phase, dev,
+                                              args, per_env=True)
 
     phase("time", f"(B={B_TIME}, uhc_implicit control step)")
     step = CS.ControlStep(topo, cfg.env, model, pcg_iters=(1, 2))
@@ -446,6 +692,89 @@ def run() -> int:
          k2_plain_head_ms=plain_head_ms, k2_plain_tail_ms=plain_tail_ms,
          k2_bound=k2_bound, card=smi)
 
+    # K1e over the shaped library beside K1 (the shared stand-in) on the
+    # same states, uhc_implicit_shape's meta-PD control step, timed in
+    # turns K1, K1e, K1e, K1; K2 over the library at (2, 2)
+    from uhc_tpu_torch.physics.model import model_gather
+
+    shape_env = Config.uhc_implicit_shape().env
+    gen_t = torch.Generator().manual_seed(12)
+    qe, ve, tbe, seqe = draw_lib_states(slib, B_TIME, gen_t, dev)
+    k1s = CS.ControlStep(topo, shape_env, model, pcg_iters=(1, 2))
+    k1e = CS.ControlStep(topo, shape_env, smodel, pcg_iters=(1, 2))
+    acte = (0.02 * torch.randn((B_TIME, k1e.act_dim),
+                               generator=gen_t)).to(dev)
+    k1s(qe, ve, acte, tbe, 1.0)
+    k1e(qe, ve, acte, tbe, 1.0, seqe)
+    torch.cuda.synchronize()
+    turns = []
+    for which in ("k1", "k1e", "k1e", "k1"):
+        turns.append(cuda_ms(
+            (lambda: k1s(qe, ve, acte, tbe, 1.0)) if which == "k1" else
+            (lambda: k1e(qe, ve, acte, tbe, 1.0, seqe)), 10))
+    k1e_ms = 0.5 * (turns[1] + turns[2])
+    k1_same_ms = 0.5 * (turns[0] + turns[3])
+    # the gather alone: K1e over a library whose 8 rows all equal the
+    # shared model, beside K1, same states and turns
+    k1e_same = CS.ControlStep(topo, shape_env, dataclasses.replace(
+        model, body_pos=model.body_pos.expand(8, -1, -1).clone()), (1, 2))
+    turns_eq = []
+    for which in ("k1", "k1e", "k1e", "k1"):
+        turns_eq.append(cuda_ms(
+            (lambda: k1s(qe, ve, acte, tbe, 1.0)) if which == "k1" else
+            (lambda: k1e_same(qe, ve, acte, tbe, 1.0, seqe)), 10))
+    plain_e_ms = cuda_ms(lambda: CS.control_step_reference(
+        topo, shape_env, smodel, qe, ve, acte, tbe, 1.0, (1, 2), seqe), 2)
+    gathered = model_gather(smodel, seqe.long())
+    trace_e, trace_e2, trace_s = [], [], []
+    SV.do_simulation(topo, shape_env, gathered, qe, ve, acte, tbe, 1.0,
+                     (1, 2), trace=trace_e)
+    SV.do_simulation(topo, shape_env, model, qe, ve, acte, tbe, 1.0,
+                     (1, 2), trace=trace_s)
+    SV.do_simulation(topo, shape_env, gathered, qe, ve, acte, tbe, 1.0,
+                     (2, 2), trace=trace_e2)
+    lib_tables = k1e.params.size + k1e.itab.size + B_TIME    # + seq_idx
+    io_e = (qe.numel() * 2 + ve.numel() * 2 + acte.numel() + tbe.numel()
+            + lib_tables)
+
+    def bound(fl, nbytes):
+        t_op, t_by = fl / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+        return {"flops": fl, "bytes": nbytes,
+                "bound_ms": 1e3 * max(t_op, t_by),
+                "bound_by": "operations" if t_op >= t_by else "bytes"}
+
+    k1e_bound = bound(CS.control_step_flops(topo, shape_env, trace_e,
+                                            (1, 2)), 4 * io_e)
+    split_e = K2.ControlStepSplit(topo, shape_env, smodel, 2)
+    qhe, vhe, Xe = split_e.head(qe, ve, acte, tbe, 1.0, seqe)
+    split_e.tail(qhe, vhe, acte, tbe, Xe, 1.0, seqe)
+    torch.cuda.synchronize()
+    head_e_ms = cuda_ms(lambda: split_e.head(qe, ve, acte, tbe, 1.0, seqe),
+                        10)
+    tail_e_ms = cuda_ms(lambda: split_e.tail(qhe, vhe, acte, tbe, Xe, 1.0,
+                                             seqe), 10)
+    plain_head_e_ms = cuda_ms(lambda: K2.head_reference(
+        topo, shape_env, smodel, qe, ve, acte, tbe, 1.0, 2, seqe), 2)
+    plain_tail_e_ms = cuda_ms(lambda: K2.tail_reference(
+        topo, shape_env, smodel, qhe, vhe, acte, tbe, Xe, 1.0, 2, seqe), 2)
+    k2e_bound = {
+        part: bound(CS.control_step_flops(topo, shape_env, act, (2, 2), st),
+                    4 * (io_e + Xe.numel()))
+        for part, act, st in (("head", trace_e2[:1], 0),
+                              ("tail", trace_e2[1:], 1))}
+    done("time_per_env", k1e_ms=k1e_ms, k1_same_states_ms=k1_same_ms,
+         turns_k1_k1e_k1e_k1=turns, k1e_over_k1=k1e_ms / k1_same_ms,
+         turns_k1_k1e_equal_rows=turns_eq,
+         k1e_equal_rows_over_k1=(turns_eq[1] + turns_eq[2])
+         / (turns_eq[0] + turns_eq[3]),
+         k1_same_states_flops=CS.control_step_flops(topo, shape_env,
+                                                    trace_s, (1, 2)),
+         k1e_plain_ms=plain_e_ms, k1e_bound=k1e_bound,
+         k2e_head_ms=head_e_ms, k2e_tail_ms=tail_e_ms,
+         k2e_plain_head_ms=plain_head_e_ms,
+         k2e_plain_tail_ms=plain_tail_e_ms, k2e_bound=k2e_bound,
+         library_rows=k1e.num_models, card=smi)
+
     src = "uhc_tpu_torch/csrc/control_step.cu"
     k2_src = "uhc_tpu/physics/pallas_substep.py:284"
     print(json.dumps({"kernels": [
@@ -466,6 +795,27 @@ def run() -> int:
          "max_abs_err": k2_err["tail"], "ms": tail_ms,
          "plain_ms": plain_tail_ms, "bound_ms": k2_bound["tail"]["bound_ms"],
          "bound_by": k2_bound["tail"]["bound_by"], "library_ms": None},
+        {"name": "control_step_per_env", "route": "cuda", "source": src,
+         "replaces": "uhc_tpu/physics/pallas_lane.py:176",
+         "launches": (shape_counts["k1e"] + train_counts["train_shape"]["k1e"]
+                      + train_counts["train_dr"]["k1e"]),
+         "max_abs_err": k1e_err, "ms": k1e_ms, "plain_ms": plain_e_ms,
+         "bound_ms": k1e_bound["bound_ms"], "bound_by": k1e_bound["bound_by"],
+         "library_ms": None},
+        {"name": "control_step_head_per_env", "route": "cuda", "source": src,
+         "replaces": k2_src,
+         "launches": train_counts["train_shape_split"]["k2e_head"],
+         "max_abs_err": k2_err["head_pe"], "ms": head_e_ms,
+         "plain_ms": plain_head_e_ms,
+         "bound_ms": k2e_bound["head"]["bound_ms"],
+         "bound_by": k2e_bound["head"]["bound_by"], "library_ms": None},
+        {"name": "control_step_tail_per_env", "route": "cuda", "source": src,
+         "replaces": k2_src,
+         "launches": train_counts["train_shape_split"]["k2e_tail"],
+         "max_abs_err": k2_err["tail_pe"], "ms": tail_e_ms,
+         "plain_ms": plain_tail_e_ms,
+         "bound_ms": k2e_bound["tail"]["bound_ms"],
+         "bound_by": k2e_bound["tail"]["bound_by"], "library_ms": None},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -48,7 +48,7 @@ def _run_host(step, qpos, qvel, act, tb, rfc_rate=1.0):
            for x in (qpos, qvel, act, tb)]
     qo, vo = np.zeros_like(ins[0]), np.zeros_like(ins[1])
     rc = lib.uhc_control_step_host(
-        P.ctypes.data, I.ctypes.data, *[x.ctypes.data for x in ins],
+        P.ctypes.data, None, I.ctypes.data, *[x.ctypes.data for x in ins],
         qo.ctypes.data, vo.ctypes.data, qpos.shape[0], act.shape[1],
         rfc_rate)
     assert rc == 0

@@ -56,8 +56,8 @@ def _host_split(step, qpos, qvel, act, tb, rfc_rate=1.0):
     qm, vm = np.zeros_like(qpos), np.zeros_like(qvel)
     qo, vo = np.zeros_like(qpos), np.zeros_like(qvel)
     X = np.zeros((B, 2, 75, 75), np.float32)
-    tables = _ptrs(np.ascontiguousarray(step.params),
-                   np.ascontiguousarray(step.itab))
+    # shared model: a null seq_idx between the two tables
+    tables = [step.params.ctypes.data, None, step.itab.ctypes.data]
     assert lib.uhc_control_step_head_host(
         *tables, *_ptrs(qpos, qvel, act, tb, qm, vm, X), B, act.shape[1],
         rfc_rate) == 0
@@ -71,9 +71,9 @@ def _host_k1(step, qpos, qvel, act, tb, rfc_rate=1.0):
     lib = _host()
     qo, vo = np.zeros_like(qpos), np.zeros_like(qvel)
     assert lib.uhc_control_step_host(
-        *_ptrs(np.ascontiguousarray(step.params),
-               np.ascontiguousarray(step.itab), qpos, qvel, act, tb, qo, vo),
-        qpos.shape[0], act.shape[1], rfc_rate) == 0
+        step.params.ctypes.data, None, step.itab.ctypes.data,
+        *_ptrs(qpos, qvel, act, tb, qo, vo), qpos.shape[0], act.shape[1],
+        rfc_rate) == 0
     return qo, vo
 
 

@@ -20,7 +20,12 @@ def few_threads():
     """Two intra-op threads for torch while a module runs: the suite runs
     several test processes side by side, and small eager ops gain nothing
     from more threads but slow every process down when they oversubscribe
-    the cores."""
+    the cores. JAX runs in float32, as tests/conftest.py sets it: a module
+    fixture elsewhere that turns jax_enable_x64 on and then fails in its
+    set-up leaves it on for every later module of the same test process."""
+    import jax
+
+    jax.config.update("jax_enable_x64", False)
     n = torch.get_num_threads()
     torch.set_num_threads(2)
     yield

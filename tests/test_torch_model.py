@@ -112,12 +112,14 @@ print(" ".join(mods))
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     mods = set(out.stdout.split())
-    assert len(mods) >= 43
-    # the training slice and K2
+    assert len(mods) >= 45
+    # the training slice and K2, the shape slice and K1e
     assert {f"uhc_tpu_torch.{m}" for m in (
         "cli.train", "learn.agent", "learn.rollout", "learn.gae",
         "learn.ppo", "data.sampling", "utils.metrics_sink",
-        "physics.control_step_split")} <= mods
+        "physics.control_step_split", "smpl.lbs", "smpl.robot",
+        "data.dataset", "physics.model", "learn.metrics",
+        "smpl.convert")} <= mods
 
 
 def test_chip_smoke_fails_without_card(tmp_path):

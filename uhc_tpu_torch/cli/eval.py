@@ -2,13 +2,17 @@
 evaluation of every clip of a motion file, on the stand-in humanoid.
 
 Usage:
-  python -m uhc_tpu_torch.cli.eval --motion sample_data/gait_clips.pkl \
-      [--checkpoint PATH] [--device cpu] [--seed 0] [--max-seq-len N]
+  python -m uhc_tpu_torch.cli.eval [--cfg uhc_implicit]
+      --motion sample_data/gait_clips.pkl [--checkpoint PATH]
+      [--smpl-data SMPL.pkl] [--device cpu] [--seed 0] [--max-seq-len N]
 
 Without --checkpoint the policy weights are drawn from --seed at the
-checkpoint's shapes. Prints per-sequence metrics and one SUMMARY JSON line.
-Physics runs through the control-step kernel on CUDA (its plain PyTorch
-version on the CPU).
+config's shapes. With --cfg uhc_implicit_shape every clip runs on its own
+body from its betas (synthetic blendshapes without --smpl-data), and the
+summary adds vertex penetration and skate. Prints per-sequence metrics and
+one SUMMARY JSON line. Physics runs through the control-step kernel on
+CUDA (K1, or K1e over a shaped library; the plain PyTorch version on the
+CPU).
 """
 from __future__ import annotations
 
@@ -22,28 +26,30 @@ from uhc_tpu_torch.device import resolve_device
 
 
 def run_eval(motion: str, checkpoint: str | None = None, device=None,
-             seed: int = 0, max_seq_len: int | None = None) -> dict:
+             seed: int = 0, max_seq_len: int | None = None,
+             cfg: str = "uhc_implicit", smpl_data=None) -> dict:
     """Build the stand-in humanoid, expert library and policy, run the
     closed-loop evaluation; returns {"summary", "per_seq", "control_steps",
-    "seconds", "ms_per_step", "traj"}."""
+    "seconds", "ms_per_step", "traj", "policy", "rs"}."""
     from uhc_tpu_torch.config.config import Config
     from uhc_tpu_torch.data import joblib_compat
-    from uhc_tpu_torch.data.dataset import (build_expert_library,
-                                            load_motion_file,
+    from uhc_tpu_torch.data.dataset import (load_motion_file,
                                             neutral_from_library)
     from uhc_tpu_torch.envs import humanoid_im as H
     from uhc_tpu_torch.learn import nets, running_norm as RN
+    from uhc_tpu_torch.learn.agent import build_library, root_offsets
     from uhc_tpu_torch.learn.evaluate import make_eval_fn, summarize
     from uhc_tpu_torch.physics.model import model_from_numpy
     from uhc_tpu_torch.smpl.constants import default_diff_weights
     from uhc_tpu_torch.smpl.fixture_humanoid import load_fixture_humanoid
 
     dev = resolve_device(device)
-    cfg = Config.uhc_implicit()
+    cfg = Config.preset(cfg)
     topo, model_np = load_fixture_humanoid()
     model = model_from_numpy(model_np, dev)
-    lib, keys = build_expert_library(topo, model, load_motion_file(motion),
-                                     max_len=max_seq_len)
+    lib, keys, sim_model, smpl_data = build_library(
+        topo, model, cfg.env, load_motion_file(motion), smpl_data,
+        max_len=max_seq_len)
     nq, nv = neutral_from_library(lib)
     jpw, bdw = default_diff_weights()
     aux = {"neutral_qpos": nq, "neutral_qvel": nv,
@@ -57,10 +63,8 @@ def run_eval(motion: str, checkpoint: str | None = None, device=None,
                                         cfg.policy_htype, dev)
         rs = RN.from_numpy(ck["running_stats"], dev)
     else:
-        gen = torch.Generator().manual_seed(seed)
-        policy = nets.policy_mcp_init(obs_dim, act_dim, cfg.policy_hsize,
-                                      cfg.composer_dim, cfg.num_primitive,
-                                      gen, cfg.policy_htype, dev)
+        policy = nets.make_policy(cfg, obs_dim, act_dim,
+                                  torch.Generator().manual_seed(seed), dev)
         # unit normalization: fresh statistics (n=0) would divide by 1e-8
         # and turn every observation into a ±5 sign
         rs = RN.RunningStats(torch.tensor(2.0, device=dev),
@@ -68,23 +72,29 @@ def run_eval(motion: str, checkpoint: str | None = None, device=None,
                              torch.ones(obs_dim, device=dev))
     max_steps = int(lib["len"].max()) - 1
     eval_fn = make_eval_fn(topo, cfg.env, policy, max_steps,
-                           fused_model=model)
+                           fused_model=sim_model)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    traj, fail_safe, percent = eval_fn(model, lib, aux, rs)
+    traj, fail_safe, percent = eval_fn(sim_model, lib, aux, rs)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     secs = time.perf_counter() - t0
-    res = summarize(traj, fail_safe, percent, lib, keys)
+    res = summarize(traj, fail_safe, percent, lib, keys,
+                    smpl_data=smpl_data, root_offset=root_offsets(sim_model))
     res.update(control_steps=max_steps, seconds=secs,
-               ms_per_step=1000.0 * secs / max_steps, traj=traj)
+               ms_per_step=1000.0 * secs / max_steps, traj=traj,
+               policy=policy, rs=rs)
     return res
 
 
 def main(argv=None):
-    p = argparse.ArgumentParser()
+    p = argparse.ArgumentParser(prog="python -m uhc_tpu_torch.cli.eval")
+    p.add_argument("--cfg", default="uhc_implicit",
+                   help="config preset: uhc_implicit, uhc_implicit_shape")
     p.add_argument("--motion", default="sample_data/gait_clips.pkl")
+    p.add_argument("--smpl-data", default=None,
+                   help="SMPL model pkl/npz (shaped bodies, vertex metrics)")
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint pickle (policy_params, running_stats)")
     p.add_argument("--device", default=None, help="default: cuda")
@@ -92,7 +102,7 @@ def main(argv=None):
     p.add_argument("--max-seq-len", type=int, default=None)
     args = p.parse_args(argv)
     res = run_eval(args.motion, args.checkpoint, args.device, args.seed,
-                   args.max_seq_len)
+                   args.max_seq_len, args.cfg, args.smpl_data)
     for k, m in res["per_seq"].items():
         print(k, json.dumps({kk: round(vv, 2) for kk, vv in m.items()}))
     print("SUMMARY", json.dumps(res["summary"]))

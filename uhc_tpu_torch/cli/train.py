@@ -1,11 +1,20 @@
-"""Training CLI (PyTorch twin of uhc_tpu.cli.train): PPO training of the
-uhc_implicit copycat controller on the stand-in humanoid.
+"""Training CLI (PyTorch twin of uhc_tpu.cli.train): PPO training of a
+copycat controller on the stand-in humanoid.
 
 Usage:
-  python -m uhc_tpu_torch.cli.train [--motion-file sample_data/gait_clips.pkl]
+  python -m uhc_tpu_torch.cli.train [--cfg uhc_implicit]
+      [--motion-file sample_data/gait_clips.pkl]
       [--num-envs 1024] [--horizon 48] [--epochs N] [--epoch N to resume]
       [--seed S] [--max-seq-len N] [--results-dir DIR] [--save-n-epochs N]
       [--no-train-eval] [--warm-start-from CKPT] [--device cpu]
+      [--smpl-data SMPL.pkl] [--dr-variants N [--dr-friction-scale F]
+      [--dr-contact-scale C] [--dr-mass-scale M]]
+
+--cfg names a preset (`uhc_implicit`, `uhc_implicit_shape`). The
+shape-conditioned preset gives every clip its own body from its SMPL
+betas: from --smpl-data when given, else from synthetic blendshapes (a
+loud warning says so). --dr-variants N >= 2 replicates every clip over N
+contact- and mass-randomized models.
 
 Runs on CUDA unless --device says otherwise; without a card it raises.
 Each epoch logs `R= succ= eps= len= sps= T=`; scalars go to
@@ -31,6 +40,8 @@ def _positive_int(v):
 
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m uhc_tpu_torch.cli.train")
+    p.add_argument("--cfg", default="uhc_implicit",
+                   help="config preset: uhc_implicit, uhc_implicit_shape")
     p.add_argument("--motion-file", default="sample_data/gait_clips.pkl")
     p.add_argument("--num-envs", type=_positive_int, default=1024)
     p.add_argument("--horizon", type=_positive_int, default=48)
@@ -39,7 +50,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--max-seq-len", type=int, default=None)
     p.add_argument("--results-dir", default=None,
-                   help="default: results/uhc_implicit_torch")
+                   help="default: results/<cfg>_torch")
     p.add_argument("--save-n-epochs", type=_positive_int, default=None,
                    help="override cfg.save_n_epochs (checkpoint/eval "
                         "cadence)")
@@ -50,6 +61,15 @@ def parser() -> argparse.ArgumentParser:
                         "run's checkpoint file (epoch counter and sampler "
                         "state start fresh)")
     p.add_argument("--device", default=None, help="default: cuda")
+    p.add_argument("--smpl-data", default=None,
+                   help="SMPL model pkl/npz for shape-conditioned training")
+    p.add_argument("--dr-variants", type=int, default=0,
+                   help="domain randomization: replicate every clip over N "
+                        "models with scaled friction, contact stiffness / "
+                        "damping and masses (variant 0 nominal)")
+    p.add_argument("--dr-friction-scale", type=float, default=1.5)
+    p.add_argument("--dr-contact-scale", type=float, default=2.0)
+    p.add_argument("--dr-mass-scale", type=float, default=1.15)
     return p
 
 
@@ -82,11 +102,19 @@ def main(argv=None):
                     f"{args.warm_start_from}")
         if args.epoch > 0:
             p.error("--warm-start-from and --epoch (resume) are exclusive")
-    cfg = Config.uhc_implicit()
+    try:
+        cfg = Config.preset(args.cfg)
+    except ValueError as e:
+        p.error(str(e))
     agent = CopycatAgent(cfg, args.motion_file, num_envs=args.num_envs,
                          horizon=args.horizon, seed=args.seed,
                          max_seq_len=args.max_seq_len,
-                         results_dir=args.results_dir, device=device)
+                         results_dir=args.results_dir, device=device,
+                         smpl_data=args.smpl_data,
+                         dr_variants=args.dr_variants,
+                         dr_friction_scale=args.dr_friction_scale,
+                         dr_contact_scale=args.dr_contact_scale,
+                         dr_mass_scale=args.dr_mass_scale)
     log = _logger(agent.results_dir)
     log.info(f"cfg {cfg.cfg_id}: obs_dim={agent.obs_dim} "
              f"action_dim={agent.action_dim} seqs={len(agent.seq_keys)} "

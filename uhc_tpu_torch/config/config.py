@@ -3,8 +3,9 @@
 Field names follow the reference YAML schema (config/release/*.yml,
 uhc/utils/config_utils/copycat_config.py:16-149) so reference experiment
 files load unchanged. The env-side subset is a frozen dataclass, fixed per
-experiment. `Config.uhc_implicit()` builds the release config without
-YAML.
+experiment. `Config.uhc_implicit()` and `Config.uhc_implicit_shape()`
+build the release configs without YAML; `Config.preset(name)` looks them
+up by the name the CLIs take as --cfg.
 """
 from __future__ import annotations
 
@@ -199,6 +200,20 @@ class Config:
         return cls.from_dict("uhc_implicit", UHC_IMPLICIT)
 
     @classmethod
+    def uhc_implicit_shape(cls) -> "Config":
+        """The shape-conditioned release config (`UHC_IMPLICIT_SHAPE`),
+        without YAML."""
+        return cls.from_dict("uhc_implicit_shape", UHC_IMPLICIT_SHAPE)
+
+    @classmethod
+    def preset(cls, name: str) -> "Config":
+        """A config by preset name (the CLIs' --cfg)."""
+        if name not in PRESETS:
+            raise ValueError(f"unknown config {name!r}; presets: "
+                             f"{sorted(PRESETS)}")
+        return cls.from_dict(name, PRESETS[name])
+
+    @classmethod
     def from_dict(cls, cfg_id: str, d: Dict[str, Any]) -> "Config":
         rw = d.get("reward_weights") or {}
         env = EnvConfig(
@@ -328,3 +343,35 @@ UHC_IMPLICIT = {
     "residual_force": True, "residual_force_scale": 100.0,
     "residual_force_mode": "implicit",
 }
+
+
+# The shape-conditioned release config (reference
+# config/release/uhc_implicit_shape.yml, which is not in the repository),
+# built from what the repository records of it:
+#   has_shape, obs_v 2, fut_frames 3, skip 10   tests/test_shape.py:134-140
+#   shape obs = beta(16) + gender (has_pca; no weight, no bone length),
+#     obs_dim 640 + 17 = 657      uhc_tpu/envs/humanoid_im.py:695-700 and
+#                                 results/uhc_implicit_shape_r4/log/log.txt
+#   meta_pd                       action_dim 105 = 69 + 6 (RFC) + 2 · 15
+#   gauss policy 2048-1024-512, gelu          BASELINE.md:17
+#   value 2048-1024-512, log_std -2.3 held fixed (constant over 1000
+#     epochs)                     results/uhc_implicit_shape_r4/models
+# Every other field is UHC_IMPLICIT's: gamma, tau, the learning rates,
+# clip_epsilon, batch sizes, num_optim_epoch, seed, save_n_epochs,
+# value_htype (relu), reward_id and reward_weights, action_v, reactive_v,
+# reactive_rate, sampling_temp, data_specs (t_min, t_max, base_rot),
+# env_episode_len, env_term_body, obs_coord, obs_phase and the residual
+# force settings. Correct them here once the release YAML is available.
+UHC_IMPLICIT_SHAPE = {
+    **UHC_IMPLICIT,
+    "has_shape": True, "has_shape_obs": True, "has_pca": True,
+    "has_weight": False, "has_bone_length": False,
+    "obs_v": 2, "fut_frames": 3, "skip": 10,
+    "meta_pd": True,
+    "actor_type": "gauss", "policy_htype": "gelu",
+    "policy_hsize": [2048, 1024, 512], "value_hsize": [2048, 1024, 512],
+    "log_std": -2.3, "fix_std": True,
+}
+
+PRESETS = {"uhc_implicit": UHC_IMPLICIT,
+           "uhc_implicit_shape": UHC_IMPLICIT_SHAPE}

@@ -78,12 +78,14 @@ def _build(kind: str) -> str:
 
 
 def _bind(lib, suffix: str, stream: bool):
-    """Declare the entry points: uhc_control_step (K1) takes 8 pointers,
-    uhc_control_step_head / _tail (K2) take 9 (the last is Xp/Xf), then
-    B, act_dim, rfc_rate and, on CUDA, the stream."""
+    """Declare the entry points: uhc_control_step (K1, K1e) takes 9
+    pointers (model library, seq_idx or null, int table, 4 inputs, 2
+    outputs), uhc_control_step_head / _tail (K2) take 10 (the last is
+    Xp/Xf), then B, act_dim, rfc_rate and, on CUDA, the stream."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for entry, nptr in (("uhc_control_step", 8), ("uhc_control_step_head", 9),
-                        ("uhc_control_step_tail", 9)):
+    for entry, nptr in (("uhc_control_step", 9),
+                        ("uhc_control_step_head", 10),
+                        ("uhc_control_step_tail", 10)):
         fn = getattr(lib, entry + suffix)
         fn.argtypes = [ptr] * nptr + [i32, i32, f32] + ([ptr] if stream
                                                         else [])

@@ -15,6 +15,15 @@
 //    substep hands the next, so head + tail equals K1 bit for bit at the
 //    same schedule. The round trip adds 2 * 45 KB per env of device
 //    memory traffic, small beside the arithmetic.
+//  * K1e, the per-env model library of the same TPU kernel (pallas_lane.py
+//    `per_env`, :176-222 and the host gather :1283-1305): every entry point
+//    takes the model as an (S, P_TOTAL) float library and an optional
+//    (B,) int32 `seq_idx`; block `env` reads its model from
+//    P + seq_idx[env] * P_TOTAL (a null seq_idx is stride 0: the shared
+//    model is the library of one row). Every model read goes through that
+//    one pointer, so body, contact, self-collision and limit tables and
+//    the contact scalars (friction, stiffness, damping) are all per env.
+//    The library (8 shapes × 10 KB) stays in L2; the arithmetic is K1's.
 //
 // The plain PyTorch version is uhc_tpu_torch/physics/solver.py
 // do_simulation (K1) and its head/tail pieces `substeps` (K2) with the
@@ -349,9 +358,11 @@ HD void exact_inverses(float* sm, int tid, int nth) {
 enum { PART_FULL = 0, PART_HEAD = 1, PART_TAIL = 2 };
 
 // Substeps of one env. The head stores Xp, Xf to X (env-major, Xp then
-// Xf); the tail loads them from X.
+// Xf); the tail loads them from X. The env's model is row seq_idx[env] of
+// the library Plib (row 0 without seq_idx).
 HD void control_step_env(int env, int tid, int nth, float* sm,
-                         const float* __restrict__ P,
+                         const float* __restrict__ Plib,
+                         const int* __restrict__ seq_idx,
                          const int* __restrict__ I,
                          const float* __restrict__ qpos_in,
                          const float* __restrict__ qvel_in,
@@ -360,6 +371,8 @@ HD void control_step_env(int env, int tid, int nth, float* sm,
                          float* __restrict__ qpos_out,
                          float* __restrict__ qvel_out, int act_dim,
                          float rfc_rate, int part, float* X) {
+  const float* __restrict__ P =
+      Plib + (seq_idx ? (size_t)seq_idx[env] * P_TOTAL : (size_t)0);
   const float* S = P + P_SCALAR;
   const float dt = S[S_DT];
   const int fs = I[I_FRAME_SKIP];
@@ -903,7 +916,8 @@ extern "C" int uhc_control_step_layout(int* out) {
 
 #ifdef __CUDACC__
 #define KERNEL_ARGS                                                         \
-  const float* __restrict__ P, const int* __restrict__ I,                  \
+  const float* __restrict__ P, const int* __restrict__ seq_idx,            \
+      const int* __restrict__ I,                                            \
       const float* __restrict__ qpos_in, const float* __restrict__ qvel_in, \
       const float* __restrict__ act_in, const float* __restrict__ tb_in,    \
       float* __restrict__ qpos_out, float* __restrict__ qvel_out,           \
@@ -912,25 +926,25 @@ extern "C" int uhc_control_step_layout(int* out) {
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_kernel(KERNEL_ARGS) {
   extern __shared__ float sm[];
-  control_step_env(blockIdx.x, threadIdx.x, blockDim.x, sm, P, I, qpos_in,
-                   qvel_in, act_in, tb_in, qpos_out, qvel_out, act_dim,
-                   rfc_rate, PART_FULL, nullptr);
+  control_step_env(blockIdx.x, threadIdx.x, blockDim.x, sm, P, seq_idx, I,
+                   qpos_in, qvel_in, act_in, tb_in, qpos_out, qvel_out,
+                   act_dim, rfc_rate, PART_FULL, nullptr);
 }
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_head_kernel(KERNEL_ARGS, float* __restrict__ X) {
   extern __shared__ float sm[];
-  control_step_env(blockIdx.x, threadIdx.x, blockDim.x, sm, P, I, qpos_in,
-                   qvel_in, act_in, tb_in, qpos_out, qvel_out, act_dim,
-                   rfc_rate, PART_HEAD, X);
+  control_step_env(blockIdx.x, threadIdx.x, blockDim.x, sm, P, seq_idx, I,
+                   qpos_in, qvel_in, act_in, tb_in, qpos_out, qvel_out,
+                   act_dim, rfc_rate, PART_HEAD, X);
 }
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_tail_kernel(KERNEL_ARGS, float* __restrict__ X) {
   extern __shared__ float sm[];
-  control_step_env(blockIdx.x, threadIdx.x, blockDim.x, sm, P, I, qpos_in,
-                   qvel_in, act_in, tb_in, qpos_out, qvel_out, act_dim,
-                   rfc_rate, PART_TAIL, X);
+  control_step_env(blockIdx.x, threadIdx.x, blockDim.x, sm, P, seq_idx, I,
+                   qpos_in, qvel_in, act_in, tb_in, qpos_out, qvel_out,
+                   act_dim, rfc_rate, PART_TAIL, X);
 }
 
 template <typename Kernel, typename... Args>
@@ -944,71 +958,76 @@ static int launch(Kernel kernel, int B, void* stream, Args... args) {
 }
 
 // Each launches on `stream` and returns the CUDA error code of the launch
-// (0 = ok). X is (B, 2, NV, NV) float32: written by the head, read by the
-// tail.
-extern "C" int uhc_control_step(const float* P, const int* I,
-                                const float* qpos, const float* qvel,
-                                const float* act, const float* tb,
-                                float* qpos_out, float* qvel_out, int B,
-                                int act_dim, float rfc_rate, void* stream) {
-  return launch(control_step_kernel, B, stream, P, I, qpos, qvel, act, tb,
-                qpos_out, qvel_out, act_dim, rfc_rate);
+// (0 = ok). P is the (S, P_TOTAL) model library, seq_idx (B,) int32 rows
+// of it or null (row 0 for every env). X is (B, 2, NV, NV) float32:
+// written by the head, read by the tail.
+extern "C" int uhc_control_step(const float* P, const int* seq_idx,
+                                const int* I, const float* qpos,
+                                const float* qvel, const float* act,
+                                const float* tb, float* qpos_out,
+                                float* qvel_out, int B, int act_dim,
+                                float rfc_rate, void* stream) {
+  return launch(control_step_kernel, B, stream, P, seq_idx, I, qpos, qvel,
+                act, tb, qpos_out, qvel_out, act_dim, rfc_rate);
 }
 
-extern "C" int uhc_control_step_head(const float* P, const int* I,
-                                     const float* qpos, const float* qvel,
-                                     const float* act, const float* tb,
-                                     float* qpos_out, float* qvel_out,
-                                     float* X, int B, int act_dim,
-                                     float rfc_rate, void* stream) {
-  return launch(control_step_head_kernel, B, stream, P, I, qpos, qvel, act,
-                tb, qpos_out, qvel_out, act_dim, rfc_rate, X);
+extern "C" int uhc_control_step_head(const float* P, const int* seq_idx,
+                                     const int* I, const float* qpos,
+                                     const float* qvel, const float* act,
+                                     const float* tb, float* qpos_out,
+                                     float* qvel_out, float* X, int B,
+                                     int act_dim, float rfc_rate,
+                                     void* stream) {
+  return launch(control_step_head_kernel, B, stream, P, seq_idx, I, qpos,
+                qvel, act, tb, qpos_out, qvel_out, act_dim, rfc_rate, X);
 }
 
-extern "C" int uhc_control_step_tail(const float* P, const int* I,
-                                     const float* qpos, const float* qvel,
-                                     const float* act, const float* tb,
-                                     float* qpos_out, float* qvel_out,
-                                     float* X, int B, int act_dim,
-                                     float rfc_rate, void* stream) {
-  return launch(control_step_tail_kernel, B, stream, P, I, qpos, qvel, act,
-                tb, qpos_out, qvel_out, act_dim, rfc_rate, X);
+extern "C" int uhc_control_step_tail(const float* P, const int* seq_idx,
+                                     const int* I, const float* qpos,
+                                     const float* qvel, const float* act,
+                                     const float* tb, float* qpos_out,
+                                     float* qvel_out, float* X, int B,
+                                     int act_dim, float rfc_rate,
+                                     void* stream) {
+  return launch(control_step_tail_kernel, B, stream, P, seq_idx, I, qpos,
+                qvel, act, tb, qpos_out, qvel_out, act_dim, rfc_rate, X);
 }
 #else
 // Host build: every env on one thread, in order.
-static int run_host(const float* P, const int* I, const float* qpos,
-                    const float* qvel, const float* act, const float* tb,
-                    float* qpos_out, float* qvel_out, int B, int act_dim,
-                    float rfc_rate, int part, float* X) {
+static int run_host(const float* P, const int* seq_idx, const int* I,
+                    const float* qpos, const float* qvel, const float* act,
+                    const float* tb, float* qpos_out, float* qvel_out, int B,
+                    int act_dim, float rfc_rate, int part, float* X) {
   std::vector<float> sm(SM_TOTAL);
   for (int env = 0; env < B; ++env)
-    control_step_env(env, 0, 1, sm.data(), P, I, qpos, qvel, act, tb,
-                     qpos_out, qvel_out, act_dim, rfc_rate, part, X);
+    control_step_env(env, 0, 1, sm.data(), P, seq_idx, I, qpos, qvel, act,
+                     tb, qpos_out, qvel_out, act_dim, rfc_rate, part, X);
   return 0;
 }
 
-extern "C" int uhc_control_step_host(const float* P, const int* I,
-                                     const float* qpos, const float* qvel,
-                                     const float* act, const float* tb,
-                                     float* qpos_out, float* qvel_out, int B,
-                                     int act_dim, float rfc_rate) {
-  return run_host(P, I, qpos, qvel, act, tb, qpos_out, qvel_out, B, act_dim,
-                  rfc_rate, PART_FULL, nullptr);
+extern "C" int uhc_control_step_host(const float* P, const int* seq_idx,
+                                     const int* I, const float* qpos,
+                                     const float* qvel, const float* act,
+                                     const float* tb, float* qpos_out,
+                                     float* qvel_out, int B, int act_dim,
+                                     float rfc_rate) {
+  return run_host(P, seq_idx, I, qpos, qvel, act, tb, qpos_out, qvel_out, B,
+                  act_dim, rfc_rate, PART_FULL, nullptr);
 }
 
 extern "C" int uhc_control_step_head_host(
-    const float* P, const int* I, const float* qpos, const float* qvel,
-    const float* act, const float* tb, float* qpos_out, float* qvel_out,
-    float* X, int B, int act_dim, float rfc_rate) {
-  return run_host(P, I, qpos, qvel, act, tb, qpos_out, qvel_out, B, act_dim,
-                  rfc_rate, PART_HEAD, X);
+    const float* P, const int* seq_idx, const int* I, const float* qpos,
+    const float* qvel, const float* act, const float* tb, float* qpos_out,
+    float* qvel_out, float* X, int B, int act_dim, float rfc_rate) {
+  return run_host(P, seq_idx, I, qpos, qvel, act, tb, qpos_out, qvel_out, B,
+                  act_dim, rfc_rate, PART_HEAD, X);
 }
 
 extern "C" int uhc_control_step_tail_host(
-    const float* P, const int* I, const float* qpos, const float* qvel,
-    const float* act, const float* tb, float* qpos_out, float* qvel_out,
-    float* X, int B, int act_dim, float rfc_rate) {
-  return run_host(P, I, qpos, qvel, act, tb, qpos_out, qvel_out, B, act_dim,
-                  rfc_rate, PART_TAIL, X);
+    const float* P, const int* seq_idx, const int* I, const float* qpos,
+    const float* qvel, const float* act, const float* tb, float* qpos_out,
+    float* qvel_out, float* X, int B, int act_dim, float rfc_rate) {
+  return run_host(P, seq_idx, I, qpos, qvel, act, tb, qpos_out, qvel_out, B,
+                  act_dim, rfc_rate, PART_TAIL, X);
 }
 #endif

@@ -8,8 +8,14 @@ a hand-written CUDA control-step kernel (K1 `physics.control_step`, or K2
 `physics.control_step_split` under UHC_TPU_LANE=0) when given the model to
 bake, else through the plain PCG chain.
 
-Ported: obs v1, the world_rfc_implicit reward, implicit RFC, plain and
-meta-PD, body-diff termination.
+The model is shared, or a per-sequence library (shape-conditioned or
+domain-randomized training, `data.dataset.build_shaped_library` /
+`build_dr_library`): each env then simulates, observes and is rewarded
+on its own sequence's model, gathered by its seq_idx (`env_models`), and
+the kernels take the library with seq_idx (K1e).
+
+Ported: obs v1 and v2 with the shape observation, the world_rfc_implicit
+reward, implicit RFC, plain and meta-PD, body-diff termination.
 """
 from __future__ import annotations
 
@@ -25,7 +31,9 @@ from uhc_tpu_torch.maths import (de_heading, heading_angle, heading_quat,
                                  quat_rotate, transform_vec, wrap_to_pi)
 from uhc_tpu_torch.physics import engine as E
 from uhc_tpu_torch.physics import solver as S
-from uhc_tpu_torch.physics.model import Model, Topology
+from uhc_tpu_torch.physics.model import (Model, Topology, env_models,
+                                         model_batch_axes, model_is_batched,
+                                         model_per_env)
 from uhc_tpu_torch.smpl.constants import head_index
 
 
@@ -55,7 +63,9 @@ def state_where(mask, new: EnvState, old: EnvState) -> EnvState:
     return EnvState(**out)
 
 
-PER_SEQ_KEYS = ("len", "height_lb", "head_height_lb")
+PER_SEQ_KEYS = ("len", "height_lb", "head_height_lb", "beta", "gender",
+                "shape_obs", "weight")
+
 
 
 def expert_at(expert_lib: Dict[str, Any], seq_idx, t) -> dict:
@@ -78,10 +88,12 @@ def action_dims(topo: Topology, cfg: EnvConfig):
 def do_simulation(topo: Topology, model: Model, cfg: EnvConfig, qpos, qvel,
                   action, target_base, rfc_rate):
     """One control step with an exact factorization at every substep (the
-    reference path; `make_env_step_batched` uses the PCG chain)."""
+    reference path; `make_env_step_batched` uses the PCG chain). `model`
+    is shared or per env."""
     from uhc_tpu_torch.physics import linalg as LA
 
     S.check_supported(cfg)
+    model = model_per_env(model, qpos.shape[0])
     ndof, vf_dim, _ = S.action_dims(topo, cfg)
     kp_scale, kd_scale = S.gain_scales(cfg, action, ndof, vf_dim)
     base_rot = qpos.new_tensor(cfg.base_rot)
@@ -99,8 +111,8 @@ def do_simulation(topo: Topology, model: Model, cfg: EnvConfig, qpos, qvel,
             vf = torch.cat([quat_rotate(hq, vf[:, :3]), vf[:, 3:]], 1)
             qfrc[:, :6] = torch.clamp(vf, -cfg.residual_force_lim,
                                       cfg.residual_force_lim)
-        kp = model.jkp[None] * kp_scale[:, i:i + 1]
-        kd = model.jkd[None] * kd_scale[:, i:i + 1]
+        kp = model.jkp * kp_scale[:, i:i + 1]
+        kd = model.jkd * kd_scale[:, i:i + 1]
         out = E.assemble(topo, model, qpos, qvel, target_pos, kp, kd, qfrc,
                          cfg.self_collision)
         qacc_des = LA.blocked_cho_solve(LA.blocked_cholesky(out["A_pd"]),
@@ -126,10 +138,13 @@ def get_body_quat(qpos: torch.Tensor) -> torch.Tensor:
     return torch.cat([qpos[:, None, 3:7], jq], 1).reshape(B, -1)
 
 
-def obs_v1(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
-           expert_lib, tgt=None) -> torch.Tensor:
-    """get_full_obs_v1, feature-order exact (including the reference's
-    double velocity transform and the target_root_quat[:3] rel_pos read)."""
+def obs_v12(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
+            expert_lib, shape_obs=None, tgt=None) -> torch.Tensor:
+    """get_full_obs_v1 (cfg.obs_v 1) and _v2 (obs_v 2: v1 without the COM
+    blocks; uhc_tpu/envs/humanoid_im.py:247-310), feature-order exact: the
+    reference's double linear-velocity transform, its target_root_quat[:3]
+    read as rel_pos, and component-major position blocks. `model` is
+    shared or per env."""
     qpos, qvel = state.qpos, state.qvel
     B = qpos.shape[0]
     base_rot = qpos.new_tensor(cfg.base_rot)
@@ -148,7 +163,6 @@ def obs_v1(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
     target_qpos = tgt["qpos"]
     target_quat = tgt["wbquat"].reshape(B, -1, 4)
     target_jpos = tgt["wbpos"].reshape(B, -1, 3)
-    target_com = tgt["body_com"].reshape(B, -1, 3)
     target_root_quat = quat_mul(target_qpos[:, 3:7], quat_inv(base_rot))
 
     qpos_dh = torch.cat([qpos[:, :3], de_heading(curr_root_quat),
@@ -171,31 +185,67 @@ def obs_v1(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
 
     crq = curr_root_quat[:, None]
     curr_jpos = kin["xpos"]
-    for v in (curr_jpos - qpos_dh[:, None, :3], target_jpos - curr_jpos,
-              kin["xipos"] - qpos_dh[:, None, :3], target_com - kin["xipos"]):
+    blocks = [curr_jpos - qpos_dh[:, None, :3], target_jpos - curr_jpos]
+    if cfg.obs_v == 1:
+        target_com = tgt["body_com"].reshape(B, -1, 3)
+        blocks += [kin["xipos"] - qpos_dh[:, None, :3],
+                   target_com - kin["xipos"]]
+    for v in blocks:
         obs.append(transform_vec(v, crq, c).transpose(1, 2).reshape(B, -1))
     cur_quat = kin["xquat"]
     obs.append(quat_mul(quat_inv(hq)[:, None], cur_quat).reshape(B, -1))
     obs.append(quat_mul(quat_inv(cur_quat), target_quat).reshape(B, -1))
+    if cfg.has_shape and cfg.has_shape_obs and shape_obs is not None:
+        obs.append(shape_obs)
     return torch.cat(obs, 1)
+
+
+def observe(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
+            expert_lib, tgt=None) -> torch.Tensor:
+    """Observation dispatch over a shared or per-env model. A
+    shape-conditioned config appends each env's shape observation from
+    the library; a library built without one is an error."""
+    shape_obs = None
+    if cfg.has_shape:
+        if "shape_obs" not in expert_lib:
+            raise ValueError(
+                "cfg.has_shape is set but the expert library has no "
+                "'shape_obs': build it with data.dataset."
+                "build_shaped_library, not build_expert_library")
+        shape_obs = expert_lib["shape_obs"][state.seq_idx]
+    if cfg.obs_v not in (1, 2) or cfg.robot_ball:
+        raise NotImplementedError(f"obs_v={cfg.obs_v} (ball joints "
+                                  f"{cfg.robot_ball}) is not ported yet")
+    return obs_v12(topo, model, cfg, state, expert_lib, shape_obs, tgt)
 
 
 def get_obs(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
             expert_lib, tgt=None) -> torch.Tensor:
-    """(B, obs_dim) observations (also the JAX get_obs_batched: the batch
-    axis is explicit here)."""
-    if cfg.has_shape:
-        raise NotImplementedError("shape-conditioned obs is not ported yet")
-    if cfg.obs_v == 1:
-        return obs_v1(topo, model, cfg, state, expert_lib, tgt=tgt)
-    raise NotImplementedError(f"obs_v={cfg.obs_v} is not ported yet")
+    """(B, obs_dim) observations; `model` is shared or a library (the JAX
+    get_obs_batched: the batch axis is explicit here)."""
+    return observe(topo, env_models(model, state.seq_idx), cfg, state,
+                   expert_lib, tgt=tgt)
+
+
+def shape_obs_dim(topo: Topology, cfg: EnvConfig) -> int:
+    """Width of the shape observation: beta(16) if has_pca + gender(1) +
+    weight(1)? + bone lengths(nb)?."""
+    return ((16 if cfg.has_pca else 0) + 1
+            + (1 if cfg.has_weight else 0)
+            + (topo.nbody if cfg.has_bone_length else 0))
 
 
 def obs_dim(topo: Topology, cfg: EnvConfig) -> int:
     nb, nq, nv = topo.nbody, topo.nq, topo.nv
     vel = nv if cfg.obs_vel == "full" else 6
+    shape = (shape_obs_dim(topo, cfg)
+             if cfg.has_shape and cfg.has_shape_obs else 0)
     if cfg.obs_v == 1:
-        return 4 + 3 * (nq - 2) + vel + 1 + 2 + 3 * nb * 4 + 4 * nb * 2
+        return (4 + 3 * (nq - 2) + vel + 1 + 2 + 3 * nb * 4 + 4 * nb * 2
+                + shape)
+    if cfg.obs_v == 2 and not cfg.robot_ball:
+        return (4 + 3 * (nq - 2) + vel + 1 + 2 + 3 * nb * 2 + 4 * nb * 2
+                + shape)
     raise NotImplementedError(f"obs_v={cfg.obs_v} is not ported yet")
 
 
@@ -219,7 +269,8 @@ def calc_body_diff(topo: Topology, model: Model, state: EnvState,
 def env_post_step(topo: Topology, model: Model, cfg: EnvConfig,
                   state: EnvState, action, expert_lib, jpos_diffw,
                   body_diffw, train: bool = True):
-    """Termination + reward + obs after the physics advanced."""
+    """Termination + reward + obs after the physics advanced; `model` is
+    shared or per env (already gathered, see `env_models`)."""
     qpos, qvel, cur_t = state.qpos, state.qvel, state.cur_t
     length = expert_lib["len"][state.seq_idx]
     t_max = cfg.t_max if cfg.t_max > 0 else 10 ** 9
@@ -248,14 +299,16 @@ def env_post_step(topo: Topology, model: Model, cfg: EnvConfig,
     aux = {"jpos_diffw": jpos_diffw, "body_diffw": body_diffw}
     reward, terms = get_reward_fn(cfg.reward_id)(
         topo, model, cfg, state, action, expert_lib, aux)
-    obs = get_obs(topo, model, cfg, state, expert_lib)
+    obs = observe(topo, model, cfg, state, expert_lib)
     return state, obs, reward, terms, done
 
 
 def env_step(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
              action, expert_lib, jpos_diffw, body_diffw, rfc_rate=1.0,
              train: bool = True):
-    """One 30 Hz control step with the exact per-substep solver."""
+    """One 30 Hz control step with the exact per-substep solver; `model`
+    is shared or a library."""
+    model = env_models(model, state.seq_idx)
     prev_bquat = get_body_quat(state.qpos)
     tgt = expert_at(expert_lib, state.seq_idx,
                     state.start_ind + state.cur_t + 1)
@@ -270,17 +323,30 @@ def env_step(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
 
 def make_env_step_batched(topo: Topology, cfg: EnvConfig,
                           fused_model: Model = None):
-    """Batched control step. With `fused_model` (the model the episode will
-    simulate) the substeps run through a control-step kernel, chosen by
-    UHC_TPU_LANE when the step is built, as in the JAX package: "1" (the
-    default) gives K1 (`ControlStep`) with the production (1, 2) PCG
-    schedule, "0" gives K2's head/tail split (`ControlStepSplit`) with
-    symmetric PCG-2. Without `fused_model` the substeps run through the
+    """Batched control step. With `fused_model` (the model, or the model
+    library, the episode will simulate) the substeps run through a
+    control-step kernel, chosen by UHC_TPU_LANE when the step is built, as
+    in the JAX package: "1" (the default) gives K1 (`ControlStep`) with the
+    production (1, 2) PCG schedule, "0" gives K2's head/tail split
+    (`ControlStepSplit`) with symmetric PCG-2. A library takes the per-env
+    variant of the same kernels (K1e, or K2 over the library: the JAX
+    package runs a library under UHC_TPU_LANE=0 on its XLA chain), with
+    each env's seq_idx. Without `fused_model` the substeps run through the
     plain PCG chain with 5 iterations (the JAX default). The returned step
     carries the kernel wrapper it calls as `step.kernel` (None for the
     plain chain)."""
     kernel = None
     if fused_model is not None:
+        if model_is_batched(fused_model):
+            from uhc_tpu_torch.physics.control_step import PE_MODEL_LEAVES
+
+            axes = model_batch_axes(fused_model)
+            extra = sorted(k for k, a in axes.items()
+                           if a == 0 and k not in PE_MODEL_LEAVES)
+            if extra:
+                raise ValueError(f"model library leaves {extra} differ per "
+                                 "sequence; the per-env kernel takes "
+                                 f"{PE_MODEL_LEAVES}")
         if os.environ.get("UHC_TPU_LANE", "1") == "1":
             from uhc_tpu_torch.physics.control_step import ControlStep
 
@@ -291,24 +357,29 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
 
             kernel = ControlStepSplit(topo, cfg, fused_model, pcg_iters=2)
 
-        def sim(model, qpos, qvel, actions, target_base, rfc_rate):
-            return kernel(qpos, qvel, actions, target_base, rfc_rate)
+        def sim(model, states, actions, target_base, rfc_rate):
+            seq = (None if kernel.num_models is None
+                   else states.seq_idx.to(torch.int32).contiguous())
+            return kernel(states.qpos, states.qvel, actions, target_base,
+                          rfc_rate, seq)
     else:
-        def sim(model, qpos, qvel, actions, target_base, rfc_rate):
-            return S.do_simulation(topo, cfg, model, qpos, qvel, actions,
-                                   target_base, rfc_rate, 5)
+        def sim(model, states, actions, target_base, rfc_rate):
+            return S.do_simulation(topo, cfg, model, states.qpos,
+                                   states.qvel, actions, target_base,
+                                   rfc_rate, 5)
 
     def step(model: Model, states: EnvState, actions, expert_lib,
              jpos_diffw, body_diffw, rfc_rate=1.0, train: bool = True):
+        m = env_models(model, states.seq_idx)
         prev_bquat = get_body_quat(states.qpos)
         tgt = expert_at(expert_lib, states.seq_idx,
                         states.start_ind + states.cur_t + 1)
-        qpos, qvel = sim(model, states.qpos, states.qvel, actions,
+        qpos, qvel = sim(m, states, actions,
                          tgt["qpos"][:, 7:].contiguous(), rfc_rate)
         states = dataclasses.replace(
             states, qpos=qpos, qvel=qvel, prev_qpos=states.qpos,
             cur_t=states.cur_t + 1, prev_bquat=prev_bquat)
-        return env_post_step(topo, model, cfg, states, actions, expert_lib,
+        return env_post_step(topo, m, cfg, states, actions, expert_lib,
                              jpos_diffw, body_diffw, train)
 
     step.kernel = kernel

@@ -1,6 +1,15 @@
 """Copycat training agent (PyTorch twin of uhc_tpu.learn.agent
 CopycatAgent) on the 24-body stand-in humanoid.
 
+With a shape-conditioned config (`has_shape`) every clip gets its own body
+from its SMPL betas (`data.dataset.build_shaped_library`): real SMPL model
+data when `smpl_data` names a file, else synthetic blendshapes around the
+stand-in's skeleton (`smpl.lbs.synthetic_smpl_data_like`, announced by a
+loud warning). With `dr_variants >= 2` every clip is replicated over
+contact- and mass-randomized models (`build_dr_library`). Either way the
+agent simulates a model library (`sim_model`) and the kernels take each
+env's seq_idx (K1e).
+
 One epoch (agent_copycat.py:326 optimize_policy): the adaptive schedules,
 a rollout of B humanoids × T control steps on the device (physics, obs,
 reward, auto-reset), GAE, the PPO update, and the hard-mining telemetry
@@ -21,6 +30,7 @@ import json
 import os
 import pickle
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -28,7 +38,9 @@ import torch
 
 from uhc_tpu_torch.config.config import Config
 from uhc_tpu_torch.data import joblib_compat
-from uhc_tpu_torch.data.dataset import (build_expert_library,
+from uhc_tpu_torch.data.dataset import (build_dr_library,
+                                        build_expert_library,
+                                        build_shaped_library,
                                         load_motion_file,
                                         neutral_from_library)
 from uhc_tpu_torch.data.sampling import FailureFrequencySampler
@@ -47,10 +59,14 @@ class CopycatAgent:
     def __init__(self, cfg: Config, motion_file: str, num_envs: int = 1024,
                  horizon: int = 48, seed: Optional[int] = None,
                  max_seq_len: Optional[int] = None,
-                 results_dir: Optional[str] = None, device=None):
-        if cfg.actor_type != "mcp" or not cfg.fix_std:
-            raise NotImplementedError("the port trains the MCP policy with a "
-                                      "scheduled (fixed) std")
+                 results_dir: Optional[str] = None, device=None,
+                 smpl_data=None, dr_variants: int = 0,
+                 dr_friction_scale: float = 1.5,
+                 dr_contact_scale: float = 2.0, dr_mass_scale: float = 1.15,
+                 dr_seed: int = 0):
+        if cfg.actor_type not in ("mcp", "gauss") or not cfg.fix_std:
+            raise NotImplementedError("the port trains the MCP or Gaussian "
+                                      "policy with a scheduled (fixed) std")
         self.cfg, self.env_cfg = cfg, cfg.env
         self.num_envs, self.horizon = num_envs, horizon
         self.device = dev = resolve_device(device)
@@ -60,8 +76,11 @@ class CopycatAgent:
 
         self.topo, model_np = load_fixture_humanoid()
         self.model = model_from_numpy(model_np, dev)
-        self.expert_lib, self.seq_keys = build_expert_library(
-            self.topo, self.model, load_motion_file(motion_file),
+        (self.expert_lib, self.seq_keys, self.sim_model,
+         self.smpl_data) = build_library(
+            self.topo, self.model, self.env_cfg,
+            load_motion_file(motion_file), smpl_data, dr_variants,
+            dr_friction_scale, dr_contact_scale, dr_mass_scale, dr_seed,
             max_len=max_seq_len)
         nq, nv = neutral_from_library(self.expert_lib)
         jpw, bdw = default_diff_weights()
@@ -73,9 +92,8 @@ class CopycatAgent:
 
         seed = cfg.seed if seed is None else seed
         init_gen = torch.Generator().manual_seed(seed)
-        self.policy = nets.policy_mcp_init(
-            self.obs_dim, self.action_dim, cfg.policy_hsize, cfg.composer_dim,
-            cfg.num_primitive, init_gen, cfg.policy_htype, dev)
+        self.policy = nets.make_policy(cfg, self.obs_dim, self.action_dim,
+                                       init_gen, dev)
         self.value = nets.value_init(self.obs_dim, cfg.value_hsize, init_gen,
                                      cfg.value_htype, dev)
         self.log_std = torch.full((self.action_dim,), cfg.log_std,
@@ -86,13 +104,13 @@ class CopycatAgent:
 
         self.rs = RN.init(self.obs_dim, dev)
         self.env_states = init_env_states(self.topo, self.env_cfg,
-                                          self.model, self.expert_lib,
+                                          self.sim_model, self.expert_lib,
                                           self.aux, self.gen, num_envs)
         self.sampler = FailureFrequencySampler(
             len(self.seq_keys), cfg.sampling_temp, cfg.sampling_freq)
         self.precision_mode = cfg.precision_mode
 
-        self._fused_model = self.model if dev.type == "cuda" else None
+        self._fused_model = self.sim_model if dev.type == "cuda" else None
         self._rollout = make_rollout_fn(
             self.topo, self.env_cfg, lambda x: self.policy(x), horizon,
             fused_model=self._fused_model)
@@ -129,7 +147,7 @@ class CopycatAgent:
         precision_freq = cfg.sampling_freq if self.precision_mode else 0.0
 
         self.env_states, self.rs, traj, last_obs = self._rollout(
-            self.model, self.expert_lib, self.aux, self.log_std, self.rs,
+            self.sim_model, self.expert_lib, self.aux, self.log_std, self.rs,
             self.env_states, self.gen, noise_rate, rfc_rate, seq_logits,
             self.end_reward, fail_pool, precision_freq)
         self._sync()
@@ -196,10 +214,11 @@ class CopycatAgent:
             self._eval_fn = make_eval_fn(
                 self.topo, self.env_cfg, lambda x: self.policy(x), max_steps,
                 fused_model=self._fused_model)
-        traj, fail_safe, percent = self._eval_fn(self.model, self.expert_lib,
-                                                 self.aux, self.rs)
+        traj, fail_safe, percent = self._eval_fn(
+            self.sim_model, self.expert_lib, self.aux, self.rs)
         res = summarize(traj, fail_safe, percent, self.expert_lib,
-                        self.seq_keys)
+                        self.seq_keys, smpl_data=self.smpl_data,
+                        root_offset=root_offsets(self.sim_model))
         cov = res["summary"]["coverage"]
         if not track_best:
             return res
@@ -273,3 +292,64 @@ class CopycatAgent:
             return
         self.sampler.load_state_dict(state["sampler"])
         self.epoch = state["epoch"]
+
+
+def build_library(topo, model, env_cfg, seqs, smpl_data=None,
+                  dr_variants: int = 0, dr_friction_scale: float = 1.5,
+                  dr_contact_scale: float = 2.0, dr_mass_scale: float = 1.15,
+                  dr_seed: int = 0, max_len=None):
+    """The expert library and the model it simulates -> (expert_lib, keys,
+    sim_model, smpl_data): a shaped library for a shape-conditioned
+    config, a domain-randomized one for dr_variants >= 2, else the shared
+    model. smpl_data (one SMPLData, the neutral one of a gendered set) is
+    what the eval's vertex metrics use, None without model data."""
+    if env_cfg.has_shape:
+        shape_data = load_shape_data(topo, model, smpl_data)
+        lib, keys, sim_model = build_shaped_library(
+            topo, model, seqs, shape_data, env_cfg, max_len=max_len)
+        return lib, keys, sim_model, neutral_data(shape_data)
+    if dr_variants >= 2:
+        lib, keys, sim_model = build_dr_library(
+            topo, model, seqs, dr_variants, dr_friction_scale,
+            dr_contact_scale, dr_mass_scale, dr_seed, max_len=max_len)
+    else:
+        lib, keys = build_expert_library(topo, model, seqs, max_len=max_len)
+        sim_model = model
+    if smpl_data is not None:
+        smpl_data = neutral_data(load_shape_data(topo, model, smpl_data))
+    return lib, keys, sim_model, smpl_data
+
+
+def load_shape_data(topo, model, smpl_data=None):
+    """SMPL model data for shape training: a path (.pkl / .npz) is loaded,
+    SMPLData or a dict of them by gender is used as it is, and None falls
+    back, loudly, to synthetic blendshapes around `model`'s skeleton."""
+    from uhc_tpu_torch.smpl.lbs import (load_smpl_data,
+                                        synthetic_smpl_data_like)
+
+    if smpl_data is None:
+        warnings.warn(
+            "shape training without SMPL model data: falling back to "
+            "synthetic_smpl_data_like() (synthetic blendshapes around the "
+            "stand-in skeleton, NOT real SMPL bodies). Pass smpl_data=<path "
+            "to SMPL pkl/npz> for real shapes.", stacklevel=3)
+        print("[uhc_tpu_torch] WARNING: shape training is using SYNTHETIC "
+              "SMPL blendshapes (no smpl_data provided).", flush=True)
+        return synthetic_smpl_data_like(topo, model)
+    if isinstance(smpl_data, str):
+        return load_smpl_data(smpl_data)
+    return smpl_data
+
+
+def neutral_data(smpl_data):
+    """One SMPLData: the neutral one of a dict by gender."""
+    if isinstance(smpl_data, dict):
+        return smpl_data.get("neutral", next(iter(smpl_data.values())))
+    return smpl_data
+
+
+def root_offsets(model):
+    """The Pelvis zero-pose offset: (3,) for a shared model, (S, 3) for a
+    library whose body_pos differs per sequence."""
+    bp = model.body_pos.cpu().numpy()
+    return bp[:, 0] if bp.ndim == 3 else bp[0]

@@ -4,7 +4,8 @@ All test sequences advance lock-step through one batched env step, with a
 Python loop over time in place of `lax.scan`. On failure mid-clip the
 state is teleported back onto the expert and the sequence is marked
 unsuccessful (the reference's fail-safe). The collected trajectories feed
-`compute_metrics` on the host.
+`compute_metrics` on the host. The model is shared or a per-sequence
+library; sequence s runs on row s.
 """
 from __future__ import annotations
 
@@ -17,9 +18,11 @@ import torch
 from uhc_tpu_torch.config.config import EnvConfig
 from uhc_tpu_torch.envs import humanoid_im as H
 from uhc_tpu_torch.learn import running_norm as RN
-from uhc_tpu_torch.learn.metrics import compute_metrics
+from uhc_tpu_torch.learn.metrics import (compute_metrics,
+                                         compute_penetration_skate_vertices,
+                                         vertices_from_qpos)
 from uhc_tpu_torch.physics import engine as E
-from uhc_tpu_torch.physics.model import Model, Topology
+from uhc_tpu_torch.physics.model import Model, Topology, env_models
 
 
 def make_eval_fn(topo: Topology, cfg: EnvConfig, policy_mean_fn,
@@ -42,6 +45,7 @@ def make_eval_fn(topo: Topology, cfg: EnvConfig, policy_mean_fn,
         S = expert_lib["len"].shape[0]
         dev = expert_lib["len"].device
         seq_idx = torch.arange(S, device=dev)
+        models = env_models(model, seq_idx)
         lengths = expert_lib["len"]
         states = H.env_reset(topo, model, eval_cfg, seq_idx, expert_lib,
                              aux["neutral_qpos"], aux["neutral_qvel"],
@@ -67,7 +71,7 @@ def make_eval_fn(topo: Topology, cfg: EnvConfig, policy_mean_fn,
             fail_safe = fail_safe | tele
             # only advance while the clip is active
             states = H.state_where(active, states2, states)
-            kin = E.fk(topo, model, states.qpos)
+            kin = E.fk(topo, models, states.qpos)
             pred_qpos.append(states.qpos)
             pred_jpos.append(kin["xpos"].reshape(S, -1))
             actives.append(active)
@@ -79,8 +83,14 @@ def make_eval_fn(topo: Topology, cfg: EnvConfig, policy_mean_fn,
     return eval_all
 
 
-def summarize(traj, fail_safe, percent, expert_lib, seq_keys) -> Dict:
-    """Host-side per-sequence compute_metrics + the coverage aggregate."""
+def summarize(traj, fail_safe, percent, expert_lib, seq_keys,
+              smpl_data=None, root_offset=None) -> Dict:
+    """Host-side per-sequence compute_metrics + the coverage aggregate.
+
+    With `smpl_data` and `root_offset` (the Pelvis zero-pose offset, (3,)
+    or per sequence (S, 3) for a shaped library), each sequence also gets
+    vertex penetration and skate from the LBS mesh of its predicted poses,
+    with the library's betas where it has them (zeros otherwise)."""
     traj = {k: v.cpu().numpy() for k, v in traj.items()}
     fail_safe = fail_safe.cpu().numpy()
     percent = percent.cpu().numpy()
@@ -93,6 +103,13 @@ def summarize(traj, fail_safe, percent, expert_lib, seq_keys) -> Dict:
         m = compute_metrics(traj["pred_qpos"][s][:T], gt_qpos[s][1:T + 1],
                             traj["pred_jpos"][s][:T], gt_jpos[s][1:T + 1],
                             bool(fail_safe[s]), float(percent[s]))
+        if smpl_data is not None and root_offset is not None:
+            beta = (expert_lib["beta"][s].cpu().numpy()
+                    if "beta" in expert_lib else np.zeros(16, np.float32))
+            ro = np.asarray(root_offset)
+            verts = vertices_from_qpos(traj["pred_qpos"][s][:T], smpl_data,
+                                       beta, ro[s] if ro.ndim == 2 else ro)
+            m.update(compute_penetration_skate_vertices(verts))
         results[key] = m
         for k, v in m.items():
             agg.setdefault(k, []).append(v)

@@ -109,3 +109,42 @@ def compute_metrics(pred_qpos, gt_qpos, pred_jpos, gt_jpos,
         "vel_dist": float(vel_dist),
         "accel_dist": float(accel_dist),
     }
+
+
+def compute_penetration_skate_vertices(verts: np.ndarray,
+                                       floor_z: float = 0.0
+                                       ) -> Dict[str, float]:
+    """Vertex penetration and skate (reference smpl_eval.py:125
+    compute_penetration, :138 compute_skate), in mm. verts: (T, V, 3)
+    mesh vertices of the predicted motion."""
+    z = verts[..., 2] - floor_z
+    pen = []
+    for zt in z:
+        pind = zt < 0
+        pen.append(float(-zt[pind].mean() * 1000) if pind.any() else 0.0)
+    skate = []
+    for t in range(verts.shape[0] - 1):
+        cind = (z[t] <= 0) & (z[t + 1] <= 0)
+        if cind.any():
+            off = verts[t + 1, cind, :2] - verts[t, cind, :2]
+            skate.append(float(np.linalg.norm(off, axis=1).mean() * 1000))
+        else:
+            skate.append(0.0)
+    return {"penetration": float(np.mean(pen)) if pen else 0.0,
+            "skate": float(np.mean(skate)) if skate else 0.0}
+
+
+def vertices_from_qpos(pred_qpos: np.ndarray, smpl_data, betas,
+                       root_offset, chunk: int = 64) -> np.ndarray:
+    """(T, 76) qpos -> (T, V, 3) SMPL vertices via qpos_to_smpl + LBS, in
+    chunks of frames (the reference eval's pred_vertices)."""
+    from uhc_tpu_torch.smpl.convert import qpos_to_smpl
+    from uhc_tpu_torch.smpl.lbs import lbs
+
+    pose_aa, trans = qpos_to_smpl(np.asarray(pred_qpos, np.float32),
+                                  root_offset)
+    betas = np.asarray(betas, np.float32)
+    out = [lbs(smpl_data, pose_aa[i:i + chunk], betas,
+               trans[i:i + chunk])[0].numpy()
+           for i in range(0, pose_aa.shape[0], chunk)]
+    return np.concatenate(out, 0)

@@ -221,3 +221,30 @@ def value_init(state_dim, hidden, generator: torch.Generator,
     _init_trunks(generator, m.net)
     _init_head(m.net, generator)
     return m.to(device).eval()
+
+
+def policy_gaussian_init(state_dim, action_dim, hidden,
+                         generator: torch.Generator, activation="relu",
+                         device="cuda") -> PolicyGaussian:
+    """Seeded random Gaussian policy (uhc_tpu.learn.nets
+    policy_gaussian_init: U(±1/√fan_in) trunk, mean head scaled by 0.1
+    with zero bias)."""
+    m = PolicyGaussian(state_dim, action_dim, hidden, activation)
+    _init_trunks(generator, m.net)
+    _init_head(m.net, generator)
+    return m.to(device).eval()
+
+
+def make_policy(cfg, state_dim, action_dim, generator: torch.Generator,
+                device="cuda") -> nn.Module:
+    """The policy of `cfg.actor_type` (uhc_tpu.learn.nets make_policy):
+    "mcp" or "gauss"."""
+    if cfg.actor_type == "mcp":
+        return policy_mcp_init(state_dim, action_dim, cfg.policy_hsize,
+                               cfg.composer_dim, cfg.num_primitive,
+                               generator, cfg.policy_htype, device)
+    if cfg.actor_type == "gauss":
+        return policy_gaussian_init(state_dim, action_dim, cfg.policy_hsize,
+                                    generator, cfg.policy_htype, device)
+    raise NotImplementedError(f"actor_type {cfg.actor_type!r} is not "
+                              "ported yet")

@@ -11,8 +11,17 @@ eager chain of physics/engine.py + solver.py with the same schedule: exact
 inverses at substep 0, then warm-started PCG with (pd_iters, fd_iters)
 iterations.
 
-`LAUNCHES` counts kernel launches (not reference calls); `reset_launches`
-sets it to 0.
+K1e, the per-env variant (pallas_lane.py `per_env`): given a model library
+(leaves with a leading (S,) dim where sequences differ, see
+physics/model.py) the float table becomes (S, P_TOTAL), one packed model
+per row, and the call takes `seq_idx` (B,) int32, contiguous, on the
+inputs' device; env b simulates row seq_idx[b]. The range 0 <= seq_idx < S
+is checked on the host before the launch. Its plain version gathers the
+model (`env_models`) and runs the same chain.
+
+`LAUNCHES` counts K1 launches with a shared model, `PE_LAUNCHES` K1e
+launches with a library (not reference calls); `reset_launches` sets both
+to 0.
 """
 from __future__ import annotations
 
@@ -21,29 +30,58 @@ import numpy as np
 import torch
 
 from uhc_tpu_torch.physics import solver as S
-from uhc_tpu_torch.physics.model import (Model, Topology, model_from_numpy,
+from uhc_tpu_torch.physics.model import (MODEL_BASE_NDIM, Model, Topology,
+                                         env_models, model_from_numpy,
                                          model_to_numpy)
 from uhc_tpu_torch.smpl.constants import self_collision_pairs
 
 NB, NV, NQ, NDOF, KPTS, SC, MAXPAIR, MAXACT = 24, 75, 76, 69, 16, 3, 64, 128
 LIM_K, LIM_D, SC_K, SC_D = 500.0, 20.0, 3000.0, 50.0   # engine defaults
 
+# Model leaves that may differ per sequence in a library the env routes
+# to K1e: what a body shape (smpl/robot.py model_from_betas, the anatomical
+# ranges) or domain randomization (contact scalars, masses) varies. The
+# JAX package's per-env kernel takes exactly these
+# (uhc_tpu/physics/pallas_lane.py:65 PE_MODEL_LEAVES).
+PE_MODEL_LEAVES = ("body_pos", "body_ipos", "body_mass", "body_inertia",
+                   "body_iquat", "jnt_range", "contact_point", "sc_point",
+                   "sc_radius", "contact_stiffness", "contact_damping",
+                   "friction")
+
 LAUNCHES = 0
+PE_LAUNCHES = 0
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    global LAUNCHES, PE_LAUNCHES
+    LAUNCHES = PE_LAUNCHES = 0
+
+
+def library_size(m: dict):
+    """Rows S of a model library given as numpy leaves, None for a shared
+    model."""
+    sizes = {np.shape(v)[0] for k, v in m.items()
+             if np.ndim(v) > MODEL_BASE_NDIM[k]}
+    if len(sizes) > 1:
+        raise ValueError(f"model library leaves disagree on S: {sizes}")
+    return sizes.pop() if sizes else None
 
 
 def pack_tables(topo: Topology, cfg, model, pcg_iters=(1, 2)):
     """Model + topology + config -> (float32 params, int32 table) in the
-    layout of control_step.cu (P_* / I_* enums)."""
+    layout of control_step.cu (P_* / I_* enums). A model library gives
+    (S, P_TOTAL) params, one packed model per row."""
     if topo.nbody != NB or topo.joint_kind != "euler":
         raise ValueError("the control-step kernel is built for the 24-body "
                          "euler-joint humanoid")
     S.check_supported(cfg)
     m = model_to_numpy(model) if isinstance(model, Model) else model
+    n_lib = library_size(m)
+    if n_lib is not None:
+        rows = [pack_tables(topo, cfg, {
+            k: (v[s] if np.ndim(v) > MODEL_BASE_NDIM[k] else v)
+            for k, v in m.items()}, pcg_iters) for s in range(n_lib)]
+        return np.stack([p for p, _ in rows]), rows[0][1]
     cp = np.asarray(m["contact_point"], np.float32)
     cmask = np.asarray(m["contact_mask"], np.float32)
     if cp.shape[1] > KPTS or np.asarray(m["sc_point"]).shape[1] != SC:
@@ -88,10 +126,11 @@ def pack_tables(topo: Topology, cfg, model, pcg_iters=(1, 2)):
 
 def control_step_reference(topo: Topology, cfg, model: Model, qpos, qvel,
                            actions, target_base, rfc_rate=1.0,
-                           pcg_iters=(1, 2)):
-    """The plain PyTorch version of the kernel (same schedule)."""
-    return S.do_simulation(topo, cfg, model, qpos, qvel, actions,
-                           target_base, rfc_rate, pcg_iters)
+                           pcg_iters=(1, 2), seq_idx=None):
+    """The plain PyTorch version of the kernel (same schedule); a model
+    library is gathered by `seq_idx` first (K1e)."""
+    return S.do_simulation(topo, cfg, env_models(model, seq_idx), qpos,
+                           qvel, actions, target_base, rfc_rate, pcg_iters)
 
 
 class ControlStep:
@@ -101,6 +140,9 @@ class ControlStep:
                  pcg_iters=(1, 2)):
         self.topo, self.cfg, self.pcg_iters = topo, cfg, pcg_iters
         self.params, self.itab = pack_tables(topo, cfg, model, pcg_iters)
+        # rows of the model library (K1e), None for a shared model (K1)
+        self.num_models = (self.params.shape[0] if self.params.ndim == 2
+                           else None)
         self.act_dim = sum(S.action_dims(topo, cfg))
         if self.act_dim > MAXACT:
             raise ValueError(f"{self.act_dim} action columns; the kernel "
@@ -121,10 +163,10 @@ class ControlStep:
             from uhc_tpu_torch.csrc import build
 
             lay = build.layout(build.load_library())
-            if (lay["params"], lay["itab"]) != (self.params.size,
+            if (lay["params"], lay["itab"]) != (self.params.shape[-1],
                                                 self.itab.size):
                 raise RuntimeError(f"table layout mismatch: kernel {lay}, "
-                                   f"packed {self.params.size}, "
+                                   f"packed {self.params.shape}, "
                                    f"{self.itab.size}")
             self._tables[key] = (
                 torch.as_tensor(self.params, device=device),
@@ -148,12 +190,47 @@ class ControlStep:
                 raise ValueError(f"{name} is not contiguous")
         return B
 
-    def __call__(self, qpos, qvel, actions, target_base, rfc_rate=1.0):
-        global LAUNCHES
+    def check_seq_idx(self, seq_idx, qpos) -> None:
+        """A library needs seq_idx (B,) int32, contiguous, on qpos's
+        device, every entry in [0, S); a shared model takes none."""
+        if self.num_models is None:
+            if seq_idx is not None:
+                raise ValueError("seq_idx given for a shared model")
+            return
+        if seq_idx is None:
+            raise ValueError("a model library needs seq_idx")
+        if tuple(seq_idx.shape) != (qpos.shape[0],) \
+                or seq_idx.dtype != torch.int32 \
+                or seq_idx.device != qpos.device \
+                or not seq_idx.is_contiguous():
+            raise ValueError(f"seq_idx: {tuple(seq_idx.shape)} "
+                             f"{seq_idx.dtype} on {seq_idx.device}, expected "
+                             f"contiguous int32 ({qpos.shape[0]},) on "
+                             f"{qpos.device}")
+        if seq_idx.numel():
+            lo, hi = (int(v) for v in torch.aminmax(seq_idx))
+            if lo < 0 or hi >= self.num_models:
+                raise ValueError(f"seq_idx spans [{lo}, {hi}], the library "
+                                 f"has {self.num_models} models")
+
+    def seq_ptr(self, seq_idx) -> int:
+        """The kernel's seq_idx argument: a device pointer or null."""
+        return 0 if seq_idx is None else seq_idx.data_ptr()
+
+    def count_launch(self) -> None:
+        global LAUNCHES, PE_LAUNCHES
+        if self.num_models is None:
+            LAUNCHES += 1
+        else:
+            PE_LAUNCHES += 1
+
+    def __call__(self, qpos, qvel, actions, target_base, rfc_rate=1.0,
+                 seq_idx=None):
+        self.check_seq_idx(seq_idx, qpos)
         if qpos.device.type == "cpu":
             return control_step_reference(
                 self.topo, self.cfg, self.model_on("cpu"), qpos, qvel,
-                actions, target_base, rfc_rate, self.pcg_iters)
+                actions, target_base, rfc_rate, self.pcg_iters, seq_idx)
         if qpos.device.type != "cuda":
             raise ValueError(f"unsupported device {qpos.device}")
         B = self.check_inputs(qpos, qvel, actions, target_base)
@@ -166,13 +243,14 @@ class ControlStep:
         P, I = self._device_tables(qpos.device)
         stream = torch.cuda.current_stream(qpos.device).cuda_stream
         rc = lib.uhc_control_step(
-            P.data_ptr(), I.data_ptr(), qpos.data_ptr(), qvel.data_ptr(),
-            actions.data_ptr(), target_base.data_ptr(), qpos_out.data_ptr(),
-            qvel_out.data_ptr(), B, self.act_dim, float(rfc_rate), stream)
+            P.data_ptr(), self.seq_ptr(seq_idx), I.data_ptr(),
+            qpos.data_ptr(), qvel.data_ptr(), actions.data_ptr(),
+            target_base.data_ptr(), qpos_out.data_ptr(), qvel_out.data_ptr(),
+            B, self.act_dim, float(rfc_rate), stream)
         if rc != 0:
             raise RuntimeError(f"control_step kernel launch failed: CUDA "
                                f"error {rc}")
-        LAUNCHES += 1
+        self.count_launch()
         return qpos_out, qvel_out
 
 

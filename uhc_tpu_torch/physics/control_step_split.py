@@ -13,8 +13,14 @@ the plain version: `solver.substeps` over substep 0, then over 1..14.
 Its one-launch counterpart is K1 with the same schedule,
 `ControlStep(..., pcg_iters=(p, p))`, which head + tail equal bit for bit.
 
-`HEAD_LAUNCHES` / `TAIL_LAUNCHES` count kernel launches (not plain-version
-calls); `reset_launches` sets both to 0.
+Given a model library, head and tail take the (S, P_TOTAL) table and
+`seq_idx` exactly as K1e does (`ControlStep`), since all three share
+`control_step_env`: this is the port's route for a library under
+UHC_TPU_LANE=0 (the JAX package sends that case to its XLA chain).
+
+`HEAD_LAUNCHES` / `TAIL_LAUNCHES` count launches with a shared model,
+`HEAD_PE_LAUNCHES` / `TAIL_PE_LAUNCHES` with a library (not plain-version
+calls); `reset_launches` sets all four to 0.
 """
 from __future__ import annotations
 
@@ -22,30 +28,32 @@ import torch
 
 from uhc_tpu_torch.physics import solver as S
 from uhc_tpu_torch.physics.control_step import NV, ControlStep
+from uhc_tpu_torch.physics.model import env_models
 
-HEAD_LAUNCHES = 0
-TAIL_LAUNCHES = 0
+HEAD_LAUNCHES = TAIL_LAUNCHES = 0
+HEAD_PE_LAUNCHES = TAIL_PE_LAUNCHES = 0
 
 
 def reset_launches() -> None:
-    global HEAD_LAUNCHES, TAIL_LAUNCHES
-    HEAD_LAUNCHES = TAIL_LAUNCHES = 0
+    global HEAD_LAUNCHES, TAIL_LAUNCHES, HEAD_PE_LAUNCHES, TAIL_PE_LAUNCHES
+    HEAD_LAUNCHES = TAIL_LAUNCHES = HEAD_PE_LAUNCHES = TAIL_PE_LAUNCHES = 0
 
 
 def head_reference(topo, cfg, model, qpos, qvel, actions, target_base,
-                   rfc_rate=1.0, pcg_iters=2):
+                   rfc_rate=1.0, pcg_iters=2, seq_idx=None):
     """Plain head: substep 0 -> (qpos, qvel, X (B, 2, 75, 75))."""
-    q, v, (xp, xf) = S.substeps(topo, cfg, model, qpos, qvel, actions,
-                                target_base, rfc_rate, pcg_iters, 0, 1)
+    q, v, (xp, xf) = S.substeps(topo, cfg, env_models(model, seq_idx), qpos,
+                                qvel, actions, target_base, rfc_rate,
+                                pcg_iters, 0, 1)
     return q, v, torch.stack([xp, xf], 1)
 
 
 def tail_reference(topo, cfg, model, qpos, qvel, actions, target_base, X,
-                   rfc_rate=1.0, pcg_iters=2):
+                   rfc_rate=1.0, pcg_iters=2, seq_idx=None):
     """Plain tail: substeps 1..frame_skip-1 from the head's state and X."""
-    return S.substeps(topo, cfg, model, qpos, qvel, actions, target_base,
-                      rfc_rate, pcg_iters, 1, cfg.frame_skip,
-                      inverses=(X[:, 0], X[:, 1]))[:2]
+    return S.substeps(topo, cfg, env_models(model, seq_idx), qpos, qvel,
+                      actions, target_base, rfc_rate, pcg_iters, 1,
+                      cfg.frame_skip, inverses=(X[:, 0], X[:, 1]))[:2]
 
 
 class ControlStepSplit(ControlStep):
@@ -56,7 +64,8 @@ class ControlStepSplit(ControlStep):
             raise TypeError("K2 runs one PCG count on both solves")
         super().__init__(topo, cfg, model, (pcg_iters, pcg_iters))
 
-    def _launch(self, entry, qpos, qvel, actions, target_base, X, rfc_rate):
+    def _launch(self, entry, qpos, qvel, actions, target_base, X, rfc_rate,
+                seq_idx):
         from uhc_tpu_torch.csrc import build
 
         lib = build.load_library()
@@ -64,10 +73,11 @@ class ControlStepSplit(ControlStep):
         q_out, v_out = torch.empty_like(qpos), torch.empty_like(qvel)
         stream = torch.cuda.current_stream(qpos.device).cuda_stream
         rc = getattr(lib, entry)(
-            P.data_ptr(), I.data_ptr(), qpos.data_ptr(), qvel.data_ptr(),
-            actions.data_ptr(), target_base.data_ptr(), q_out.data_ptr(),
-            v_out.data_ptr(), X.data_ptr(), qpos.shape[0], self.act_dim,
-            float(rfc_rate), stream)
+            P.data_ptr(), self.seq_ptr(seq_idx), I.data_ptr(),
+            qpos.data_ptr(), qvel.data_ptr(), actions.data_ptr(),
+            target_base.data_ptr(), q_out.data_ptr(), v_out.data_ptr(),
+            X.data_ptr(), qpos.shape[0], self.act_dim, float(rfc_rate),
+            stream)
         if rc != 0:
             raise RuntimeError(f"{entry} kernel launch failed: CUDA error "
                                f"{rc}")
@@ -78,29 +88,36 @@ class ControlStepSplit(ControlStep):
             raise ValueError(f"unsupported device {qpos.device}")
         return self.check_inputs(qpos, qvel, actions, target_base)
 
-    def head(self, qpos, qvel, actions, target_base, rfc_rate=1.0):
+    def head(self, qpos, qvel, actions, target_base, rfc_rate=1.0,
+             seq_idx=None):
         """Substep 0 -> (qpos, qvel, X (B, 2, 75, 75) = [Xp, Xf])."""
-        global HEAD_LAUNCHES
+        global HEAD_LAUNCHES, HEAD_PE_LAUNCHES
+        self.check_seq_idx(seq_idx, qpos)
         if qpos.device.type == "cpu":
             return head_reference(self.topo, self.cfg, self.model_on("cpu"),
                                   qpos, qvel, actions, target_base,
-                                  rfc_rate, self.pcg_iters[0])
+                                  rfc_rate, self.pcg_iters[0], seq_idx)
         B = self._check(qpos, qvel, actions, target_base)
         X = torch.empty((B, 2, NV, NV), dtype=qpos.dtype, device=qpos.device)
         if B == 0:
             return torch.empty_like(qpos), torch.empty_like(qvel), X
         q, v = self._launch("uhc_control_step_head", qpos, qvel, actions,
-                            target_base, X, rfc_rate)
-        HEAD_LAUNCHES += 1
+                            target_base, X, rfc_rate, seq_idx)
+        if self.num_models is None:
+            HEAD_LAUNCHES += 1
+        else:
+            HEAD_PE_LAUNCHES += 1
         return q, v, X
 
-    def tail(self, qpos, qvel, actions, target_base, X, rfc_rate=1.0):
+    def tail(self, qpos, qvel, actions, target_base, X, rfc_rate=1.0,
+             seq_idx=None):
         """Substeps 1.. from the head's state and X -> (qpos, qvel)."""
-        global TAIL_LAUNCHES
+        global TAIL_LAUNCHES, TAIL_PE_LAUNCHES
+        self.check_seq_idx(seq_idx, qpos)
         if qpos.device.type == "cpu":
             return tail_reference(self.topo, self.cfg, self.model_on("cpu"),
                                   qpos, qvel, actions, target_base, X,
-                                  rfc_rate, self.pcg_iters[0])
+                                  rfc_rate, self.pcg_iters[0], seq_idx)
         B = self._check(qpos, qvel, actions, target_base)
         if tuple(X.shape) != (B, 2, NV, NV) or X.dtype != torch.float32 \
                 or X.device != qpos.device or not X.is_contiguous():
@@ -110,11 +127,16 @@ class ControlStepSplit(ControlStep):
         if B == 0:
             return torch.empty_like(qpos), torch.empty_like(qvel)
         q, v = self._launch("uhc_control_step_tail", qpos, qvel, actions,
-                            target_base, X, rfc_rate)
-        TAIL_LAUNCHES += 1
+                            target_base, X, rfc_rate, seq_idx)
+        if self.num_models is None:
+            TAIL_LAUNCHES += 1
+        else:
+            TAIL_PE_LAUNCHES += 1
         return q, v
 
-    def __call__(self, qpos, qvel, actions, target_base, rfc_rate=1.0):
-        q, v, X = self.head(qpos, qvel, actions, target_base, rfc_rate)
-        return self.tail(q, v, actions, target_base, X, rfc_rate)
+    def __call__(self, qpos, qvel, actions, target_base, rfc_rate=1.0,
+                 seq_idx=None):
+        q, v, X = self.head(qpos, qvel, actions, target_base, rfc_rate,
+                            seq_idx)
+        return self.tail(q, v, actions, target_base, X, rfc_rate, seq_idx)
 

@@ -1,8 +1,12 @@
 """Rigid-body engine for reduced-coordinate humanoids (PyTorch twin of
 uhc_tpu.physics.engine), batched over a leading env axis.
 
-Every function takes a shared (unbatched) `Model` of tensors and state of
-shape (B, ...). The design is the JAX package's: dense body Jacobians make
+Every function takes state of shape (B, ...) and a `Model` of tensors
+that is either shared (unbatched leaves) or per env (leaves with a leading
+(B,) dim, from `env_models` over a model library): each function reads
+the model through `model_per_env`, which expands shared leaves to per-env
+views without a copy, so one code path serves both. The design is the
+JAX package's: dense body Jacobians make
 the mass matrix, bias force and contact projections plain batched matrix
 products; contacts are penalty springs with velocity-implicit damping.
 All contractions run in float32 (TF32 is off, see the package docstring).
@@ -21,7 +25,7 @@ import torch
 
 from uhc_tpu_torch.maths import (cross, quat_integrate, quat_mul,
                                  quat_normalize, quat_rotate, quat_to_mat)
-from uhc_tpu_torch.physics.model import Model, Topology
+from uhc_tpu_torch.physics.model import Model, Topology, model_per_env
 
 
 @functools.lru_cache(maxsize=None)
@@ -56,6 +60,7 @@ def fk(topo: Topology, model: Model, qpos: torch.Tensor) -> dict:
         raise NotImplementedError("only euler (z-y-x hinge) joints")
     tb = tables(topo, qpos.device)
     B, nb = qpos.shape[0], topo.nbody
+    model = model_per_env(model, B)
     root_q = quat_normalize(qpos[:, 3:7])
     e = qpos[:, 7:].reshape(B, nb - 1, 3) * 0.5
     cz, sz = torch.cos(e[..., 0]), torch.sin(e[..., 0])
@@ -74,7 +79,8 @@ def fk(topo: Topology, model: Model, qpos: torch.Tensor) -> dict:
     xquat[:, 0] = root_q
     for idx, par in tb["levels"]:
         qp = xquat[:, par]
-        xpos[:, idx] = xpos[:, par] + quat_rotate(qp, model.body_pos[idx])
+        xpos[:, idx] = xpos[:, par] + quat_rotate(qp,
+                                                  model.body_pos[:, idx])
         xquat[:, idx] = quat_mul(qp, q_local[:, idx - 1])
 
     xipos = xpos + quat_rotate(xquat, model.body_ipos)
@@ -153,7 +159,9 @@ def jacobians(topo: Topology, kin: dict):
 
 
 def world_inertia_factors(model: Model, xquat: torch.Tensor):
-    """Principal world rotation R·R_iquat (B,nb,3,3) and √diag inertia."""
+    """Principal world rotation R·R_iquat (B,nb,3,3) and √diag inertia
+    (B,nb,3)."""
+    model = model_per_env(model, xquat.shape[0])
     Rtot = quat_to_mat(quat_mul(xquat, model.body_iquat))
     return Rtot, torch.sqrt(model.body_inertia)
 
@@ -161,17 +169,21 @@ def world_inertia_factors(model: Model, xquat: torch.Tensor):
 def mass_matrix(model: Model, Jlin, Jang, Rtot, sqI) -> torch.Tensor:
     """M = GᵀG + diag(armature), G = [√m·Jlin ; √I·Rᵀ·Jang] per body."""
     B, nb, _, nv = Jlin.shape
-    Glin = torch.sqrt(model.body_mass)[None, :, None, None] * Jlin
-    Gang = sqI[None, :, :, None] * torch.matmul(Rtot.transpose(-1, -2), Jang)
+    model = model_per_env(model, B)
+    Glin = torch.sqrt(model.body_mass)[:, :, None, None] * Jlin
+    Gang = sqI[:, :, :, None] * torch.matmul(Rtot.transpose(-1, -2), Jang)
     G = torch.cat([Glin, Gang], 2).reshape(B, nb * 6, nv)
-    return torch.matmul(G.transpose(1, 2), G) + torch.diag(model.armature)
+    return (torch.matmul(G.transpose(1, 2), G)
+            + torch.diag_embed(model.armature))
 
 
 def bias_force(model: Model, vel: dict, Jlin, Jang, Rtot) -> torch.Tensor:
     """qfrc_bias (Coriolis + centrifugal + gravity): M q̈ + C = qfrc."""
-    Iw = torch.matmul(Rtot * model.body_inertia[None, :, None, :],
+    model = model_per_env(model, Rtot.shape[0])
+    Iw = torch.matmul(Rtot * model.body_inertia[:, :, None, :],
                       Rtot.transpose(-1, -2))
-    f = model.body_mass[None, :, None] * (vel["acom_bias"] - model.gravity)
+    f = model.body_mass[:, :, None] * (vel["acom_bias"]
+                                       - model.gravity[:, None])
     w = vel["omega"]
     t = (torch.matmul(Iw, vel["alpha_bias"][..., None])[..., 0]
          + cross(w, torch.matmul(Iw, w[..., None])[..., 0]))
@@ -196,9 +208,10 @@ def contact_terms(topo: Topology, model: Model, kin: dict, vel: dict):
 
     Returns F (B,nb,3) spring forces, T (B,nb,3) spring torques about body
     COMs, W (B,nb,6,6) implicit damping wrenches, all in the world frame."""
-    cp, cmask = model.contact_point, model.contact_mask
     xpos, xquat, xipos = kin["xpos"], kin["xquat"], kin["xipos"]
-    cpx, cpy, cpz = cp[None, ..., 0], cp[None, ..., 1], cp[None, ..., 2]
+    model = model_per_env(model, xpos.shape[0])
+    cp, cmask = model.contact_point, model.contact_mask
+    cpx, cpy, cpz = cp[..., 0], cp[..., 1], cp[..., 2]
     qw, qx = xquat[..., 0:1], xquat[..., 1:2]
     qy, qz = xquat[..., 2:3], xquat[..., 3:4]
     tx = 2.0 * (qy * cpz - qz * cpy)
@@ -215,13 +228,16 @@ def contact_terms(topo: Topology, model: Model, kin: dict, vel: dict):
 
     active = (wpz < 0.0).to(wpz.dtype) * cmask
     pen = torch.clamp(-wpz, min=0.0)
-    pen = torch.minimum(pen, model.contact_depth_cap)
-    fn = model.contact_stiffness * pen * active
+    def per_env(x):        # (B,) scalar leaf -> (B, 1, 1)
+        return x[:, None, None]
+
+    pen = torch.minimum(pen, per_env(model.contact_depth_cap))
+    fn = per_env(model.contact_stiffness) * pen * active
     vt_norm = torch.sqrt(vpx ** 2 + vpy ** 2 + 1e-12)
-    b = model.contact_damping * active
+    b = per_env(model.contact_damping) * active
     a = active * torch.clamp(
-        model.friction * fn / torch.maximum(vt_norm, model.contact_vreg),
-        max=2000.0)
+        per_env(model.friction) * fn / torch.maximum(
+            vt_norm, per_env(model.contact_vreg)), max=2000.0)
 
     rx = xpos[..., 0:1] + dx - xipos[..., 0:1]
     ry = xpos[..., 1:2] + dy - xipos[..., 1:2]
@@ -264,6 +280,7 @@ def self_collision_terms(topo: Topology, model: Model, kin: dict, vel: dict,
     pairs = self_collision_pairs(topo)
     xpos, xquat, xipos = kin["xpos"], kin["xquat"], kin["xipos"]
     B, nb = xpos.shape[0], topo.nbody
+    model = model_per_env(model, B)
     if len(pairs) == 0:
         z = xpos.new_zeros((B, nb, 3))
         return z, z
@@ -273,11 +290,11 @@ def self_collision_terms(topo: Topology, model: Model, kin: dict, vel: dict,
 
     def world_spheres(idx):
         return xpos[:, idx, None] + quat_rotate(xquat[:, idx, None],
-                                                model.sc_point[idx])
+                                                model.sc_point[:, idx])
 
     wi, wj = world_spheres(pi), world_spheres(pj)          # (B,P,SC,3)
-    ri = model.sc_radius[pi][None, :, None, None]
-    rj = model.sc_radius[pj][None, :, None, None]
+    ri = model.sc_radius[:, pi][:, :, None, None]
+    rj = model.sc_radius[:, pj][:, :, None, None]
     diff = wi[:, :, :, None] - wj[:, :, None]              # (B,P,SC,SC,3)
     dist = torch.sqrt((diff ** 2).sum(-1) + 1e-12)
     depth = (ri + rj) - dist
@@ -305,7 +322,8 @@ def self_collision_terms(topo: Topology, model: Model, kin: dict, vel: dict,
 def limit_qfrc(model: Model, qpos, qvel, k: float = 500.0, d: float = 20.0):
     """Joint-range penalty: spring force (B,nv), implicit damping (B,nv)."""
     q = qpos[:, 7:]
-    lo, hi = model.jnt_range[:, 0], model.jnt_range[:, 1]
+    model = model_per_env(model, qpos.shape[0])
+    lo, hi = model.jnt_range[..., 0], model.jnt_range[..., 1]
     below = torch.clamp(lo - q, min=0.0)
     above = torch.clamp(q - hi, min=0.0)
     out = ((below > 0) | (above > 0)).to(qpos.dtype)
@@ -317,9 +335,10 @@ def limit_qfrc(model: Model, qpos, qvel, k: float = 500.0, d: float = 20.0):
 def stable_pd_errors(model: Model, qpos, qvel, target_pos, kp, kd, C):
     """(rhs of the q̈_des system, qpos_err, kd_full); kp/kd are (B, ndof)."""
     z6 = qpos.new_zeros((qpos.shape[0], 6))
+    model = model_per_env(model, qpos.shape[0])
     kp_full = torch.cat([z6, kp.expand(qpos.shape[0], -1)], 1)
     kd_full = torch.cat([z6, kd.expand(qpos.shape[0], -1)], 1)
-    qpos_err = torch.cat([z6, qpos[:, 7:] + qvel[:, 6:] * model.dt
+    qpos_err = torch.cat([z6, qpos[:, 7:] + qvel[:, 6:] * model.dt[:, None]
                           - target_pos], 1)
     rhs = -C - kp_full * qpos_err - kd_full * qvel
     return rhs, qpos_err, kd_full
@@ -328,7 +347,7 @@ def stable_pd_errors(model: Model, qpos, qvel, target_pos, kp, kd, C):
 def integrate(model: Model, qpos, qvel, qacc):
     """Semi-implicit Euler; the root quaternion integrates its local
     angular velocity."""
-    dt = model.dt
+    dt = model_per_env(model, qpos.shape[0]).dt[:, None]
     qvel_new = qvel + dt * qacc
     root_pos = qpos[:, 0:3] + dt * qvel_new[:, 0:3]
     root_quat = quat_integrate(qpos[:, 3:7], qvel_new[:, 3:6], dt)
@@ -338,8 +357,9 @@ def integrate(model: Model, qpos, qvel, qacc):
 
 def pd_torque_from_accel(model: Model, qvel, qpos_err, kp, kd, qacc_des):
     """τ = -Kp e - Kd(ė + q̈_des·dt), clipped to the torque limits."""
+    model = model_per_env(model, qvel.shape[0])
     tau = -kp * qpos_err[:, 6:] - kd * (qvel[:, 6:] + qacc_des[:, 6:]
-                                        * model.dt)
+                                        * model.dt[:, None])
     return torch.maximum(torch.minimum(tau, model.torque_lim),
                          -model.torque_lim)
 
@@ -350,6 +370,7 @@ def assemble(topo: Topology, model: Model, qpos, qvel, target_pos, kp, kd,
     system A_pd = M + dt·Kd, the forward-dynamics system
     A_fd = M + dt·(CD + limit damping), the PD right-hand side and the
     force terms of the forward-dynamics right-hand side."""
+    model = model_per_env(model, qpos.shape[0])
     kin = fk(topo, model, qpos)
     vel = velocities(topo, kin, qvel)
     Jlin, Jang = jacobians(topo, kin)
@@ -378,8 +399,9 @@ def assemble(topo: Topology, model: Model, qpos, qvel, target_pos, kp, kd,
 
     pd_rhs, qpos_err, kd_full = stable_pd_errors(model, qpos, qvel,
                                                  target_pos, kp, kd, C)
-    A_pd = M + torch.diag_embed(kd_full) * model.dt
-    A_fd = M + model.dt * (CD + torch.diag_embed(lim_damp))
+    dt = model.dt[:, None, None]
+    A_pd = M + torch.diag_embed(kd_full) * dt
+    A_fd = M + dt * (CD + torch.diag_embed(lim_damp))
     rhs_base = qfrc_applied + qfrc_con + qfrc_lim + qfrc_damp - C
     return dict(A_pd=A_pd, A_fd=A_fd, pd_rhs=pd_rhs, qpos_err=qpos_err,
                 rhs_base=rhs_base,

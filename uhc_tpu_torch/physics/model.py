@@ -6,6 +6,12 @@
   field names. The MJCF loader fills it with numpy arrays;
   `model_from_numpy` turns any such container into float32 tensors on a
   device, `model_to_numpy` goes back.
+* A model *library* is a `Model` whose leaves carry a leading (S,) dim
+  where sequences differ (per-shape or domain-randomized models): the
+  leaves that differ per sequence get the dim, the rest stay shared.
+  `env_models(lib, seq_idx)` picks each env's model; `model_per_env`
+  gives every leaf a leading env dim (shared leaves as expanded views, no
+  copy), the one form the batched engine reads.
 
 Layouts match MuJoCo: qpos = [root xyz, root quat wxyz, 23 × euler z-y-x]
 (76), qvel = [root linvel (world), root angvel (root-local), 69 joint
@@ -137,17 +143,71 @@ MODEL_BASE_NDIM = {
 
 def model_from_numpy(m, device="cuda", dtype=torch.float32) -> Model:
     """Any container with the Model field names (this Model, the JAX
-    Model, or a dict) -> Model of tensors on `device`."""
+    Model, or a dict; a shared model or a library) -> Model of tensors on
+    `device`."""
     get = m.get if isinstance(m, dict) else (lambda k: getattr(m, k))
     fields = {}
     for f in dataclasses.fields(Model):
         v = np.asarray(get(f.name), np.float32)
-        if v.ndim != MODEL_BASE_NDIM[f.name]:
+        if v.ndim not in (MODEL_BASE_NDIM[f.name],
+                          MODEL_BASE_NDIM[f.name] + 1):
             raise ValueError(f"Model.{f.name}: expected ndim "
-                             f"{MODEL_BASE_NDIM[f.name]}, got {v.ndim} "
-                             "(per-env model libraries are not ported)")
+                             f"{MODEL_BASE_NDIM[f.name]} (shared) or "
+                             f"{MODEL_BASE_NDIM[f.name] + 1} (library), "
+                             f"got {v.ndim}")
         fields[f.name] = torch.as_tensor(v, dtype=dtype, device=device)
     return Model(**fields)
+
+
+def _batched(v, name: str) -> bool:
+    return np.ndim(v) > MODEL_BASE_NDIM[name]
+
+
+def model_batch_axes(m) -> dict:
+    """{leaf name: 0 if it carries a leading library/env dim, else None}."""
+    return {f.name: 0 if _batched(getattr(m, f.name), f.name) else None
+            for f in dataclasses.fields(Model)}
+
+
+def model_is_batched(m) -> bool:
+    return any(_batched(getattr(m, f.name), f.name)
+               for f in dataclasses.fields(Model))
+
+
+def model_gather(lib: Model, idx) -> Model:
+    """Index a model library by sequence index (scalar or (B,)); shared
+    leaves pass through."""
+    return Model(**{f.name: (getattr(lib, f.name)[idx]
+                             if _batched(getattr(lib, f.name), f.name)
+                             else getattr(lib, f.name))
+                    for f in dataclasses.fields(Model)})
+
+
+def env_models(model: Model, seq_idx=None) -> Model:
+    """The model each env simulates: a library gathered by the envs'
+    seq_idx (B,), a shared model as it is."""
+    if not model_is_batched(model):
+        return model
+    if seq_idx is None:
+        raise ValueError("a model library needs seq_idx")
+    return model_gather(model, torch.as_tensor(seq_idx).long())
+
+
+def model_per_env(m: Model, B: int) -> Model:
+    """Every leaf with a leading (B,) env dim: shared leaves as expanded
+    views (no copy), per-env leaves (from `model_gather`) as they are."""
+    out = {}
+    for f in dataclasses.fields(Model):
+        v = getattr(m, f.name)
+        if _batched(v, f.name):
+            if v.shape[0] != B:
+                raise ValueError(f"Model.{f.name}: leading dim "
+                                 f"{v.shape[0]}, expected {B} envs (gather "
+                                 "a library with model_gather first)")
+            out[f.name] = v
+        else:
+            out[f.name] = v.expand((B,) + tuple(v.shape))
+    return Model(**out)
 
 
 def model_to_numpy(m: Model) -> dict:

@@ -16,7 +16,7 @@ from uhc_tpu_torch.maths import (heading_quat, quat_inv, quat_mul,
                                  quat_rotate, wrap_to_pi)
 from uhc_tpu_torch.physics import engine as E
 from uhc_tpu_torch.physics import linalg as LA
-from uhc_tpu_torch.physics.model import Model, Topology
+from uhc_tpu_torch.physics.model import Model, Topology, model_per_env
 
 
 def exact_inverse(A: torch.Tensor) -> torch.Tensor:
@@ -86,7 +86,8 @@ def gain_scales(cfg, actions: torch.Tensor, ndof: int, vf_dim: int):
 
 def do_simulation(topo: Topology, cfg, model: Model, qpos, qvel, actions,
                   target_base, rfc_rate, pcg_iters=(1, 2), trace=None):
-    """One control step (frame_skip substeps) for a batch of envs.
+    """One control step (frame_skip substeps) for a batch of envs; `model`
+    is shared or per env (`env_models` of a library by seq_idx).
 
     `pcg_iters` is an int or a (pd_iters, fd_iters) pair. A `trace` list
     receives each substep's (B, nb) ground-contact sets."""
@@ -107,6 +108,7 @@ def substeps(topo: Topology, cfg, model: Model, qpos, qvel, actions,
     kp_scale, kd_scale = gain_scales(cfg, actions, ndof, vf_dim)
     base_rot = qpos.new_tensor(cfg.base_rot)
     B = qpos.shape[0]
+    model = model_per_env(model, B)
     if (start == 0) == (inverses is not None):
         raise ValueError("the inverses come from substep 0: pass them "
                          "exactly when start > 0")
@@ -125,8 +127,8 @@ def substeps(topo: Topology, cfg, model: Model, qpos, qvel, actions,
             vf = torch.cat([quat_rotate(hq, vf[:, :3]), vf[:, 3:]], 1)
             qfrc[:, :6] = torch.clamp(vf, -cfg.residual_force_lim,
                                       cfg.residual_force_lim)
-        kp = model.jkp[None] * kp_scale[:, i:i + 1]
-        kd = model.jkd[None] * kd_scale[:, i:i + 1]
+        kp = model.jkp * kp_scale[:, i:i + 1]
+        kd = model.jkd * kd_scale[:, i:i + 1]
         out = E.assemble(topo, model, qpos, qvel, target_pos, kp, kd, qfrc,
                          cfg.self_collision)
         if trace is not None:

@@ -37,6 +37,11 @@ SMPL_2_MUJOCO = np.array(
 MUJOCO_2_SMPL = np.array(
     [MUJOCO_BODY_ORDER.index(n) for n in SMPL_BONE_ORDER_NAMES], dtype=np.int32)
 
+# SMPL kinematic parents in SMPL bone order (smplx kintree_table).
+SMPL_PARENTS = np.array(
+    [-1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17, 18,
+     19, 20, 21], np.int32)
+
 SMPL_EE_NAMES = ["L_Ankle", "R_Ankle", "L_Wrist", "R_Wrist", "Head"]
 SMPL_EE_INDICES = np.array(
     [MUJOCO_BODY_ORDER.index(n) for n in SMPL_EE_NAMES], dtype=np.int32)
