@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch port (uhc_tpu_torch) runs on an NVIDIA
 H100: builds every hand-written kernel from this checkout (K1, the
-one-launch control step, K2, its head/tail split, and K1e / K2 over a
-per-env model library), holds each against its plain PyTorch version on
-the card, drives the main paths at full width with seeded weights --
-closed-loop copycat evaluation of every clip of sample_data/gait_clips.pkl
-through K1, PPO training through cli/train with 1024 envs × 48 steps,
-through K1 (default routing) and through K2 (UHC_TPU_LANE=0), and the
-shape-conditioned uhc_implicit_shape config over the 8 bodies of
-sample_data/shape_clips.pkl: eval through K1e, training through K1e and
-K2 over the library, and domain-randomized training through K1e -- checks
-their output, and times the kernels at B=2048.
+one-launch control step, K2, its head/tail split, K1e / K2 over a per-env
+model library, and K1d, the same kernels built for the 52-body SMPL-H and
+the 48-body masterfoot trees; one nvcc per tree, all at once), holds each
+against its plain PyTorch version on the card, drives the main paths at
+full width with seeded weights -- closed-loop copycat evaluation of every
+clip of sample_data/gait_clips.pkl through K1, PPO training through
+cli/train with 1024 envs × 48 steps, through K1 (default routing) and
+through K2 (UHC_TPU_LANE=0), the shape-conditioned uhc_implicit_shape
+config over the 8 bodies of sample_data/shape_clips.pkl (eval through K1e,
+training through K1e and K2 over the library), domain-randomized training
+through K1e, and training on the big trees: `cli/train --robot-model
+smplh` with 512 envs × 32 steps through K1d with the eval at the
+checkpoint, then through K2 (UHC_TPU_LANE_BIG=0), and the masterfoot
+agent (env.masterfoot) through K1d and K2 -- checks their output, and
+times the kernels at B=2048 (and the big trees' at B=512).
 
 Usage: python3 chip_smoke.py        (needs one CUDA card; no arguments)
 
@@ -47,8 +52,16 @@ SHAPE_TRAIN_ARGS = ["--cfg", "uhc_implicit_shape", "--motion-file",
                     SHAPE_CLIPS, "--num-envs", "1024", "--horizon", "32",
                     "--no-train-eval"]
 DR_TRAIN_ARGS = TRAIN_ARGS + ["--dr-variants", "4"]
+# the kernel builds: the 24-body humanoid, masterfoot, SMPL-H
+BODIES = (24, 48, 52)
+BIG = (("smplh", 52), ("masterfoot", 48))
+# the JAX package's SMPL-H run (tools/train_queue.sh:39-42)
+SMPLH_TRAIN_ARGS = ["--robot-model", "smplh", "--num-envs", "512",
+                    "--horizon", "32"]
+B_BIG_TIME = (2048, 512)
 
 _phase = ["start"]
+TRAIN_RATES = {}     # phase -> per-epoch rollout rates and PPO times
 
 
 class Deadline(Exception):
@@ -103,22 +116,27 @@ def double_model(model):
                           for f in dataclasses.fields(model)})
 
 
+# each kernel's launch counter: its key in control_step.LAUNCHES (entry,
+# bodies, model library)
+COUNTERS = {"k1": ("step", 24, False), "k2_head": ("head", 24, False),
+            "k2_tail": ("tail", 24, False), "k1e": ("step", 24, True),
+            "k2e_head": ("head", 24, True), "k2e_tail": ("tail", 24, True),
+            **{f"{name}_{fam}": (entry, nb, False) for fam, nb in BIG
+               for name, entry in (("k1d", "step"), ("k2big_head", "head"),
+                                   ("k2big_tail", "tail"))}}
+
+
 def reset_counts() -> None:
     from uhc_tpu_torch.physics import control_step as CS
-    from uhc_tpu_torch.physics import control_step_split as K2
 
     CS.reset_launches()
-    K2.reset_launches()
 
 
 def counts() -> dict:
     """Launches of every kernel since the last reset_counts()."""
     from uhc_tpu_torch.physics import control_step as CS
-    from uhc_tpu_torch.physics import control_step_split as K2
 
-    return {"k1": CS.LAUNCHES, "k2_head": K2.HEAD_LAUNCHES,
-            "k2_tail": K2.TAIL_LAUNCHES, "k1e": CS.PE_LAUNCHES,
-            "k2e_head": K2.HEAD_PE_LAUNCHES, "k2e_tail": K2.TAIL_PE_LAUNCHES}
+    return {name: CS.LAUNCHES[key] for name, key in COUNTERS.items()}
 
 
 def expect(steps: int, *kernels) -> dict:
@@ -127,13 +145,17 @@ def expect(steps: int, *kernels) -> dict:
 
 
 def run_train(lane, epochs: int, name: str, dev, args=TRAIN_ARGS,
-              per_env: bool = False) -> dict:
+              per_env: bool = False, routed=None, lane_big=None,
+              agent_fn=None) -> dict:
     """Drive cli/train on the card with UHC_TPU_LANE=`lane` (None: unset,
-    the default routing) and check it: launches of the routed kernel (the
-    per-env variant over a model library) exactly one per control step
-    and none of any other, finite stats, the value loss falling across
-    every update, and a checkpoint that reloads to the same policy bit
-    for bit. Returns the launch counts."""
+    the default routing) and UHC_TPU_LANE_BIG=`lane_big`, or the agent
+    `agent_fn(results_dir)` builds through `epochs` of optimize_policy and
+    a checkpoint, and check it: launches of the routed kernel (the
+    per-env variant over a model library; `routed` names the counters of
+    a big tree) exactly one per control step, the eval at the checkpoint
+    included, and none of any other, finite stats, the value loss falling
+    across every update, and a checkpoint that reloads to the same policy
+    bit for bit. Returns the launch counts."""
     import tempfile
 
     import numpy as np
@@ -143,20 +165,32 @@ def run_train(lane, epochs: int, name: str, dev, args=TRAIN_ARGS,
     from uhc_tpu_torch.data import joblib_compat
     from uhc_tpu_torch.learn import nets
 
-    if lane is None:
-        os.environ.pop("UHC_TPU_LANE", None)
-    else:
-        os.environ["UHC_TPU_LANE"] = lane
+    for var, val in (("UHC_TPU_LANE", lane), ("UHC_TPU_LANE_BIG", lane_big)):
+        if val is None:
+            os.environ.pop(var, None)
+        else:
+            os.environ[var] = val
+    eval_steps = 0
     try:
         with tempfile.TemporaryDirectory() as out:
             reset_counts()
-            agent, hist = train.main(args + [
-                "--epochs", str(epochs), "--results-dir", out])
+            if agent_fn is None:
+                agent, hist = train.main(args + [
+                    "--epochs", str(epochs), "--results-dir", out])
+                if "--no-train-eval" not in args:
+                    # the eval at the checkpoint runs every clip to its end
+                    eval_steps = int(agent.expert_lib["len"].max()) - 1
+            else:
+                agent = agent_fn(out)
+                hist = [agent.optimize_policy(i) for i in range(epochs)]
+                agent.save_checkpoint(epochs)
             got = counts()
-            steps = epochs * agent.horizon
-            routed = {(None, False): ("k1",), (None, True): ("k1e",),
-                      ("0", False): ("k2_head", "k2_tail"),
-                      ("0", True): ("k2e_head", "k2e_tail")}[lane, per_env]
+            steps = epochs * agent.horizon + eval_steps
+            if routed is None:
+                routed = {(None, False): ("k1",), (None, True): ("k1e",),
+                          ("0", False): ("k2_head", "k2_tail"),
+                          ("0", True): ("k2e_head", "k2e_tail")}[lane,
+                                                                 per_env]
             want = expect(steps, *routed)
             if got != want:
                 raise RuntimeError(f"{name}: launches {got}, expected {want}")
@@ -181,7 +215,14 @@ def run_train(lane, epochs: int, name: str, dev, args=TRAIN_ARGS,
                                    f"another policy mean")
     finally:
         os.environ.pop("UHC_TPU_LANE", None)
+        os.environ.pop("UHC_TPU_LANE_BIG", None)
+    TRAIN_RATES[name] = {
+        "rollout_env_steps_per_s": [st["rollout_steps_per_sec"]
+                                    for st in hist],
+        "ppo_update_ms": [1e3 * st["T_update"] for st in hist]}
     done(name, launches=got, epochs=epochs, cfg=agent.cfg.cfg_id,
+         bodies=agent.topo.nbody, num_envs=agent.num_envs,
+         horizon=agent.horizon, eval_steps=eval_steps,
          seqs=len(agent.seq_keys), obs_dim=agent.obs_dim,
          action_dim=agent.action_dim,
          rollout_env_steps_per_s=[st["rollout_steps_per_sec"]
@@ -269,6 +310,238 @@ def gate(name, out, plain32, plain64) -> tuple:
     return errs, fails
 
 
+def big_tree(family: str, dev, meta_pd: bool = False):
+    """uhc_implicit on a big tree built from the stand-in: "smplh" (52
+    bodies) or "masterfoot" (48) -> (topo, env cfg, model, expert library
+    of the gait clips on that tree)."""
+    import dataclasses
+
+    from uhc_tpu_torch.config.config import Config
+    from uhc_tpu_torch.data.dataset import (build_expert_library,
+                                            load_motion_file)
+    from uhc_tpu_torch.learn.agent import robot_family
+    from uhc_tpu_torch.physics.model import model_from_numpy
+    from uhc_tpu_torch.smpl.fixture_humanoid import load_fixture_humanoid
+
+    env = dataclasses.replace(Config.uhc_implicit().env,
+                              robot_model="smplh" if family == "smplh"
+                              else "smpl",
+                              masterfoot=family == "masterfoot",
+                              meta_pd=meta_pd)
+    topo24, model24 = load_fixture_humanoid()
+    topo, model_np, conv, _, _ = robot_family(topo24, model24, env)
+    model = model_from_numpy(model_np, dev)
+    lib, _ = build_expert_library(
+        topo, model, load_motion_file("sample_data/gait_clips.pkl"),
+        converter=conv, base_root_offset=(None if conv is None
+                                          else model_np.body_pos[0]))
+    return topo, env, model, lib
+
+
+def draw_big_states(lib, nv, B, gen, dev):
+    """draw_states over a big tree's library (qvel of width nv)."""
+    import torch
+
+    S = lib["qpos"].shape[0]
+    si = torch.randint(0, S, (B,), generator=gen).to(dev)
+    ti = torch.randint(0, int(lib["len"].min()) - 1, (B,),
+                       generator=gen).to(dev)
+    qvel = 0.05 * torch.randn((B, nv), generator=gen).to(dev)
+    return (lib["qpos"][si, ti].contiguous(), qvel.contiguous(),
+            lib["qpos"][si, ti + 1, 7:].contiguous())
+
+
+def k1d_draws(dev):
+    """The draws of phase k1d_vs_plain, one case after another: (family,
+    mode, topo, env cfg, model, (qpos, qvel, actions, target_base)) for
+    SMPL-H and masterfoot, plain PD and meta-PD, B_CHECK envs each, made
+    on the host from one seeded generator and moved to `dev`."""
+    import torch
+
+    from uhc_tpu_torch.physics import solver
+
+    gen = torch.Generator().manual_seed(13)
+    for fam, _ in BIG:
+        for mode in ("plain_pd", "meta_pd"):
+            btopo, benv, bmodel, blib = big_tree(fam, dev,
+                                                 mode == "meta_pd")
+            qpos, qvel, tb = draw_big_states(blib, btopo.nv, B_CHECK, gen,
+                                             dev)
+            n_act = sum(solver.action_dims(btopo, benv))
+            act = (0.02 * torch.randn((B_CHECK, n_act),
+                                      generator=gen)).to(dev)
+            yield fam, mode, btopo, benv, bmodel, (qpos, qvel, act, tb)
+
+
+# a missed env's state moved by 1 and by 2 float32 ulps (relative 2⁻²³ per
+# ulp, every entry of qpos and qvel, seeded signs), MOVES copies each
+ULP_MOVES, MOVES = (1, 2), 32
+
+
+def moved_steps(topo, env_cfg, model, ins, env, dtype, seed=0, trace=None):
+    """The plain (2, 2) step in `dtype` of env `env` of `ins` (qpos, qvel,
+    actions, target_base) from copies of its state moved by ULP_MOVES
+    float32 ulps -> (qpos', qvel') of the len(ULP_MOVES) * MOVES copies;
+    `trace` receives each substep's ground-contact sets."""
+    import torch
+
+    from uhc_tpu_torch.physics import solver
+
+    qpos, qvel, act, tb = [x[env:env + 1].to(dtype) for x in ins]
+    n = len(ULP_MOVES) * MOVES
+    gen = torch.Generator().manual_seed(seed)
+    rel = torch.tensor([u * 2.0 ** -23 for u in ULP_MOVES
+                        for _ in range(MOVES)], dtype=dtype)[:, None]
+
+    def move(x):
+        sign = 2 * torch.randint(0, 2, (n, x.shape[1]), generator=gen) - 1
+        return (x * (1 + (rel * sign).to(x))).contiguous()
+
+    m = model if dtype == torch.float32 else double_model(model)
+    return solver.do_simulation(
+        topo, env_cfg, m, move(qpos), move(qvel),
+        act.expand(n, -1).contiguous(), tb.expand(n, -1).contiguous(), 1.0,
+        (2, 2), trace=trace)
+
+
+def gate_big(name, out, plain32, plain64, moved) -> tuple:
+    """A big-tree kernel's (qpos, qvel) against its float32 and float64
+    plain versions -> (errors, failures).
+
+    On a big tree's clip frames many hull points sit at the ground plane,
+    where a contact switches on or off within float32 rounding of the
+    state: there two float32 computations of one step may land on
+    different sides of the switch, and the float32 plain version itself
+    misses the bounds of the float64 one on some envs (masterfoot: 2-3 %).
+    Near such a switch the float32 results spread over up to twice the
+    bounds while each stays inside them. So each env is held so:
+    - every env where the kernel is inside the bounds of the float64
+      plain version and the float32 plain version is within a tenth of
+      them (a sharp env: no switch near) is held to the float32 plain
+      version at the bounds too, as `gate` holds the 24-body kernels;
+    - an env where the kernel misses the bounds of the float64 plain
+      version passes only (a) where the float32 plain version is not
+      sharp either and the kernel's distance from the float64 one is no
+      larger than the float32 plain version's worst miss on the same
+      draws (each of qpos and qvel), or (b) where a witness shows the
+      kernel's answer is one float32 arithmetic reaches from that state:
+      one of the plain steps `moved(env)` returns (the float64 and float32
+      plain versions from the state moved by one or two float32 ulps)
+      lands within the bounds of the kernel's;
+    - the kernel may miss on no more envs than the float32 plain version
+      does, plus half that and one, and on at most one env in eight.
+    Every missed env is printed: the kernel's and the float32 plain
+    version's distances from the float64 one, the rule it passed by, and
+    for a witness the nearest moved step (in units of the bounds) and how
+    many moved steps land within the bounds."""
+    import torch
+
+    def per_env(a, b):
+        return (a.double() - b.double()).abs().amax(1)
+
+    k64 = [per_env(a, b) for a, b in zip(out, plain64)]
+    k32 = [per_env(a, b) for a, b in zip(out, plain32)]
+    p64 = [per_env(a, b) for a, b in zip(plain32, plain64)]
+    k_out = (k64[0] > QPOS_TOL) | (k64[1] > QVEL_TOL)
+    p_out = (p64[0] > QPOS_TOL) | (p64[1] > QVEL_TOL)
+    sharp = (p64[0] <= QPOS_TOL / 10) & (p64[1] <= QVEL_TOL / 10)
+    every = torch.ones_like(k_out)
+
+    def mx(x, mask):
+        return x[mask].max().item() if bool(mask.any()) else 0.0
+
+    worst32 = [max(QPOS_TOL, mx(p64[0], p_out)),
+               max(QVEL_TOL, mx(p64[1], p_out))]
+    fails, missed = [], []
+    for e in torch.nonzero(k_out)[:, 0].tolist():
+        row = {"env": e, "kernel_vs_plain64": [k64[0][e].item(),
+                                               k64[1][e].item()],
+               "plain32_vs_plain64": [p64[0][e].item(), p64[1][e].item()]}
+        if not sharp[e] and k64[0][e] <= worst32[0] \
+                and k64[1][e] <= worst32[1]:
+            row["passed_by"] = "float32_worst_miss"
+        else:
+            ratio = torch.cat([torch.maximum(
+                per_env(q, out[0][e:e + 1]) / QPOS_TOL,
+                per_env(v, out[1][e:e + 1]) / QVEL_TOL)
+                for q, v in moved(e)])
+            row["nearest_moved_step"] = ratio.min().item()
+            row["moved_steps_within_bounds"] = int((ratio <= 1).sum())
+            if row["moved_steps_within_bounds"]:
+                row["passed_by"] = "witness"
+            else:
+                row["passed_by"] = None
+                fails.append(f"{name}: env {e} misses the float64 plain "
+                             f"version by {row['kernel_vs_plain64']} (the "
+                             f"float32 plain version by "
+                             f"{row['plain32_vs_plain64']}, its worst miss "
+                             f"{worst32}), and no plain step from its state "
+                             f"moved by {ULP_MOVES} float32 ulps lands "
+                             f"there (nearest {row['nearest_moved_step']} "
+                             f"× the bounds)")
+        missed.append(row)
+    held32 = sharp & ~k_out
+    errs = {"kernel_vs_plain64": [mx(k64[0], ~p_out), mx(k64[1], ~p_out)],
+            "kernel_vs_plain64_every_env": [mx(k64[0], every),
+                                            mx(k64[1], every)],
+            "kernel_vs_plain32_sharp": [mx(k32[0], held32),
+                                        mx(k32[1], held32)],
+            "kernel_vs_plain32": [mx(k32[0], every), mx(k32[1], every)],
+            "plain32_vs_plain64": [mx(p64[0], every), mx(p64[1], every)],
+            "sharp_envs": int(sharp.sum()),
+            "kernel_misses": int(k_out.sum()),
+            "plain32_misses": int(p_out.sum()),
+            "both_miss": int((k_out & p_out).sum()),
+            "plain32_only_misses": [[e, p64[0][e].item(), p64[1][e].item()]
+                                    for e in torch.nonzero(p_out & ~k_out)
+                                    [:, 0].tolist()],
+            "kernel_missed_envs": missed}
+    dq, dv = errs["kernel_vs_plain32_sharp"]
+    if not (dq <= QPOS_TOL and dv <= QVEL_TOL):
+        fails.append(f"{name}: kernel_vs_plain32 on the sharp envs |dqpos| "
+                     f"{dq} (bound {QPOS_TOL}), |dqvel| {dv} (bound "
+                     f"{QVEL_TOL})")
+    n_k, n_p = errs["kernel_misses"], errs["plain32_misses"]
+    if n_k > n_p + n_p // 2 + 1:
+        fails.append(f"{name}: the kernel misses the bounds of the float64 "
+                     f"plain version on {n_k} envs, the float32 plain "
+                     f"version on {n_p}")
+    if n_k * 8 > k_out.numel():
+        fails.append(f"{name}: the kernel misses the bounds on {n_k} of "
+                     f"{k_out.numel()} envs")
+    return errs, fails
+
+
+def big_rows(fam, src, k2_src, train_counts, k1d_err, head_err,
+             timing) -> list:
+    """The kernels-line rows of K1d and of K2's head and tail on one big
+    tree: launches from its training phases, times at B_BIG_TIME[0]."""
+    t = timing[f"B{B_BIG_TIME[0]}"]
+    split = train_counts[f"train_{fam}_split"]
+    return [
+        {"name": f"control_step_big_{fam}", "route": "cuda", "source": src,
+         "replaces": "uhc_tpu/physics/pallas_lane.py:83",
+         "launches": train_counts[f"train_{fam}"][f"k1d_{fam}"],
+         "max_abs_err": k1d_err, "ms": t["k1d_ms"], "plain_ms": t["plain_ms"],
+         "bound_ms": t["bound"]["k1d"]["bound_ms"],
+         "bound_by": t["bound"]["k1d"]["bound_by"], "library_ms": None},
+        {"name": f"control_step_head_big_{fam}", "route": "cuda",
+         "source": src, "replaces": k2_src,
+         "launches": split[f"k2big_head_{fam}"],
+         "max_abs_err": head_err, "ms": t["head_ms"],
+         "plain_ms": t["plain_head_ms"],
+         "bound_ms": t["bound"]["head"]["bound_ms"],
+         "bound_by": t["bound"]["head"]["bound_by"], "library_ms": None},
+        {"name": f"control_step_tail_big_{fam}", "route": "cuda",
+         "source": src, "replaces": k2_src,
+         "launches": split[f"k2big_tail_{fam}"],
+         # head + tail equal K1d bit for bit (phase k2_big)
+         "max_abs_err": k1d_err, "ms": t["tail_ms"],
+         "plain_ms": t["plain_tail_ms"],
+         "bound_ms": t["bound"]["tail"]["bound_ms"],
+         "bound_by": t["bound"]["tail"]["bound_by"], "library_ms": None}]
+
+
 def k1e_check(topo, env_cfg, lib_model, ins, name):
     """K1e over `lib_model` on `ins` (qpos, qvel, act, tb, seq) through
     `gate` -> (errors, failures)."""
@@ -319,16 +592,24 @@ def run() -> int:
          cuda=torch.version.cuda, numpy=np.__version__,
          python=sys.version.split()[0], count=torch.cuda.device_count())
 
-    phase("build", "(nvcc, sm_90a)")
+    phase("build", "(nvcc, sm_90a; 24, 48 and 52 bodies, one nvcc each, "
+                   "at once)")
     from uhc_tpu_torch.csrc import build
 
     t0 = time.perf_counter()
-    lib_cuda = build.load_library()
-    ptxas = [ln.strip() for ln in build.build_log.get(
-        "cuda", {}).get("stderr", "").splitlines()
-        if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+    libs = build.build_libraries(BODIES)
+    lib_cuda = libs[24]
+
+    def ptxas(nb):
+        return [ln.strip() for ln in build.build_log.get(
+            ("cuda", nb), {}).get("stderr", "").splitlines()
+            if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+
     done("build", seconds=time.perf_counter() - t0,
-         layout=build.layout(lib_cuda), ptxas=ptxas)
+         layout=build.layout(lib_cuda), ptxas=ptxas(24),
+         big={nb: {"layout": build.layout(libs[nb]), "ptxas": ptxas(nb),
+                   "seconds": build.build_log.get(("cuda", nb), {}).get(
+                       "seconds")} for nb in BODIES[1:]})
 
     phase("kernel_vs_plain", f"(B={B_CHECK}, plain PD and meta-PD)")
     from uhc_tpu_torch.config.config import Config
@@ -535,6 +816,77 @@ def run() -> int:
     if k1e_fails:
         raise RuntimeError("; ".join(k1e_fails))
 
+    phase("k1d_vs_plain", f"(B={B_CHECK}, SMPL-H and masterfoot, plain PD "
+                          "and meta-PD, (2, 2))")
+    k1d_err, k1d_errs, k1d_fails = {}, {}, []
+    big_draws = {}
+    for fam, mode, btopo, benv, bmodel, ins in k1d_draws(dev):
+        step = CS.ControlStep(btopo, benv, bmodel, (2, 2))
+        big_draws[fam, mode] = (btopo, benv, bmodel, *ins)
+        reset_counts()
+        out = step(*ins, 1.0)
+        torch.cuda.synchronize()
+        if counts() != expect(1, f"k1d_{fam}") or not all(
+                bool(torch.isfinite(t).all()) for t in out):
+            raise RuntimeError(f"K1d {fam} {mode}: launches {counts()} or "
+                               "output not finite")
+        plain64 = CS.control_step_reference(
+            btopo, benv, double_model(bmodel), *[t.double() for t in ins],
+            1.0, (2, 2))
+        plain32 = CS.control_step_reference(btopo, benv, bmodel, *ins, 1.0,
+                                            (2, 2))
+
+        def moved(e, btopo=btopo, benv=benv, bmodel=bmodel, ins=ins):
+            return [moved_steps(btopo, benv, bmodel, ins, e, dt)
+                    for dt in (torch.float64, torch.float32)]
+
+        e, fails = gate_big(f"K1d {fam} {mode}", out, plain32, plain64,
+                            moved)
+        k1d_errs[f"{fam}_{mode}"] = e
+        k1d_fails += fails
+        k1d_err[fam] = max(k1d_err.get(fam, 0.0), *e["kernel_vs_plain64"])
+    done("k1d_vs_plain", **k1d_errs, qpos_tol=QPOS_TOL, qvel_tol=QVEL_TOL)
+    if k1d_fails:
+        raise RuntimeError("; ".join(k1d_fails))
+
+    phase("k2_big", f"(B={B_CHECK}, the same draws: K2 head + tail on the "
+                    "big trees vs K1d at (2, 2))")
+    k2_big = {}
+    for (fam, mode), (btopo, benv, bmodel, qpos, qvel, act, tb) in \
+            big_draws.items():
+        split = K2.ControlStepSplit(btopo, benv, bmodel, 2)
+        reset_counts()
+        qh, vh, X = split.head(qpos, qvel, act, tb, 1.0)
+        q2, v2 = split.tail(qh, vh, act, tb, X, 1.0)
+        if counts() != expect(1, f"k2big_head_{fam}", f"k2big_tail_{fam}"):
+            raise RuntimeError(f"K2 {fam} {mode}: launches not counted")
+        q1, v1 = CS.ControlStep(btopo, benv, bmodel, (2, 2))(
+            qpos, qvel, act, tb, 1.0)
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(t).all()) for t in (q2, v2, X)):
+            raise RuntimeError(f"K2 {fam} {mode}: output not finite")
+        if not (torch.equal(q1, q2) and torch.equal(v1, v2)):
+            raise RuntimeError(
+                f"K2 {fam} {mode}: head + tail differ from K1d at (2, 2): "
+                f"|dqpos| {(q1 - q2).abs().max().item()}, |dqvel| "
+                f"{(v1 - v2).abs().max().item()}")
+        ins64 = [t.double() for t in (qpos, qvel, act, tb)]
+        qh64, vh64, X64 = K2.head_reference(btopo, benv,
+                                            double_model(bmodel), *ins64,
+                                            1.0, 2)
+        scale = X64.abs().amax((2, 3), keepdim=True)
+        k2_big[f"{fam}_{mode}"] = {
+            "split_equals_k1d": True,
+            "head_vs_plain64": [(qh.double() - qh64).abs().max().item(),
+                                (vh.double() - vh64).abs().max().item()],
+            "head_X_vs_plain64": [(X.double() - X64).abs().max().item(),
+                                  ((X.double() - X64).abs() / scale).max()
+                                  .item()]}
+        k2_err[f"head_{fam}"] = max(k2_err.get(f"head_{fam}", 0.0),
+                                    *k2_big[f"{fam}_{mode}"][
+                                        "head_vs_plain64"])
+    done("k2_big", **k2_big)
+
     phase("eval", "(all clips, full length, seeded weights, kernel)")
     from uhc_tpu_torch.cli.eval import run_eval
 
@@ -591,12 +943,48 @@ def run() -> int:
         train_counts[train_phase] = run_train(lane, epochs, train_phase, dev,
                                               args, per_env=True)
 
+    phase("train_smplh", "(cli/train --robot-model smplh, 512 envs × 32 "
+                         "steps, 2 epochs through K1d with the eval at the "
+                         "checkpoint)")
+    train_counts["train_smplh"] = run_train(
+        None, 2, "train_smplh", dev, SMPLH_TRAIN_ARGS,
+        routed=("k1d_smplh",))
+    phase("train_smplh_split", "(the same, 1 epoch through K2, "
+                               "UHC_TPU_LANE_BIG=0)")
+    train_counts["train_smplh_split"] = run_train(
+        None, 1, "train_smplh_split", dev,
+        SMPLH_TRAIN_ARGS + ["--no-train-eval"],
+        routed=("k2big_head_smplh", "k2big_tail_smplh"), lane_big="0")
+
+    phase("train_masterfoot", "(CopycatAgent with env.masterfoot=True, 512 "
+                              "envs × 32 steps, 2 epochs through K1d)")
+
+    def masterfoot_agent(out):
+        from uhc_tpu_torch.learn.agent import CopycatAgent
+
+        mcfg = Config.uhc_implicit()
+        mcfg = dataclasses.replace(mcfg, env=dataclasses.replace(
+            mcfg.env, masterfoot=True))
+        return CopycatAgent(mcfg, "sample_data/gait_clips.pkl",
+                            num_envs=512, horizon=32, results_dir=out,
+                            device=dev)
+
+    train_counts["train_masterfoot"] = run_train(
+        None, 2, "train_masterfoot", dev, routed=("k1d_masterfoot",),
+        agent_fn=masterfoot_agent)
+    phase("train_masterfoot_split", "(the same, 1 epoch through K2, "
+                                    "UHC_TPU_LANE_BIG=0)")
+    train_counts["train_masterfoot_split"] = run_train(
+        None, 1, "train_masterfoot_split", dev,
+        routed=("k2big_head_masterfoot", "k2big_tail_masterfoot"),
+        lane_big="0", agent_fn=masterfoot_agent)
+
     phase("time", f"(B={B_TIME}, uhc_implicit control step)")
     step = CS.ControlStep(topo, cfg.env, model, pcg_iters=(1, 2))
     qpos, qvel, tb = draw_states(lib, B_TIME, gen, dev)
     act = (0.02 * torch.randn((B_TIME, step.act_dim),
                               generator=gen)).to(dev)
-    n0 = CS.LAUNCHES
+    n0 = CS.LAUNCHES["step", 24, False]
     step(qpos, qvel, act, tb, 1.0)
     torch.cuda.synchronize()
     kernel_ms = cuda_ms(lambda: step(qpos, qvel, act, tb, 1.0), 10)
@@ -654,7 +1042,7 @@ def run() -> int:
     env_s = time.perf_counter() - t0
     if not bool(torch.isfinite(states.qpos).all()):
         raise RuntimeError("batched env step produced non-finite qpos")
-    timed_launches = CS.LAUNCHES - n0
+    timed_launches = CS.LAUNCHES["step", 24, False] - n0
 
     # K2 at the same inputs: head and tail timed apart
     split = K2.ControlStepSplit(topo, cfg.env, model, 2)
@@ -775,6 +1163,62 @@ def run() -> int:
          k2e_plain_tail_ms=plain_tail_e_ms, k2e_bound=k2e_bound,
          library_rows=k1e.num_models, card=smi)
 
+    phase("time_big", f"(K1d and K2 on SMPL-H and masterfoot, uhc_implicit, "
+                      f"B={B_BIG_TIME}; plain versions at B={B_BIG_TIME[0]})")
+    gen_b = torch.Generator().manual_seed(14)
+    big_time = {}
+    for fam, nb in BIG:
+        btopo, benv, bmodel, blib = big_tree(fam, dev)
+        k1d = CS.ControlStep(btopo, benv, bmodel, (2, 2))
+        split = K2.ControlStepSplit(btopo, benv, bmodel, 2)
+        per_env_ws = build.layout(k1d.library())["workspace"]
+        row = {"bodies": nb, "nv": btopo.nv}
+        for B in B_BIG_TIME:
+            qpos, qvel, tb = draw_big_states(blib, btopo.nv, B, gen_b, dev)
+            act = (0.02 * torch.randn((B, k1d.act_dim),
+                                      generator=gen_b)).to(dev)
+            k1d(qpos, qvel, act, tb, 1.0)
+            qh, vh, X = split.head(qpos, qvel, act, tb, 1.0)
+            split.tail(qh, vh, act, tb, X, 1.0)
+            torch.cuda.synchronize()
+            reps = 5 if B >= 2048 else 10
+            t = {"k1d_ms": cuda_ms(lambda: k1d(qpos, qvel, act, tb, 1.0),
+                                   reps),
+                 "head_ms": cuda_ms(lambda: split.head(qpos, qvel, act, tb,
+                                                       1.0), reps),
+                 "tail_ms": cuda_ms(lambda: split.tail(qh, vh, act, tb, X,
+                                                       1.0), reps)}
+            trace = []
+            SV.do_simulation(btopo, benv, bmodel, qpos, qvel, act, tb, 1.0,
+                             (2, 2), trace=trace)
+            state_io = (qpos.numel() * 2 + qvel.numel() * 2 + act.numel()
+                        + tb.numel() + k1d.params.size + k1d.itab.size)
+            t["bound"] = {part: bound(CS.control_step_flops(
+                btopo, benv, tr, (2, 2), st), 4 * (state_io + extra))
+                for part, tr, st, extra in (
+                    ("k1d", trace, 0, 0), ("head", trace[:1], 0, X.numel()),
+                    ("tail", trace[1:], 1, X.numel()))}
+            # the implementation's own traffic, apart from the bound: the
+            # matrix workspace written and read back once a substep
+            ws_bytes = 2 * benv.frame_skip * B * per_env_ws * 4
+            t["workspace_bytes"] = ws_bytes
+            t["workspace_ms_at_hbm_rate"] = 1e3 * ws_bytes / H100_BYTES_PER_S
+            t["substeps_per_s"] = B * benv.frame_skip / (t["k1d_ms"] / 1e3)
+            if B == B_BIG_TIME[0]:
+                t["plain_ms"] = cuda_ms(lambda: CS.control_step_reference(
+                    btopo, benv, bmodel, qpos, qvel, act, tb, 1.0, (2, 2)),
+                    1)
+                t["plain_head_ms"] = cuda_ms(lambda: K2.head_reference(
+                    btopo, benv, bmodel, qpos, qvel, act, tb, 1.0, 2), 1)
+                t["plain_tail_ms"] = cuda_ms(lambda: K2.tail_reference(
+                    btopo, benv, bmodel, qh, vh, act, tb, X, 1.0, 2), 1)
+            row[f"B{B}"] = t
+        train_phase = "train_smplh" if fam == "smplh" else "train_masterfoot"
+        row["train"] = TRAIN_RATES[train_phase]
+        row["train_split"] = TRAIN_RATES[train_phase + "_split"]
+        big_time[fam] = row
+    done("time_big", **big_time, card=smi)
+
     src = "uhc_tpu_torch/csrc/control_step.cu"
     k2_src = "uhc_tpu/physics/pallas_substep.py:284"
     print(json.dumps({"kernels": [
@@ -816,7 +1260,9 @@ def run() -> int:
          "plain_ms": plain_tail_e_ms,
          "bound_ms": k2e_bound["tail"]["bound_ms"],
          "bound_by": k2e_bound["tail"]["bound_by"], "library_ms": None},
-    ]}), flush=True)
+    ] + [row for fam, _ in BIG for row in big_rows(
+        fam, src, k2_src, train_counts, k1d_err[fam], k2_err[f"head_{fam}"],
+        big_time[fam])]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -118,7 +118,7 @@ def test_wrapper_runs_plain_version_on_cpu(setup):
     q1, v1 = step(qpos, qvel, act, tb, 1.0)
     q2, v2 = CS.control_step_reference(topo, cfg, m, qpos, qvel, act, tb)
     assert torch.equal(q1, q2) and torch.equal(v1, v2)
-    assert CS.LAUNCHES == 0          # only kernel launches count
+    assert not CS.LAUNCHES           # only kernel launches count
 
 
 def test_pack_tables_layout(setup):
@@ -181,9 +181,9 @@ def test_kernel_on_card_matches_plain_version(setup):
     for mode, cfg in env_cfgs().items():
         step = CS.ControlStep(topo, cfg, mc, (1, 2))
         ins = [x.cuda() for x in _inputs(frames, step, 7, 64)]
-        n0 = CS.LAUNCHES
+        n0 = CS.LAUNCHES["step", 24, False]
         qk, vk = step(*ins, 1.0)
-        assert CS.LAUNCHES == n0 + 1
+        assert CS.LAUNCHES["step", 24, False] == n0 + 1
         q64, v64 = CS.control_step_reference(
             topo, cfg, m64, *[x.double() for x in ins], 1.0, (1, 2))
         assert (qk.double() - q64).abs().max().item() <= 1e-5, mode

@@ -237,7 +237,7 @@ def test_seq_idx_checks(setup):
         step(qpos, qvel, act, tb)
     with pytest.raises(ValueError, match="shared model"):
         CS.ControlStep(s["tt"], cfg, s["m"])(qpos, qvel, act, tb, 1.0, seq)
-    assert CS.LAUNCHES == CS.PE_LAUNCHES == 0
+    assert not CS.LAUNCHES
 
 
 def test_pack_tables_over_library(setup):
@@ -297,9 +297,9 @@ def test_k1e_on_card_matches_plain_version(setup):
         step = CS.ControlStep(s["tt"], cfg, mc, (1, 2))
         qpos, qvel, act, tb, seq = [x.cuda() for x in
                                     _inputs(s, step.act_dim, 8, 64)]
-        n0 = CS.PE_LAUNCHES
+        n0 = CS.LAUNCHES["step", 24, True]
         qk, vk = step(qpos, qvel, act, tb, 1.0, seq)
-        assert CS.PE_LAUNCHES == n0 + 1
+        assert CS.LAUNCHES["step", 24, True] == n0 + 1
         q64, v64 = CS.control_step_reference(
             s["tt"], cfg, m64, *[x.double() for x in (qpos, qvel, act, tb)],
             1.0, (1, 2), seq)

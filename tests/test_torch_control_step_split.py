@@ -140,9 +140,9 @@ def test_plain_split_composes(setup):
     for mode, cfg in env_cfgs().items():
         step = K2.ControlStepSplit(tt, cfg, m, 2)
         ins = [torch.tensor(x) for x in _inputs(frames, step.act_dim, 4, 5)]
-        K2.reset_launches()
+        CS.reset_launches()
         q, v = step(*ins, 1.0)
-        assert K2.HEAD_LAUNCHES == K2.TAIL_LAUNCHES == 0
+        assert not CS.LAUNCHES
         qr, vr = CS.control_step_reference(tt, cfg, m, *ins, 1.0, (2, 2))
         assert torch.equal(q, qr) and torch.equal(v, vr), mode
 
@@ -216,9 +216,11 @@ def test_split_on_card_matches_k1_and_plain(setup):
         step = K2.ControlStepSplit(tt, cfg, mc, 2)
         ins = [torch.tensor(x).cuda()
                for x in _inputs(frames, step.act_dim, 7, 64)]
-        h0, t0 = K2.HEAD_LAUNCHES, K2.TAIL_LAUNCHES
+        h0 = CS.LAUNCHES["head", 24, False]
+        t0 = CS.LAUNCHES["tail", 24, False]
         q2, v2 = step(*ins, 1.0)
-        assert (K2.HEAD_LAUNCHES, K2.TAIL_LAUNCHES) == (h0 + 1, t0 + 1)
+        assert (CS.LAUNCHES["head", 24, False],
+                CS.LAUNCHES["tail", 24, False]) == (h0 + 1, t0 + 1)
         q1, v1 = CS.ControlStep(tt, cfg, mc, (2, 2))(*ins, 1.0)
         assert torch.equal(q1, q2) and torch.equal(v1, v2), mode
         q64, v64 = CS.control_step_reference(

@@ -52,27 +52,30 @@ def load_both(directory):
 
 def states(lib_qpos, rng, B, qvel_scale=0.05):
     """Clip frames (qpos), seeded qvel noise and the next frames' joints —
-    the state recipe of tests/test_fused_split.py, over clip frames."""
+    the state recipe of tests/test_fused_split.py, over clip frames, on
+    any tree (qvel is one narrower than qpos)."""
     S, T = lib_qpos.shape[:2]
+    nv = lib_qpos.shape[-1] - 1
     si = rng.integers(0, S, B)
     ti = rng.integers(0, T - 1, B)
     qpos = np.asarray(lib_qpos[si, ti], np.float32)
-    qvel = (qvel_scale * rng.standard_normal((B, 75))).astype(np.float32)
+    qvel = (qvel_scale * rng.standard_normal((B, nv))).astype(np.float32)
     tb = np.asarray(lib_qpos[si, ti + 1, 7:], np.float32)
     return qpos, qvel, tb
 
 
-def random_states(rng, B):
+def random_states(rng, B, nq=76):
     """Standing-height states with large random joint angles and rates:
-    many ground contacts, some self-collisions and joint-limit hits."""
-    qpos = np.zeros((B, 76), np.float32)
+    many ground contacts, some self-collisions and joint-limit hits (the
+    24-body humanoid's widths by default)."""
+    qpos = np.zeros((B, nq), np.float32)
     qpos[:, :2] = rng.standard_normal((B, 2))
     qpos[:, 2] = 0.9
     q = np.array([0.7071, 0.7071, 0.0, 0.0]) + 0.1 * rng.standard_normal(
         (B, 4))
     qpos[:, 3:7] = q / np.linalg.norm(q, axis=1, keepdims=True)
-    qpos[:, 7:] = 0.8 * rng.standard_normal((B, 69))
-    qvel = (0.5 * rng.standard_normal((B, 75))).astype(np.float32)
+    qpos[:, 7:] = 0.8 * rng.standard_normal((B, nq - 7))
+    qvel = (0.5 * rng.standard_normal((B, nq - 1))).astype(np.float32)
     return qpos, qvel
 
 
@@ -99,3 +102,42 @@ def jax_cfg(port_env_cfg):
     from uhc_tpu.config.config import EnvConfig
 
     return EnvConfig(**dataclasses.asdict(port_env_cfg))
+
+
+BIG_FAMILIES = ("smplh", "masterfoot")
+
+
+def big_trees(directory):
+    """Both packages' big trees built from the stand-in:
+    {family: ((jax topo, model f32, converter), (port topo, model numpy,
+    converter))}. SMPL-H has no converter (None)."""
+    import jax.numpy as jnp
+
+    from uhc_tpu.physics.model import model_to_dtype
+    from uhc_tpu.smpl.masterfoot import masterfoot_model as jax_mf
+    from uhc_tpu.smpl.smplh import smplh_model as jax_smplh
+    from uhc_tpu.smpl.smplh import smplh_topology as jax_smplh_topo
+    from uhc_tpu_torch.smpl.masterfoot import masterfoot_model
+    from uhc_tpu_torch.smpl.smplh import smplh_model, smplh_topology
+
+    (jt, jm), (tt, tm) = load_both(directory)
+    jmt, jmm, jconv = jax_mf(jt, jm)
+    tmt, tmm, tconv = masterfoot_model(tt, tm)
+    return {
+        "smplh": ((jax_smplh_topo(),
+                   model_to_dtype(jax_smplh(jt, jm), jnp.float32), None),
+                  (smplh_topology(), smplh_model(tt, tm), None)),
+        "masterfoot": ((jmt, model_to_dtype(jmm, jnp.float32), jconv),
+                       (tmt, tmm, tconv)),
+    }
+
+
+def big_env_cfg(family, meta_pd=False):
+    """uhc_implicit's env on a big tree (the port's EnvConfig)."""
+    from uhc_tpu_torch.config.config import Config
+
+    return dataclasses.replace(Config.uhc_implicit().env,
+                               robot_model=("smplh" if family == "smplh"
+                                            else "smpl"),
+                               masterfoot=family == "masterfoot",
+                               meta_pd=meta_pd)

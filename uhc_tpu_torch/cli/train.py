@@ -7,14 +7,17 @@ Usage:
       [--num-envs 1024] [--horizon 48] [--epochs N] [--epoch N to resume]
       [--seed S] [--max-seq-len N] [--results-dir DIR] [--save-n-epochs N]
       [--no-train-eval] [--warm-start-from CKPT] [--device cpu]
-      [--smpl-data SMPL.pkl] [--dr-variants N [--dr-friction-scale F]
-      [--dr-contact-scale C] [--dr-mass-scale M]]
+      [--robot-model {smpl,smplh}] [--smpl-data SMPL.pkl]
+      [--dr-variants N [--dr-friction-scale F] [--dr-contact-scale C]
+      [--dr-mass-scale M]]
 
 --cfg names a preset (`uhc_implicit`, `uhc_implicit_shape`). The
 shape-conditioned preset gives every clip its own body from its SMPL
 betas: from --smpl-data when given, else from synthetic blendshapes (a
 loud warning says so). --dr-variants N >= 2 replicates every clip over N
-contact- and mass-randomized models.
+contact- and mass-randomized models. --robot-model smplh trains on the
+52-body SMPL-H humanoid (72-dof clips get flat hands) through K1d, the
+big-tree kernel.
 
 Runs on CUDA unless --device says otherwise; without a card it raises.
 Each epoch logs `R= succ= eps= len= sps= T=`; scalars go to
@@ -61,6 +64,9 @@ def parser() -> argparse.ArgumentParser:
                         "run's checkpoint file (epoch counter and sampler "
                         "state start fresh)")
     p.add_argument("--device", default=None, help="default: cuda")
+    p.add_argument("--robot-model", default=None, choices=("smpl", "smplh"),
+                   help="override cfg robot.model (e.g. force the SMPL-H "
+                        "52-body family on configs that lack the key)")
     p.add_argument("--smpl-data", default=None,
                    help="SMPL model pkl/npz for shape-conditioned training")
     p.add_argument("--dr-variants", type=int, default=0,
@@ -106,6 +112,12 @@ def main(argv=None):
         cfg = Config.preset(args.cfg)
     except ValueError as e:
         p.error(str(e))
+    if args.robot_model is not None:
+        import dataclasses
+
+        cfg = dataclasses.replace(
+            cfg, env=dataclasses.replace(cfg.env,
+                                         robot_model=args.robot_model))
     agent = CopycatAgent(cfg, args.motion_file, num_envs=args.num_envs,
                          horizon=args.horizon, seed=args.seed,
                          max_seq_len=args.max_seq_len,

@@ -1,6 +1,8 @@
-// One 30 Hz control step of the 24-body humanoid (15 stable-PD substeps at
-// 450 Hz) for a batch of envs: one thread block per env. Three kernels
-// share one copy of the physics (`control_step_env`):
+// One 30 Hz control step of the humanoid (15 stable-PD substeps at 450 Hz)
+// for a batch of envs: one thread block per env. The tree's size is a
+// compile-time constant (NB bodies, -DNB=<n>; 24 by default), so one
+// source gives a library per tree. Three kernels share one copy of the
+// physics (`control_step_env`):
 //
 //  * K1, `control_step_kernel`, all substeps in one launch. Replaces the
 //    TPU kernel uhc_tpu/physics/pallas_lane.py:83
@@ -24,6 +26,14 @@
 //    one pointer, so body, contact, self-collision and limit tables and
 //    the contact scalars (friction, stiffness, damping) are all per env.
 //    The library (8 shapes × 10 KB) stays in L2; the arithmetic is K1's.
+//  * K1d, the big trees of the same TPU kernel (pallas_lane.py with
+//    pcg_vpu_sub=True: 48-body masterfoot, 52-body SMPL-H, PCG (2, 2)):
+//    the same kernels built with -DNB=48 or -DNB=52. One env's matrices
+//    (0.69 / 0.80 MB) exceed a block's 227 KB of shared memory, so they
+//    live in a per-env workspace in device memory (`ws`, W_TOTAL floats
+//    per env, allocated by the caller) while the state, the per-body
+//    vectors and the PCG vectors stay in shared memory. The head/tail
+//    split runs over the big trees the same way.
 //
 // The plain PyTorch version is uhc_tpu_torch/physics/solver.py
 // do_simulation (K1) and its head/tail pieces `substeps` (K2) with the
@@ -36,9 +46,11 @@
 // writes is under 2 KB per env, so bytes never bound it.
 //
 // What the design does about it:
-//  * everything of one env stays in shared memory for all 15 substeps:
-//    the two preconditioners, A_pd, A_fd and the J6 / G (or K) matrices,
-//    about 190 KB, so nothing but the state touches device memory;
+//  * at 24 bodies everything of one env stays in shared memory for all 15
+//    substeps: the two preconditioners, A_pd, A_fd and the J6 / G (or K)
+//    matrices, about 190 KB, so nothing but the state touches device
+//    memory (on a big tree the matrices go through L1/L2 to the
+//    workspace);
 //  * the Jacobian columns of a dof are zero outside the subtree of the
 //    dof's body, and bodies are in depth-first order, so every entry of M,
 //    CD and Jᵀ·wrench sums over a contiguous range of bodies only (a few
@@ -66,16 +78,28 @@
 #define SYNC() ((void)0)
 #endif
 
+// The tree's size is fixed at compile time: build.py compiles one library
+// per body count with -DNB=<bodies> (24 by default). Every body but the
+// root carries 3 hinge dofs.
+#ifndef NB
 #define NB 24
-#define NV 75
-#define NQ 76
-#define NDOF 69
+#endif
+#define NV (6 + 3 * (NB - 1))
+#define NQ (NV + 1)
+#define NDOF (NV - 6)
 #define KPTS 16
 #define SC 3
 #define MAXPAIR 64
-#define MAXACT 128
 #define NTHREADS 256
 #define NTRI (NV * (NV + 1) / 2)
+// K1d: trees of more than 32 bodies keep their matrices in a per-env
+// workspace in device memory (see the workspace layout below).
+#define BIG_TREE (NB > 32)
+#if BIG_TREE
+#define MAXACT 256
+#else
+#define MAXACT 128
+#endif
 
 // ---- model parameters: one float buffer ----------------------------------
 enum {
@@ -115,15 +139,25 @@ enum {
   I_TOTAL
 };
 
+// ---- matrix workspace of one env (floats) -------------------------------
+// The two preconditioners, A_pd, A_fd and the J6 / G (or K) matrices. At
+// 24 bodies (195 KB) they open the block's shared memory; on a big tree
+// (0.69 MB at 48 bodies, 0.80 MB at 52) they exceed a block's 227 KB and
+// live in device memory, W_TOTAL floats per env, while the state, the
+// per-body vectors and the PCG vectors stay in shared memory.
+enum {
+  W_XP = 0,
+  W_XF = W_XP + NV * NV,
+  W_APD = W_XF + NV * NV,
+  W_AFD = W_APD + NV * NV,
+  W_J6 = W_AFD + NV * NV,            // (NB*6) × NV
+  W_G = W_J6 + NB * 6 * NV,          // G, then K = W·J6
+  W_TOTAL = W_G + NB * 6 * NV
+};
+
 // ---- shared memory layout (floats) ----------------------------------------
 enum {
-  SM_XP = 0,
-  SM_XF = SM_XP + NV * NV,
-  SM_APD = SM_XF + NV * NV,
-  SM_AFD = SM_APD + NV * NV,
-  SM_J6 = SM_AFD + NV * NV,          // (NB*6) × NV
-  SM_G = SM_J6 + NB * 6 * NV,        // G, then K = W·J6
-  SM_QPOS = SM_G + NB * 6 * NV,
+  SM_QPOS = BIG_TREE ? 0 : W_TOTAL,
   SM_QVEL = SM_QPOS + NQ,
   SM_ACT = SM_QVEL + NV,
   SM_TB = SM_ACT + MAXACT,
@@ -300,18 +334,18 @@ HD void pcg(float* sm, const float* A, const float* X, const float* b,
 // Exact inverses of A_pd -> Xp and A_fd -> Xf (substep 0): right-looking
 // Cholesky of both in place in Xp / Xf, lower-triangular inverses Y into
 // the J6 / G workspace, then X = Yᵀ Y.
-HD void exact_inverses(float* sm, int tid, int nth) {
+HD void exact_inverses(float* sm, float* ws, int tid, int nth) {
   float* diag = sm + SM_DIAG;
   for (int t = tid; t < 2 * NV * NV; t += nth) {
     int m = t / (NV * NV), e = t % (NV * NV);
-    sm[(m ? SM_XF : SM_XP) + e] = sm[(m ? SM_AFD : SM_APD) + e];
+    ws[(m ? W_XF : W_XP) + e] = ws[(m ? W_AFD : W_APD) + e];
   }
   SYNC();
   for (int k = 0; k < NV; ++k) {
     int n = NV - k;
     for (int t = tid; t < 2 * n; t += nth) {
       int m = t / n, i = k + t % n;
-      float* A = sm + (m ? SM_XF : SM_XP);
+      float* A = ws + (m ? W_XF : W_XP);
       float d = sqrtf(fmaxf(A[k * NV + k], 1e-12f));
       if (i == k) diag[m * NV + k] = d;
       else A[i * NV + k] = A[i * NV + k] / d;
@@ -322,7 +356,7 @@ HD void exact_inverses(float* sm, int tid, int nth) {
       int m = t / nt, ii, jj;
       tri_index(t % nt, &ii, &jj);
       int i = k + 1 + ii, j = k + 1 + jj;
-      float* A = sm + (m ? SM_XF : SM_XP);
+      float* A = ws + (m ? W_XF : W_XP);
       A[i * NV + j] -= A[i * NV + k] * A[j * NV + k];
     }
     SYNC();
@@ -330,8 +364,8 @@ HD void exact_inverses(float* sm, int tid, int nth) {
   // Y = L⁻¹, column by column (forward substitution against e_c)
   for (int t = tid; t < 2 * NV; t += nth) {
     int m = t / NV, c = t % NV;
-    const float* L = sm + (m ? SM_XF : SM_XP);
-    float* Y = sm + (m ? SM_G : SM_J6);
+    const float* L = ws + (m ? W_XF : W_XP);
+    float* Y = ws + (m ? W_G : W_J6);
     const float* dg = diag + m * NV;
     for (int i = c; i < NV; ++i) {
       float s = (i == c) ? 1.0f : 0.0f;
@@ -343,8 +377,8 @@ HD void exact_inverses(float* sm, int tid, int nth) {
   for (int t = tid; t < 2 * NTRI; t += nth) {
     int m = t / NTRI, i, j;
     tri_index(t % NTRI, &i, &j);
-    const float* Y = sm + (m ? SM_G : SM_J6);
-    float* X = sm + (m ? SM_XF : SM_XP);
+    const float* Y = ws + (m ? W_G : W_J6);
+    float* X = ws + (m ? W_XF : W_XP);
     float s = 0.0f;
     for (int k = i; k < NV; ++k) s += Y[k * NV + i] * Y[k * NV + j];
     X[i * NV + j] = s;
@@ -359,8 +393,10 @@ enum { PART_FULL = 0, PART_HEAD = 1, PART_TAIL = 2 };
 
 // Substeps of one env. The head stores Xp, Xf to X (env-major, Xp then
 // Xf); the tail loads them from X. The env's model is row seq_idx[env] of
-// the library Plib (row 0 without seq_idx).
-HD void control_step_env(int env, int tid, int nth, float* sm,
+// the library Plib (row 0 without seq_idx). `ws` is the env's matrix
+// workspace: `sm` itself at 24 bodies, its slice of device memory on a
+// big tree.
+HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
                          const float* __restrict__ Plib,
                          const int* __restrict__ seq_idx,
                          const int* __restrict__ I,
@@ -389,8 +425,8 @@ HD void control_step_env(int env, int tid, int nth, float* sm,
   float* vel = sm + SM_VEL;
   float* alpha = sm + SM_ALPHA;
   float* abias = sm + SM_ABIAS;
-  float* J6 = sm + SM_J6;
-  float* G = sm + SM_G;
+  float* J6 = ws + W_J6;
+  float* G = ws + W_G;
 
   for (int t = tid; t < NQ; t += nth) qpos[t] = qpos_in[(size_t)env * NQ + t];
   for (int t = tid; t < NV; t += nth) qvel[t] = qvel_in[(size_t)env * NV + t];
@@ -400,7 +436,7 @@ HD void control_step_env(int env, int tid, int nth, float* sm,
     sm[SM_TB + t] = tb_in[(size_t)env * NDOF + t];
   if (part == PART_TAIL)
     for (int t = tid; t < 2 * NV * NV; t += nth)
-      sm[SM_XP + t] = X[(size_t)env * 2 * NV * NV + t];
+      ws[W_XP + t] = X[(size_t)env * 2 * NV * NV + t];
   SYNC();
 
   const int s_begin = part == PART_TAIL ? 1 : 0;
@@ -814,10 +850,10 @@ HD void control_step_env(int env, int tid, int nth, float* sm,
             m += G[row * NV + i] * G[row * NV + j];
         if (i == j) m += P[P_ARMATURE + i];
         float apd = (i == j) ? m + sm[SM_KDF + i] * dt : m;
-        sm[SM_APD + i * NV + j] = apd;
-        sm[SM_APD + j * NV + i] = apd;
-        sm[SM_AFD + i * NV + j] = m;
-        sm[SM_AFD + j * NV + i] = m;
+        ws[W_APD + i * NV + j] = apd;
+        ws[W_APD + j * NV + i] = apd;
+        ws[W_AFD + i * NV + j] = m;
+        ws[W_AFD + j * NV + i] = m;
       }
     }
     SYNC();
@@ -846,16 +882,16 @@ HD void control_step_env(int env, int tid, int nth, float* sm,
             cd += J6[(6 * b + k) * NV + i] * G[(6 * b + k) * NV + j];
         }
       if (i == j) cd += sm[SM_LIMD + i];
-      float v = sm[SM_AFD + i * NV + j] + dt * cd;
-      sm[SM_AFD + i * NV + j] = v;
-      sm[SM_AFD + j * NV + i] = v;
+      float v = ws[W_AFD + i * NV + j] + dt * cd;
+      ws[W_AFD + i * NV + j] = v;
+      ws[W_AFD + j * NV + i] = v;
     }
     SYNC();
 
-    if (s == 0) exact_inverses(sm, tid, nth);
+    if (s == 0) exact_inverses(sm, ws, tid, nth);
 
     // -- stable PD: q̈_des, torques, forward dynamics -------------------
-    pcg(sm, sm + SM_APD, sm + SM_XP, sm + SM_PDRHS, I[I_PD_ITERS], tid, nth);
+    pcg(sm, ws + W_APD, ws + W_XP, sm + SM_PDRHS, I[I_PD_ITERS], tid, nth);
     for (int t = tid; t < NV; t += nth) sm[SM_QACCD + t] = sm[SM_X + t];
     SYNC();
     for (int t = tid; t < NDOF; t += nth) {
@@ -866,7 +902,7 @@ HD void control_step_env(int env, int tid, int nth, float* sm,
       sm[SM_RHS + j] += clampf(tau, -lim, lim);
     }
     SYNC();
-    pcg(sm, sm + SM_AFD, sm + SM_XF, sm + SM_RHS, I[I_FD_ITERS], tid, nth);
+    pcg(sm, ws + W_AFD, ws + W_XF, sm + SM_RHS, I[I_FD_ITERS], tid, nth);
 
     // -- integrate: semi-implicit Euler, quaternion root ----------------
     for (int t = tid; t < NV; t += nth) qvel[t] = qvel[t] + dt * sm[SM_X + t];
@@ -899,7 +935,7 @@ HD void control_step_env(int env, int tid, int nth, float* sm,
 
   if (part == PART_HEAD)
     for (int t = tid; t < 2 * NV * NV; t += nth)
-      X[(size_t)env * 2 * NV * NV + t] = sm[SM_XP + t];
+      X[(size_t)env * 2 * NV * NV + t] = ws[W_XP + t];
   for (int t = tid; t < NQ; t += nth) qpos_out[(size_t)env * NQ + t] = qpos[t];
   for (int t = tid; t < NV; t += nth) qvel_out[(size_t)env * NV + t] = qvel[t];
 }
@@ -911,6 +947,9 @@ extern "C" int uhc_control_step_layout(int* out) {
   out[1] = I_TOTAL;
   out[2] = SM_TOTAL;
   out[3] = NTHREADS;
+  out[4] = NB;
+  out[5] = MAXACT;
+  out[6] = BIG_TREE ? W_TOTAL : 0;   // device workspace floats per env
   return 0;
 }
 
@@ -921,34 +960,43 @@ extern "C" int uhc_control_step_layout(int* out) {
       const float* __restrict__ qpos_in, const float* __restrict__ qvel_in, \
       const float* __restrict__ act_in, const float* __restrict__ tb_in,    \
       float* __restrict__ qpos_out, float* __restrict__ qvel_out,           \
-      int act_dim, float rfc_rate
+      float* __restrict__ W, int act_dim, float rfc_rate
+
+// the env's matrix workspace: shared memory, or its slice of W
+#if BIG_TREE
+#define ENV_WS (W + (size_t)blockIdx.x * W_TOTAL)
+#else
+#define ENV_WS sm
+#endif
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_kernel(KERNEL_ARGS) {
   extern __shared__ float sm[];
-  control_step_env(blockIdx.x, threadIdx.x, blockDim.x, sm, P, seq_idx, I,
-                   qpos_in, qvel_in, act_in, tb_in, qpos_out, qvel_out,
-                   act_dim, rfc_rate, PART_FULL, nullptr);
+  control_step_env(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS, P,
+                   seq_idx, I, qpos_in, qvel_in, act_in, tb_in, qpos_out,
+                   qvel_out, act_dim, rfc_rate, PART_FULL, nullptr);
 }
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_head_kernel(KERNEL_ARGS, float* __restrict__ X) {
   extern __shared__ float sm[];
-  control_step_env(blockIdx.x, threadIdx.x, blockDim.x, sm, P, seq_idx, I,
-                   qpos_in, qvel_in, act_in, tb_in, qpos_out, qvel_out,
-                   act_dim, rfc_rate, PART_HEAD, X);
+  control_step_env(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS, P,
+                   seq_idx, I, qpos_in, qvel_in, act_in, tb_in, qpos_out,
+                   qvel_out, act_dim, rfc_rate, PART_HEAD, X);
 }
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_tail_kernel(KERNEL_ARGS, float* __restrict__ X) {
   extern __shared__ float sm[];
-  control_step_env(blockIdx.x, threadIdx.x, blockDim.x, sm, P, seq_idx, I,
-                   qpos_in, qvel_in, act_in, tb_in, qpos_out, qvel_out,
-                   act_dim, rfc_rate, PART_TAIL, X);
+  control_step_env(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS, P,
+                   seq_idx, I, qpos_in, qvel_in, act_in, tb_in, qpos_out,
+                   qvel_out, act_dim, rfc_rate, PART_TAIL, X);
 }
 
 template <typename Kernel, typename... Args>
-static int launch(Kernel kernel, int B, void* stream, Args... args) {
+static int launch(Kernel kernel, int B, void* stream, const float* W,
+                  Args... args) {
+  if (BIG_TREE && W == nullptr) return (int)cudaErrorInvalidValue;
   const int smem = SM_TOTAL * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -959,49 +1007,55 @@ static int launch(Kernel kernel, int B, void* stream, Args... args) {
 
 // Each launches on `stream` and returns the CUDA error code of the launch
 // (0 = ok). P is the (S, P_TOTAL) model library, seq_idx (B,) int32 rows
-// of it or null (row 0 for every env). X is (B, 2, NV, NV) float32:
-// written by the head, read by the tail.
+// of it or null (row 0 for every env). W is the matrix workspace, B ×
+// W_TOTAL float32 on a big tree (null at 24 bodies). X is (B, 2, NV, NV)
+// float32: written by the head, read by the tail.
 extern "C" int uhc_control_step(const float* P, const int* seq_idx,
                                 const int* I, const float* qpos,
                                 const float* qvel, const float* act,
                                 const float* tb, float* qpos_out,
-                                float* qvel_out, int B, int act_dim,
-                                float rfc_rate, void* stream) {
-  return launch(control_step_kernel, B, stream, P, seq_idx, I, qpos, qvel,
-                act, tb, qpos_out, qvel_out, act_dim, rfc_rate);
+                                float* qvel_out, float* W, int B,
+                                int act_dim, float rfc_rate, void* stream) {
+  return launch(control_step_kernel, B, stream, W, P, seq_idx, I, qpos,
+                qvel, act, tb, qpos_out, qvel_out, W, act_dim, rfc_rate);
 }
 
 extern "C" int uhc_control_step_head(const float* P, const int* seq_idx,
                                      const int* I, const float* qpos,
                                      const float* qvel, const float* act,
                                      const float* tb, float* qpos_out,
-                                     float* qvel_out, float* X, int B,
-                                     int act_dim, float rfc_rate,
+                                     float* qvel_out, float* W, float* X,
+                                     int B, int act_dim, float rfc_rate,
                                      void* stream) {
-  return launch(control_step_head_kernel, B, stream, P, seq_idx, I, qpos,
-                qvel, act, tb, qpos_out, qvel_out, act_dim, rfc_rate, X);
+  return launch(control_step_head_kernel, B, stream, W, P, seq_idx, I,
+                qpos, qvel, act, tb, qpos_out, qvel_out, W, act_dim,
+                rfc_rate, X);
 }
 
 extern "C" int uhc_control_step_tail(const float* P, const int* seq_idx,
                                      const int* I, const float* qpos,
                                      const float* qvel, const float* act,
                                      const float* tb, float* qpos_out,
-                                     float* qvel_out, float* X, int B,
-                                     int act_dim, float rfc_rate,
+                                     float* qvel_out, float* W, float* X,
+                                     int B, int act_dim, float rfc_rate,
                                      void* stream) {
-  return launch(control_step_tail_kernel, B, stream, P, seq_idx, I, qpos,
-                qvel, act, tb, qpos_out, qvel_out, act_dim, rfc_rate, X);
+  return launch(control_step_tail_kernel, B, stream, W, P, seq_idx, I,
+                qpos, qvel, act, tb, qpos_out, qvel_out, W, act_dim,
+                rfc_rate, X);
 }
 #else
-// Host build: every env on one thread, in order.
+// Host build: every env on one thread, in order, with one workspace that
+// each env reuses (shared memory itself at 24 bodies).
 static int run_host(const float* P, const int* seq_idx, const int* I,
                     const float* qpos, const float* qvel, const float* act,
                     const float* tb, float* qpos_out, float* qvel_out, int B,
                     int act_dim, float rfc_rate, int part, float* X) {
   std::vector<float> sm(SM_TOTAL);
+  std::vector<float> wbuf(BIG_TREE ? W_TOTAL : 0);
+  float* ws = BIG_TREE ? wbuf.data() : sm.data();
   for (int env = 0; env < B; ++env)
-    control_step_env(env, 0, 1, sm.data(), P, seq_idx, I, qpos, qvel, act,
-                     tb, qpos_out, qvel_out, act_dim, rfc_rate, part, X);
+    control_step_env(env, 0, 1, sm.data(), ws, P, seq_idx, I, qpos, qvel,
+                     act, tb, qpos_out, qvel_out, act_dim, rfc_rate, part, X);
   return 0;
 }
 

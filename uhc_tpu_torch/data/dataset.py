@@ -63,22 +63,54 @@ def seq_beta_gender(d: dict, n_betas: int = 16):
 
 
 def _featurize(topo: Topology, model: Model, d: dict, fps: float,
-               max_len: Optional[int]) -> dict:
+               max_len: Optional[int], converter=None,
+               base_root_offset=None) -> dict:
     """One sequence through `model`'s FK; its qpos carries that model's
-    root offset (Pelvis zero-pose position)."""
+    root offset (Pelvis zero-pose position). With a `converter` (a widened
+    tree such as masterfoot) the pose goes through the 24-body qpos with
+    the base model's root offset and is remapped onto the new tree, its
+    new joints at zero (reference humanoid_im.py:212 + the smpl_mujoco.py
+    qpos remaps)."""
     dev = model.body_pos.device
     pose_aa = np.asarray(d["pose_aa"])
     trans = d.get("trans")
     if max_len is not None:
         pose_aa = pose_aa[:max_len]
         trans = None if trans is None else trans[:max_len]
-    if pose_aa.shape[-1] > 72:   # SMPL-H poses: keep the body dofs
-        pose_aa = np.concatenate(
-            [pose_aa[:, :66], np.zeros((len(pose_aa), 6), pose_aa.dtype)],
-            -1)
-    root_offset = model.body_pos[0].cpu().numpy()
-    qpos = smpl_to_qpose(pose_aa, root_offset, trans, device=dev)
+    if converter is not None:
+        qpos24 = smpl_to_qpose(_body_dofs(pose_aa), base_root_offset, trans,
+                               device=dev)
+        qpos = converter.qpos_smpl_2_new(qpos24)
+    else:
+        qpos = _pose_to_qpose(topo, model, pose_aa, trans, dev)
     return qpos_fk(topo, model, qpos, fps)
+
+
+def _body_dofs(pose_aa: np.ndarray) -> np.ndarray:
+    """A SMPL-H pose (156 dofs) cut to SMPL's 72: the 22 body joints and
+    zero hands (the reference's smpl_to_qpose(model='smpl'))."""
+    if pose_aa.shape[-1] <= 72:
+        return pose_aa
+    return np.concatenate(
+        [pose_aa[:, :66], np.zeros((len(pose_aa), 6), pose_aa.dtype)], -1)
+
+
+def _pose_to_qpose(topo: Topology, model: Model, pose_aa, trans, device):
+    """The pose vector through the topology's converter: the 52-body
+    SMPL-H tree takes all 156 dofs, a 72-dof SMPL clip on it gets flat
+    hands (its two hand-root joints dropped, the finger chains zero); the
+    24-body tree takes 72 dofs (a SMPL-H pose loses its hands)."""
+    root_offset = model.body_pos[0].cpu().numpy()
+    if topo.nbody == 52:
+        from uhc_tpu_torch.smpl.smplh import smplh_to_qpose
+
+        if pose_aa.shape[-1] == 72:
+            pose_aa = np.concatenate(
+                [pose_aa[:, :66],
+                 np.zeros((len(pose_aa), 90), pose_aa.dtype)], -1)
+        return smplh_to_qpose(pose_aa, root_offset, trans, device=device)
+    return smpl_to_qpose(_body_dofs(pose_aa), root_offset, trans,
+                         device=device)
 
 
 def _stack_library(feats) -> dict:
@@ -100,12 +132,16 @@ def _stack_library(feats) -> dict:
 
 def build_expert_library(topo: Topology, model: Model,
                          seqs: Dict[str, dict], fps: float = 30.0,
-                         max_len: Optional[int] = None):
+                         max_len: Optional[int] = None, converter=None,
+                         base_root_offset=None):
     """Featurize, pad (repeating the last frame) and stack sequences:
     returns (lib dict of (S, Tmax, ...) tensors + per-sequence len and
-    height bounds, list of keys), on the model's device."""
+    height bounds, list of keys), on the model's device. For a widened
+    tree (masterfoot) pass its SMPLConverter and the 24-body model's root
+    offset."""
     keys = list(seqs.keys())
-    return _stack_library([_featurize(topo, model, seqs[k], fps, max_len)
+    return _stack_library([_featurize(topo, model, seqs[k], fps, max_len,
+                                      converter, base_root_offset)
                            for k in keys]), keys
 
 

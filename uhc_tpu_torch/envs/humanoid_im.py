@@ -5,8 +5,10 @@ The env is a set of functions over an `EnvState` of (B, ...) tensors and a
 device-resident expert library. One 30 Hz control step is frame_skip
 stable-PD substeps at 450 Hz; `make_env_step_batched` routes them through
 a hand-written CUDA control-step kernel (K1 `physics.control_step`, or K2
-`physics.control_step_split` under UHC_TPU_LANE=0) when given the model to
-bake, else through the plain PCG chain.
+`physics.control_step_split` under UHC_TPU_LANE=0; K1d on the 48-body
+masterfoot and 52-body SMPL-H trees) when given the model to bake, else
+through the plain PCG chain. Obs, reward and termination read the tree's
+sizes from its topology.
 
 The model is shared, or a per-sequence library (shape-conditioned or
 domain-randomized training, `data.dataset.build_shaped_library` /
@@ -65,6 +67,11 @@ def state_where(mask, new: EnvState, old: EnvState) -> EnvState:
 
 PER_SEQ_KEYS = ("len", "height_lb", "head_height_lb", "beta", "gender",
                 "shape_obs", "weight")
+
+# Trees with a control-step kernel, as the JAX package routes them
+# (uhc_tpu/envs/humanoid_im.py:873-877): the 24-body SMPL humanoid, and
+# 33 to 52 bodies on the big-tree path (masterfoot, SMPL-H).
+SMPL_BODIES, LANE_BIG_BODIES = 24, range(33, 53)
 
 
 
@@ -325,18 +332,30 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
                           fused_model: Model = None):
     """Batched control step. With `fused_model` (the model, or the model
     library, the episode will simulate) the substeps run through a
-    control-step kernel, chosen by UHC_TPU_LANE when the step is built, as
-    in the JAX package: "1" (the default) gives K1 (`ControlStep`) with the
-    production (1, 2) PCG schedule, "0" gives K2's head/tail split
-    (`ControlStepSplit`) with symmetric PCG-2. A library takes the per-env
-    variant of the same kernels (K1e, or K2 over the library: the JAX
-    package runs a library under UHC_TPU_LANE=0 on its XLA chain), with
-    each env's seq_idx. Without `fused_model` the substeps run through the
-    plain PCG chain with 5 iterations (the JAX default). The returned step
-    carries the kernel wrapper it calls as `step.kernel` (None for the
-    plain chain)."""
+    control-step kernel, chosen by the tree's size and by UHC_TPU_LANE /
+    UHC_TPU_LANE_BIG when the step is built, as in the JAX package
+    (uhc_tpu/envs/humanoid_im.py:873-951):
+    - 24 bodies: "1" (the default) gives K1 (`ControlStep`) with the
+      production (1, 2) PCG schedule, UHC_TPU_LANE=0 gives K2's head/tail
+      split (`ControlStepSplit`) with symmetric PCG-2;
+    - 33 to 52 bodies (masterfoot, SMPL-H): K1d, the big-tree build of
+      the same kernel, with the symmetric (2, 2) schedule; UHC_TPU_LANE=0
+      or UHC_TPU_LANE_BIG=0 gives K2 on the big tree at PCG-2;
+    - any other size raises NotImplementedError.
+    A library takes the per-env variant of the same kernels (K1e, or K2
+    over the library: the JAX package runs a library under UHC_TPU_LANE=0
+    on its XLA chain), with each env's seq_idx. Without `fused_model` the
+    substeps run through the plain PCG chain with 5 iterations (the JAX
+    default). The returned step carries the kernel wrapper it calls as
+    `step.kernel` (None for the plain chain)."""
     kernel = None
     if fused_model is not None:
+        big = topo.nbody in LANE_BIG_BODIES
+        if topo.nbody != SMPL_BODIES and not big:
+            raise NotImplementedError(
+                f"no control-step kernel for a {topo.nbody}-body tree (the "
+                f"port has {SMPL_BODIES} and {LANE_BIG_BODIES.start}-"
+                f"{LANE_BIG_BODIES.stop - 1} bodies)")
         if model_is_batched(fused_model):
             from uhc_tpu_torch.physics.control_step import PE_MODEL_LEAVES
 
@@ -347,10 +366,14 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
                 raise ValueError(f"model library leaves {extra} differ per "
                                  "sequence; the per-env kernel takes "
                                  f"{PE_MODEL_LEAVES}")
-        if os.environ.get("UHC_TPU_LANE", "1") == "1":
+        lane = os.environ.get("UHC_TPU_LANE", "1") == "1" and (
+            not big or os.environ.get("UHC_TPU_LANE_BIG", "1") == "1")
+        if lane:
             from uhc_tpu_torch.physics.control_step import ControlStep
 
-            kernel = ControlStep(topo, cfg, fused_model, pcg_iters=(1, 2))
+            # big trees keep the symmetric count, as in the JAX package
+            kernel = ControlStep(topo, cfg, fused_model,
+                                 pcg_iters=(2, 2) if big else (1, 2))
         else:
             from uhc_tpu_torch.physics.control_step_split import \
                 ControlStepSplit

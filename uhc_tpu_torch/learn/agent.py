@@ -1,5 +1,10 @@
 """Copycat training agent (PyTorch twin of uhc_tpu.learn.agent
-CopycatAgent) on the 24-body stand-in humanoid.
+CopycatAgent) on the 24-body stand-in humanoid or a tree built from it:
+the 52-body SMPL-H (`env.robot_model == "smplh"`, anthropometric finger
+chains, `smpl.smplh.smplh_model`) or the 48-body masterfoot
+(`env.masterfoot`, `smpl.masterfoot.masterfoot_model`, whose converter
+remaps the 24-body clips onto the tree and gives its diff weights). On
+CUDA a big tree runs through K1d.
 
 With a shape-conditioned config (`has_shape`) every clip gets its own body
 from its SMPL betas (`data.dataset.build_shaped_library`): real SMPL model
@@ -75,15 +80,25 @@ class CopycatAgent:
         os.makedirs(os.path.join(self.results_dir, "models"), exist_ok=True)
 
         self.topo, model_np = load_fixture_humanoid()
+        self.topo, model_np, self.converter, jpw, bdw = robot_family(
+            self.topo, model_np, self.env_cfg)
+        if self.topo.nbody != 24 and (self.env_cfg.has_shape
+                                      or dr_variants >= 2
+                                      or smpl_data is not None):
+            # the JAX agent refuses dr_variants on these trees
+            # (uhc_tpu/learn/agent.py:142-144); a shape library on them
+            # and SMPL-H model data (smplh_model_from_data) are not ported
+            raise NotImplementedError(
+                "model libraries and SMPL model data are supported on the "
+                "24-body SMPL family")
         self.model = model_from_numpy(model_np, dev)
         (self.expert_lib, self.seq_keys, self.sim_model,
          self.smpl_data) = build_library(
             self.topo, self.model, self.env_cfg,
             load_motion_file(motion_file), smpl_data, dr_variants,
             dr_friction_scale, dr_contact_scale, dr_mass_scale, dr_seed,
-            max_len=max_seq_len)
+            max_len=max_seq_len, converter=self.converter)
         nq, nv = neutral_from_library(self.expert_lib)
-        jpw, bdw = default_diff_weights()
         self.aux = {"neutral_qpos": nq, "neutral_qvel": nv,
                     "jpos_diffw": torch.as_tensor(jpw, device=dev),
                     "body_diffw": torch.as_tensor(bdw, device=dev)}
@@ -294,15 +309,44 @@ class CopycatAgent:
         self.epoch = state["epoch"]
 
 
+def robot_family(topo, model, env_cfg):
+    """The tree the config trains on, from the 24-body humanoid ->
+    (topo, model with numpy leaves, converter or None, jpos_diffw,
+    body_diffw), as uhc_tpu/learn/agent.py:69-106,171-191 builds it:
+    SMPL-H for robot_model "smplh", then masterfoot's sole bodies when
+    `masterfoot` is set (its converter remaps 24-body clips onto the tree
+    and gives the diff weights)."""
+    converter = None
+    if env_cfg.robot_model == "smplh":
+        from uhc_tpu_torch.smpl.smplh import (smplh_diff_weights,
+                                              smplh_model, smplh_topology)
+
+        model = smplh_model(topo, model)
+        topo = smplh_topology()
+        jpw, bdw = smplh_diff_weights()
+    else:
+        jpw, bdw = default_diff_weights()
+    if env_cfg.masterfoot:
+        from uhc_tpu_torch.smpl.masterfoot import masterfoot_model
+
+        topo, model, converter = masterfoot_model(topo, model,
+                                                  env_cfg.master_range)
+        jpw = converter.get_new_diff_weight().astype(np.float32)
+        bdw = jpw[1:]
+    return topo, model, converter, jpw, bdw
+
+
 def build_library(topo, model, env_cfg, seqs, smpl_data=None,
                   dr_variants: int = 0, dr_friction_scale: float = 1.5,
                   dr_contact_scale: float = 2.0, dr_mass_scale: float = 1.15,
-                  dr_seed: int = 0, max_len=None):
+                  dr_seed: int = 0, max_len=None, converter=None):
     """The expert library and the model it simulates -> (expert_lib, keys,
     sim_model, smpl_data): a shaped library for a shape-conditioned
     config, a domain-randomized one for dr_variants >= 2, else the shared
-    model. smpl_data (one SMPLData, the neutral one of a gendered set) is
-    what the eval's vertex metrics use, None without model data."""
+    model (with a converter, the clips go through the 24-body layout onto
+    the converter's tree). smpl_data (one SMPLData, the neutral one of a
+    gendered set) is what the eval's vertex metrics use, None without
+    model data."""
     if env_cfg.has_shape:
         shape_data = load_shape_data(topo, model, smpl_data)
         lib, keys, sim_model = build_shaped_library(
@@ -313,7 +357,10 @@ def build_library(topo, model, env_cfg, seqs, smpl_data=None,
             topo, model, seqs, dr_variants, dr_friction_scale,
             dr_contact_scale, dr_mass_scale, dr_seed, max_len=max_len)
     else:
-        lib, keys = build_expert_library(topo, model, seqs, max_len=max_len)
+        lib, keys = build_expert_library(
+            topo, model, seqs, max_len=max_len, converter=converter,
+            base_root_offset=(None if converter is None
+                              else model.body_pos[0].cpu().numpy()))
         sim_model = model
     if smpl_data is not None:
         smpl_data = neutral_data(load_shape_data(topo, model, smpl_data))

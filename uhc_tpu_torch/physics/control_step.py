@@ -1,15 +1,15 @@
-"""K1: one 30 Hz control step of the 24-body humanoid as a hand-written CUDA
-kernel (`csrc/control_step.cu`), replacing the TPU kernel
+"""K1: one 30 Hz control step of the humanoid as a hand-written CUDA kernel
+(`csrc/control_step.cu`), replacing the TPU kernel
 uhc_tpu/physics/pallas_lane.py:83 make_fused_do_simulation_lane.
 
 `ControlStep(topo, cfg, model, pcg_iters)` bakes the model into two device
 tables (floats and ints) and is called as
-`step(qpos (B,76), qvel (B,75), actions (B,A), target_base (B,69), rfc_rate)
--> (qpos', qvel')`. On CUDA tensors it launches the kernel (or raises); on
-CPU tensors it runs the plain PyTorch version `control_step_reference`, the
-eager chain of physics/engine.py + solver.py with the same schedule: exact
-inverses at substep 0, then warm-started PCG with (pd_iters, fd_iters)
-iterations.
+`step(qpos (B,nq), qvel (B,nv), actions (B,A), target_base (B,ndof),
+rfc_rate) -> (qpos', qvel')`; the 24-body humanoid has nq=76, nv=75. On
+CUDA tensors it launches the kernel (or raises); on CPU tensors it runs
+the plain PyTorch version `control_step_reference`, the eager chain of
+physics/engine.py + solver.py with the same schedule: exact inverses at
+substep 0, then warm-started PCG with (pd_iters, fd_iters) iterations.
 
 K1e, the per-env variant (pallas_lane.py `per_env`): given a model library
 (leaves with a leading (S,) dim where sequences differ, see
@@ -19,12 +19,22 @@ inputs' device; env b simulates row seq_idx[b]. The range 0 <= seq_idx < S
 is checked on the host before the launch. Its plain version gathers the
 model (`env_models`) and runs the same chain.
 
-`LAUNCHES` counts K1 launches with a shared model, `PE_LAUNCHES` K1e
-launches with a library (not reference calls); `reset_launches` sets both
-to 0.
+K1d, the big trees (pallas_lane.py with pcg_vpu_sub=True): a tree of 33
+to 52 bodies (48-body masterfoot, 52-body SMPL-H) runs the same kernels
+built for its body count (`csrc/build.py`, -DNB), with its matrices in a
+per-env workspace in device memory that the wrapper allocates once for
+the largest batch it has seen; the env runs it at PCG (2, 2). A model
+library on a big tree is not ported.
+
+`LAUNCHES` counts kernel launches (not plain-version calls) of this
+wrapper and of K2's (`control_step_split`), keyed by (entry, bodies,
+library): entry "step" (K1, K1e, K1d), "head" or "tail" (K2), the tree's
+body count, and whether a model library was given (K1e). `reset_launches`
+empties it.
 """
 from __future__ import annotations
 
+import collections
 
 import numpy as np
 import torch
@@ -35,7 +45,9 @@ from uhc_tpu_torch.physics.model import (MODEL_BASE_NDIM, Model, Topology,
                                          model_to_numpy)
 from uhc_tpu_torch.smpl.constants import self_collision_pairs
 
-NB, NV, NQ, NDOF, KPTS, SC, MAXPAIR, MAXACT = 24, 75, 76, 69, 16, 3, 64, 128
+KPTS, SC, MAXPAIR = 16, 3, 64
+# the tree a model library runs on (K1e): the 24-body humanoid
+LIBRARY_BODIES = 24
 LIM_K, LIM_D, SC_K, SC_D = 500.0, 20.0, 3000.0, 50.0   # engine defaults
 
 # Model leaves that may differ per sequence in a library the env routes
@@ -48,13 +60,11 @@ PE_MODEL_LEAVES = ("body_pos", "body_ipos", "body_mass", "body_inertia",
                    "sc_radius", "contact_stiffness", "contact_damping",
                    "friction")
 
-LAUNCHES = 0
-PE_LAUNCHES = 0
+LAUNCHES: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
-    global LAUNCHES, PE_LAUNCHES
-    LAUNCHES = PE_LAUNCHES = 0
+    LAUNCHES.clear()
 
 
 def library_size(m: dict):
@@ -69,11 +79,12 @@ def library_size(m: dict):
 
 def pack_tables(topo: Topology, cfg, model, pcg_iters=(1, 2)):
     """Model + topology + config -> (float32 params, int32 table) in the
-    layout of control_step.cu (P_* / I_* enums). A model library gives
-    (S, P_TOTAL) params, one packed model per row."""
-    if topo.nbody != NB or topo.joint_kind != "euler":
-        raise ValueError("the control-step kernel is built for the 24-body "
-                         "euler-joint humanoid")
+    layout of control_step.cu (P_* / I_* enums) of the build for
+    topo.nbody bodies. A model library gives (S, P_TOTAL) params, one
+    packed model per row."""
+    if topo.joint_kind != "euler":
+        raise ValueError(f"the control-step kernel is built for euler-joint "
+                         f"trees, not {topo.joint_kind} joints")
     S.check_supported(cfg)
     m = model_to_numpy(model) if isinstance(model, Model) else model
     n_lib = library_size(m)
@@ -86,6 +97,7 @@ def pack_tables(topo: Topology, cfg, model, pcg_iters=(1, 2)):
     cmask = np.asarray(m["contact_mask"], np.float32)
     if cp.shape[1] > KPTS or np.asarray(m["sc_point"]).shape[1] != SC:
         raise ValueError("contact / self-collision table sizes unsupported")
+    NB = topo.nbody
     cp16 = np.zeros((NB, KPTS, 3), np.float32)
     cm16 = np.zeros((NB, KPTS), np.float32)
     cp16[:, :cp.shape[1]] = cp
@@ -143,13 +155,14 @@ class ControlStep:
         # rows of the model library (K1e), None for a shared model (K1)
         self.num_models = (self.params.shape[0] if self.params.ndim == 2
                            else None)
+        if self.num_models is not None and topo.nbody != LIBRARY_BODIES:
+            raise NotImplementedError(f"a model library on a {topo.nbody}-"
+                                      f"body tree is not ported")
         self.act_dim = sum(S.action_dims(topo, cfg))
-        if self.act_dim > MAXACT:
-            raise ValueError(f"{self.act_dim} action columns; the kernel "
-                             f"holds at most {MAXACT}")
         self._model_np = model_to_numpy(model)
         self._models = {}
         self._tables = {}
+        self._workspace = None
 
     def model_on(self, device) -> Model:
         key = str(torch.device(device))
@@ -157,26 +170,55 @@ class ControlStep:
             self._models[key] = model_from_numpy(self._model_np, device)
         return self._models[key]
 
+    def library(self):
+        """The CUDA library of this tree's kernel build."""
+        from uhc_tpu_torch.csrc import build
+
+        return build.load_library(self.topo.nbody)
+
+    def workspace(self, B: int, device):
+        """The matrix workspace of a big tree (B × W_TOTAL float32 on
+        `device`, kept for the largest batch seen), None at 24 bodies."""
+        from uhc_tpu_torch.csrc import build
+
+        per_env = build.layout(self.library())["workspace"]
+        if per_env == 0:
+            return None
+        w = self._workspace
+        if w is None or w.device != torch.device(device) \
+                or w.numel() < B * per_env:
+            w = self._workspace = torch.empty(B * per_env,
+                                              dtype=torch.float32,
+                                              device=device)
+        return w
+
+    def ws_ptr(self, B: int, device) -> int:
+        w = self.workspace(B, device)
+        return 0 if w is None else w.data_ptr()
+
     def _device_tables(self, device):
         key = str(device)
         if key not in self._tables:
             from uhc_tpu_torch.csrc import build
 
-            lay = build.layout(build.load_library())
+            lay = build.layout(self.library())
             if (lay["params"], lay["itab"]) != (self.params.shape[-1],
                                                 self.itab.size):
                 raise RuntimeError(f"table layout mismatch: kernel {lay}, "
                                    f"packed {self.params.shape}, "
                                    f"{self.itab.size}")
+            if self.act_dim > lay["maxact"]:
+                raise ValueError(f"{self.act_dim} action columns; the "
+                                 f"kernel holds at most {lay['maxact']}")
             self._tables[key] = (
                 torch.as_tensor(self.params, device=device),
                 torch.as_tensor(self.itab, device=device))
         return self._tables[key]
 
     def check_inputs(self, qpos, qvel, actions, target_base) -> int:
-        B = qpos.shape[0]
-        shapes = {"qpos": (B, NQ), "qvel": (B, NV),
-                  "actions": (B, self.act_dim), "target_base": (B, NDOF)}
+        B, t = qpos.shape[0], self.topo
+        shapes = {"qpos": (B, t.nq), "qvel": (B, t.nv),
+                  "actions": (B, self.act_dim), "target_base": (B, t.ndof)}
         for name, t in zip(shapes, (qpos, qvel, actions, target_base)):
             if tuple(t.shape) != shapes[name]:
                 raise ValueError(f"{name}: shape {tuple(t.shape)}, "
@@ -217,12 +259,8 @@ class ControlStep:
         """The kernel's seq_idx argument: a device pointer or null."""
         return 0 if seq_idx is None else seq_idx.data_ptr()
 
-    def count_launch(self) -> None:
-        global LAUNCHES, PE_LAUNCHES
-        if self.num_models is None:
-            LAUNCHES += 1
-        else:
-            PE_LAUNCHES += 1
+    def count_launch(self, entry: str = "step") -> None:
+        LAUNCHES[entry, self.topo.nbody, self.num_models is not None] += 1
 
     def __call__(self, qpos, qvel, actions, target_base, rfc_rate=1.0,
                  seq_idx=None):
@@ -237,16 +275,15 @@ class ControlStep:
         qpos_out, qvel_out = torch.empty_like(qpos), torch.empty_like(qvel)
         if B == 0:
             return qpos_out, qvel_out
-        from uhc_tpu_torch.csrc import build
-
-        lib = build.load_library()
+        lib = self.library()
         P, I = self._device_tables(qpos.device)
         stream = torch.cuda.current_stream(qpos.device).cuda_stream
         rc = lib.uhc_control_step(
             P.data_ptr(), self.seq_ptr(seq_idx), I.data_ptr(),
             qpos.data_ptr(), qvel.data_ptr(), actions.data_ptr(),
             target_base.data_ptr(), qpos_out.data_ptr(), qvel_out.data_ptr(),
-            B, self.act_dim, float(rfc_rate), stream)
+            self.ws_ptr(B, qpos.device), B, self.act_dim, float(rfc_rate),
+            stream)
         if rc != 0:
             raise RuntimeError(f"control_step kernel launch failed: CUDA "
                                f"error {rc}")
@@ -265,6 +302,7 @@ def control_step_flops(topo: Topology, cfg, active, pcg_iters=(1, 2),
     substep-0 Cholesky inverses and the PCG matvecs."""
     pd_iters, fd_iters = ((pcg_iters, pcg_iters)
                           if isinstance(pcg_iters, int) else pcg_iters)
+    NV = topo.nv
     end = topo.subtree_end()
     db = topo.dof_body()
     # per lower-triangle dof pair: the deepest shared body (or -1)
