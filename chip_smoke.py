@@ -14,8 +14,12 @@ training through K1e and K2 over the library), domain-randomized training
 through K1e, and training on the big trees: `cli/train --robot-model
 smplh` with 512 envs × 32 steps through K1d with the eval at the
 checkpoint, then through K2 (UHC_TPU_LANE_BIG=0), and the masterfoot
-agent (env.masterfoot) through K1d and K2 -- checks their output, and
-times the kernels at B=2048 (and the big trees' at B=512).
+agent (env.masterfoot) through K1d and K2, and K1f, the control step with
+explicit residual force control or per-joint meta-PD, held against its
+plain version in five modes, in the closed-loop eval of the gait clips
+under the `explicit` config and in training under `explicit` and
+`meta_joint` (uhc_tpu_torch/config/) -- checks their output, and times
+the kernels at B=2048 (and the big trees' at B=512).
 
 Usage: python3 chip_smoke.py        (needs one CUDA card; no arguments)
 
@@ -59,6 +63,10 @@ BIG = (("smplh", 52), ("masterfoot", 48))
 SMPLH_TRAIN_ARGS = ["--robot-model", "smplh", "--num-envs", "512",
                     "--horizon", "32"]
 B_BIG_TIME = (2048, 512)
+# K1f's states: this share of the envs lowered by 2 cm, so that ground
+# contacts are active and the "ground" gate is not vacuous
+# (tests/test_fused_split.py:512)
+K1F_LOWERED, K1F_SINK = 4, 0.02
 
 _phase = ["start"]
 TRAIN_RATES = {}     # phase -> per-epoch rollout rates and PPO times
@@ -121,6 +129,7 @@ def double_model(model):
 COUNTERS = {"k1": ("step", 24, False), "k2_head": ("head", 24, False),
             "k2_tail": ("tail", 24, False), "k1e": ("step", 24, True),
             "k2e_head": ("head", 24, True), "k2e_tail": ("tail", 24, True),
+            "k1f": ("k1f", 24, False),
             **{f"{name}_{fam}": (entry, nb, False) for fam, nb in BIG
                for name, entry in (("k1d", "step"), ("k2big_head", "head"),
                                    ("k2big_tail", "tail"))}}
@@ -269,34 +278,44 @@ def gate(name, out, plain32, plain64) -> tuple:
     """A kernel's (qpos, qvel) against its float32 and float64 plain
     versions at the kernel bounds -> (errors, failures).
 
-    Every env is held to the float32 plain version. An env where the
-    float32 plain version is itself outside the bounds of the float64 one
-    sits on a contact discontinuity that float32 rounding crosses (a hull
-    point at the ground plane switches its damper on or off): there the
-    float64 comparison cannot tell the kernel from float32 arithmetic, so
-    such envs are counted and printed with both distances and held to the
-    float32 plain version alone; every other env is held to the float64
-    one as well. More than one such env in eight fails."""
+    Every env is held to the float64 and the float32 plain version, with
+    one exception. An env where the float32 plain version is itself
+    outside the bounds of the float64 one (an edge env) sits on a contact
+    discontinuity that float32 rounding crosses (a hull point at the
+    ground plane switches its damper on or off): there the two plain
+    versions land on two sides of the switch, and the kernel is held to
+    the side it lands on: to the float32 plain version, or, where it
+    misses that one, to the float64 one (printed as
+    `edge_held_to_plain64` with both distances). Edge envs are counted and
+    printed; more than one in eight fails."""
     import torch
 
     def per_env(a, b):
         return (a.double() - b.double()).abs().amax(1)
 
     k64 = [per_env(a, b) for a, b in zip(out, plain64)]
+    k32 = [per_env(a, b) for a, b in zip(out, plain32)]
     p64 = [per_env(a, b) for a, b in zip(plain32, plain64)]
     edge = (p64[0] > QPOS_TOL) | (p64[1] > QVEL_TOL)
+    # edge envs where the kernel lands with float64 and not with float32
+    held64 = (edge & ((k32[0] > QPOS_TOL) | (k32[1] > QVEL_TOL))
+              & (k64[0] <= QPOS_TOL) & (k64[1] <= QVEL_TOL))
 
     def mx(x, mask):
         return x[mask].max().item() if bool(mask.any()) else 0.0
 
     every = torch.ones_like(edge)
     errs = {"kernel_vs_plain64": [mx(k64[0], ~edge), mx(k64[1], ~edge)],
-            "kernel_vs_plain32": [mx(per_env(a, b), every)
-                                  for a, b in zip(out, plain32)],
+            "kernel_vs_plain32": [mx(k32[0], ~held64), mx(k32[1], ~held64)],
             "plain32_vs_plain64": [mx(p64[0], every), mx(p64[1], every)],
             "edge_envs": int(edge.sum()),
             "edge_kernel_vs_plain64": [mx(k64[0], edge), mx(k64[1], edge)],
-            "edge_plain32_vs_plain64": [mx(p64[0], edge), mx(p64[1], edge)]}
+            "edge_plain32_vs_plain64": [mx(p64[0], edge), mx(p64[1], edge)],
+            "edge_held_to_plain64": [
+                {"env": e, "kernel_vs_plain64": [k64[0][e].item(),
+                                                 k64[1][e].item()],
+                 "kernel_vs_plain32": [k32[0][e].item(), k32[1][e].item()]}
+                for e in torch.nonzero(held64)[:, 0].tolist()]}
     fails = []
     for yardstick in ("kernel_vs_plain64", "kernel_vs_plain32"):
         dq, dv = errs[yardstick]
@@ -540,6 +559,102 @@ def big_rows(fam, src, k2_src, train_counts, k1d_err, head_err,
          "plain_ms": t["plain_tail_ms"],
          "bound_ms": t["bound"]["tail"]["bound_ms"],
          "bound_by": t["bound"]["tail"]["bound_by"], "library_ms": None}]
+
+
+def k1f_modes():
+    """K1f's five modes: explicit RFC without a gate, with the "height"
+    and the "ground" gate, per-joint meta-PD, and both together -> {mode:
+    env config}, from the `explicit` and `meta_joint` configs."""
+    import dataclasses
+
+    from uhc_tpu_torch.config.config import EXPLICIT, META_JOINT, Config
+
+    ex = Config.from_dict("explicit", EXPLICIT).env
+    return {"explicit": ex,
+            "explicit_height": dataclasses.replace(
+                ex, residual_contact_only=True),
+            "explicit_ground": dataclasses.replace(
+                ex, residual_contact_only=True,
+                residual_contact_only_ground=True),
+            "meta_joint": Config.from_dict("meta_joint", META_JOINT).env,
+            "explicit_meta_joint": dataclasses.replace(ex,
+                                                       meta_pd_joint=True)}
+
+
+def k1f_draw(topo, env_cfg, lib, B, gen, dev):
+    """draw_states with every K1F_LOWERED-th env lowered by K1F_SINK and
+    seeded actions: 0.02 noise, plus 0.05 on the explicit wrench columns
+    so that they matter -> (qpos, qvel, actions, target_base)."""
+    import torch
+
+    from uhc_tpu_torch.physics import solver
+
+    qpos, qvel, tb = draw_states(lib, B, gen, dev)
+    qpos[::K1F_LOWERED, 2] -= K1F_SINK
+    nd, vf, meta = solver.action_dims(topo, env_cfg)
+    act = 0.02 * torch.randn((B, nd + vf + meta), generator=gen)
+    if solver.explicit_rfc(env_cfg):
+        act[:, nd:nd + vf] += 0.05 * torch.randn((B, vf), generator=gen)
+    return qpos, qvel, act.to(dev), tb
+
+
+def k1f_zeroed(topo, env_cfg, act) -> dict:
+    """The actions with each of K1f's terms zeroed: the explicit wrench
+    columns, the per-joint meta-PD columns (scales 1) -> {term: actions}."""
+    from uhc_tpu_torch.physics import solver
+
+    nd, vf, _ = solver.action_dims(topo, env_cfg)
+    out = {}
+    if solver.explicit_rfc(env_cfg):
+        out["wrench"] = act.clone()
+        out["wrench"][:, nd:nd + vf] = 0.0
+    if solver.per_joint_gains(env_cfg):
+        out["per_dof_gains"] = act.clone()
+        out["per_dof_gains"][:, nd + vf:] = 0.0
+    return out
+
+
+def k1f_check(topo, model, lib, gen, dev) -> tuple:
+    """K1f in its five modes on B_CHECK clip-frame states, a share of them
+    lowered, against its float32 and float64 plain versions through `gate`
+    (qpos QPOS_TOL, qvel QVEL_TOL), one launch each, and zeroing each of
+    its terms moving qpos by more than QPOS_TOL -> ({mode: errors},
+    failures)."""
+    import torch
+
+    from uhc_tpu_torch.physics import control_step as CS
+
+    errs, fails = {}, []
+    for mode, env_cfg in k1f_modes().items():
+        step = CS.ControlStep(topo, env_cfg, model, pcg_iters=(1, 2))
+        ins = k1f_draw(topo, env_cfg, lib, B_CHECK, gen, dev)
+        reset_counts()
+        out = step(*ins, 1.0)
+        torch.cuda.synchronize()
+        if counts() != expect(1, "k1f") or not all(
+                bool(torch.isfinite(t).all()) for t in out):
+            raise RuntimeError(f"K1f {mode}: launches {counts()} or output "
+                               "not finite")
+        plain64 = CS.control_step_reference(
+            topo, env_cfg, double_model(model), *[t.double() for t in ins],
+            1.0, (1, 2))
+        plain32 = CS.control_step_reference(topo, env_cfg, model, *ins, 1.0,
+                                            (1, 2))
+        e, f = gate(f"K1f {mode}", out, plain32, plain64)
+        qpos, qvel, act, tb = ins
+        e["zeroed_moves_qpos"] = {}
+        for term, act0 in k1f_zeroed(topo, env_cfg, act).items():
+            moved = (step(qpos, qvel, act0, tb, 1.0)[0]
+                     - out[0]).abs().max().item()
+            e["zeroed_moves_qpos"][term] = moved
+            if not moved > QPOS_TOL:
+                f.append(f"K1f {mode}: zeroing the {term} moves qpos by "
+                         f"{moved} only")
+        e["act_dim"] = step.act_dim
+        e["lowered_envs"] = len(range(0, B_CHECK, K1F_LOWERED))
+        errs[mode] = e
+        fails += f
+    return errs, fails
 
 
 def k1e_check(topo, env_cfg, lib_model, ins, name):
@@ -887,6 +1002,15 @@ def run() -> int:
                                         "head_vs_plain64"])
     done("k2_big", **k2_big)
 
+    phase("k1f", f"(B={B_CHECK}, explicit RFC without a gate, with the "
+                 "height and the ground gate, per-joint meta-PD, both; one "
+                 f"env in {K1F_LOWERED} lowered {K1F_SINK} m)")
+    k1f_errs, k1f_fails = k1f_check(topo, model, lib,
+                                    torch.Generator().manual_seed(15), dev)
+    done("k1f", **k1f_errs, qpos_tol=QPOS_TOL, qvel_tol=QVEL_TOL)
+    if k1f_fails:
+        raise RuntimeError("; ".join(k1f_fails))
+
     phase("eval", "(all clips, full length, seeded weights, kernel)")
     from uhc_tpu_torch.cli.eval import run_eval
 
@@ -927,6 +1051,28 @@ def run() -> int:
         raise RuntimeError(f"eval_shape summary: {res_s['summary']}")
     done("eval_shape", launches=shape_counts["k1e"], control_steps=T_s,
          ms_per_step=res_s["ms_per_step"], summary=res_s["summary"])
+
+    phase("eval_explicit", "(the explicit config, all gait clips, full "
+                           "length, seeded weights, K1f)")
+    from uhc_tpu_torch.config.config import EXPLICIT, META_JOINT
+
+    reset_counts()
+    res_x = run_eval("sample_data/gait_clips.pkl", device=dev, seed=0,
+                     cfg=Config.from_dict("explicit", EXPLICIT))
+    explicit_counts = counts()
+    T_x = res_x["control_steps"]
+    if explicit_counts != expect(T_x, "k1f"):
+        raise RuntimeError(f"eval_explicit launched {explicit_counts} for "
+                           f"{T_x} control steps")
+    if tuple(res_x["traj"]["pred_qpos"].shape) != (S, T_x, 76) or not bool(
+            torch.isfinite(res_x["traj"]["pred_qpos"]).all()):
+        raise RuntimeError("eval_explicit trajectory has the wrong shape or "
+                           "is not finite")
+    if not all(np.isfinite(v) for v in res_x["summary"].values()):
+        raise RuntimeError(f"eval_explicit summary: {res_x['summary']}")
+    done("eval_explicit", launches=explicit_counts["k1f"],
+         control_steps=T_x, ms_per_step=res_x["ms_per_step"],
+         summary=res_x["summary"])
 
     train_counts = {}
     for train_phase, lane, epochs in (("train_lane", None, 3),
@@ -978,6 +1124,22 @@ def run() -> int:
         None, 1, "train_masterfoot_split", dev,
         routed=("k2big_head_masterfoot", "k2big_tail_masterfoot"),
         lane_big="0", agent_fn=masterfoot_agent)
+
+    for train_phase, name, cfg_dict in (
+            ("train_explicit", "explicit", EXPLICIT),
+            ("train_meta_joint", "meta_joint", META_JOINT)):
+        phase(train_phase, f"(CopycatAgent with the {name} config, 1024 "
+                           "envs × 48 steps, 2 epochs through K1f)")
+
+        def k1f_agent(out, name=name, cfg_dict=cfg_dict):
+            from uhc_tpu_torch.learn.agent import CopycatAgent
+
+            return CopycatAgent(Config.from_dict(name, cfg_dict),
+                                "sample_data/gait_clips.pkl", num_envs=1024,
+                                horizon=48, results_dir=out, device=dev)
+
+        train_counts[train_phase] = run_train(
+            None, 2, train_phase, dev, routed=("k1f",), agent_fn=k1f_agent)
 
     phase("time", f"(B={B_TIME}, uhc_implicit control step)")
     step = CS.ControlStep(topo, cfg.env, model, pcg_iters=(1, 2))
@@ -1219,6 +1381,47 @@ def run() -> int:
         big_time[fam] = row
     done("time_big", **big_time, card=smi)
 
+    phase("time_k1f", f"(B={B_TIME}, K1f in the explicit and meta_joint "
+                      "modes beside K1 on the same states, in turns K1, "
+                      "K1f, K1f, K1)")
+    gen_f = torch.Generator().manual_seed(16)
+    k1 = CS.ControlStep(topo, cfg.env, model, pcg_iters=(1, 2))
+    k1f_time = {}
+    for mode in ("explicit", "meta_joint"):
+        env_cfg = k1f_modes()[mode]
+        k1f = CS.ControlStep(topo, env_cfg, model, pcg_iters=(1, 2))
+        qpos, qvel, actf, tb = k1f_draw(topo, env_cfg, lib, B_TIME, gen_f,
+                                        dev)
+        act1 = actf[:, :k1.act_dim].contiguous()    # the same PD targets
+        k1(qpos, qvel, act1, tb, 1.0)
+        k1f(qpos, qvel, actf, tb, 1.0)
+        torch.cuda.synchronize()
+        turns = [cuda_ms((lambda: k1(qpos, qvel, act1, tb, 1.0))
+                         if which == "k1" else
+                         (lambda: k1f(qpos, qvel, actf, tb, 1.0)), 10)
+                 for which in ("k1", "k1f", "k1f", "k1")]
+        trace = []
+        SV.do_simulation(topo, env_cfg, model, qpos, qvel, actf, tb, 1.0,
+                         (1, 2), trace=trace)
+        vfx, gains = CS.k1f_operands(topo, env_cfg, model, actf)
+        operands = sum(x.numel() for x in (vfx, gains) if x is not None)
+        io = (qpos.numel() * 2 + qvel.numel() * 2 + actf.numel()
+              + tb.numel() + k1f.params.size + k1f.itab.size + operands)
+        k1f_time[mode] = {
+            "k1f_ms": 0.5 * (turns[1] + turns[2]),
+            "k1_same_states_ms": 0.5 * (turns[0] + turns[3]),
+            "turns_k1_k1f_k1f_k1": turns,
+            "plain_ms": cuda_ms(lambda: CS.control_step_reference(
+                topo, env_cfg, model, qpos, qvel, actf, tb, 1.0, (1, 2)), 2),
+            "bound": bound(CS.control_step_flops(topo, env_cfg, trace,
+                                                 (1, 2)), 4 * io),
+            "act_dim": k1f.act_dim, "operand_floats_per_env": operands
+            // B_TIME}
+        k1f_time[mode]["k1f_over_k1"] = (k1f_time[mode]["k1f_ms"]
+                                         / k1f_time[mode]["k1_same_states_ms"])
+        k1f_time[mode]["train"] = TRAIN_RATES.get(f"train_{mode}")
+    done("time_k1f", **k1f_time, card=smi)
+
     src = "uhc_tpu_torch/csrc/control_step.cu"
     k2_src = "uhc_tpu/physics/pallas_substep.py:284"
     print(json.dumps({"kernels": [
@@ -1262,7 +1465,22 @@ def run() -> int:
          "bound_by": k2e_bound["tail"]["bound_by"], "library_ms": None},
     ] + [row for fam, _ in BIG for row in big_rows(
         fam, src, k2_src, train_counts, k1d_err[fam], k2_err[f"head_{fam}"],
-        big_time[fam])]}), flush=True)
+        big_time[fam])] + [
+        {"name": f"control_step_{mode}", "route": "cuda", "source": src,
+         "replaces": "uhc_tpu/physics/pallas_lane.py:127",
+         "launches": launches_f,
+         "max_abs_err": max(v for m, e in k1f_errs.items() if term in m
+                            for k in ("kernel_vs_plain64",
+                                      "kernel_vs_plain32") for v in e[k]),
+         "ms": k1f_time[mode]["k1f_ms"],
+         "plain_ms": k1f_time[mode]["plain_ms"],
+         "bound_ms": k1f_time[mode]["bound"]["bound_ms"],
+         "bound_by": k1f_time[mode]["bound"]["bound_by"], "library_ms": None}
+        for mode, term, launches_f in (
+            ("explicit", "explicit", explicit_counts["k1f"]
+             + train_counts["train_explicit"]["k1f"]),
+            ("meta_joint", "meta_joint",
+             train_counts["train_meta_joint"]["k1f"]))]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -134,7 +134,8 @@ def test_pack_tables_layout(setup):
     # levels cover every non-root body once
     assert sorted(I[48:71].tolist()) == list(range(1, 24))
     with pytest.raises(NotImplementedError):
-        CS.pack_tables(topo, dataclasses.replace(cfg, meta_pd_joint=True), m)
+        CS.pack_tables(topo, dataclasses.replace(cfg, action_type="torque"),
+                       m)
 
 
 def test_wrapper_rejects_bad_inputs(setup):

@@ -7,12 +7,13 @@ Usage:
       [--smpl-data SMPL.pkl] [--device cpu] [--seed 0] [--max-seq-len N]
 
 Without --checkpoint the policy weights are drawn from --seed at the
-config's shapes. With --cfg uhc_implicit_shape every clip runs on its own
+config's shapes. --cfg takes a preset or a YAML config by name, as
+cli/train does. With --cfg uhc_implicit_shape every clip runs on its own
 body from its betas (synthetic blendshapes without --smpl-data), and the
 summary adds vertex penetration and skate. Prints per-sequence metrics and
 one SUMMARY JSON line. Physics runs through the control-step kernel on
-CUDA (K1, or K1e over a shaped library; the plain PyTorch version on the
-CPU).
+CUDA (K1, K1e over a shaped library, K1f for explicit RFC or per-joint
+meta-PD; the plain PyTorch version on the CPU).
 """
 from __future__ import annotations
 
@@ -27,10 +28,11 @@ from uhc_tpu_torch.device import resolve_device
 
 def run_eval(motion: str, checkpoint: str | None = None, device=None,
              seed: int = 0, max_seq_len: int | None = None,
-             cfg: str = "uhc_implicit", smpl_data=None) -> dict:
+             cfg="uhc_implicit", smpl_data=None) -> dict:
     """Build the stand-in humanoid, expert library and policy, run the
     closed-loop evaluation; returns {"summary", "per_seq", "control_steps",
-    "seconds", "ms_per_step", "traj", "policy", "rs"}."""
+    "seconds", "ms_per_step", "traj", "policy", "rs"}. `cfg` is a Config
+    or a name for `Config.named`."""
     from uhc_tpu_torch.config.config import Config
     from uhc_tpu_torch.data import joblib_compat
     from uhc_tpu_torch.data.dataset import (load_motion_file,
@@ -44,7 +46,8 @@ def run_eval(motion: str, checkpoint: str | None = None, device=None,
     from uhc_tpu_torch.smpl.fixture_humanoid import load_fixture_humanoid
 
     dev = resolve_device(device)
-    cfg = Config.preset(cfg)
+    if not isinstance(cfg, Config):
+        cfg = Config.named(cfg)
     topo, model_np = load_fixture_humanoid()
     model = model_from_numpy(model_np, dev)
     lib, keys, sim_model, smpl_data = build_library(
@@ -91,7 +94,8 @@ def run_eval(motion: str, checkpoint: str | None = None, device=None,
 def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m uhc_tpu_torch.cli.eval")
     p.add_argument("--cfg", default="uhc_implicit",
-                   help="config preset: uhc_implicit, uhc_implicit_shape")
+                   help="config preset (uhc_implicit, uhc_implicit_shape) "
+                        "or <name>.yml (explicit, meta_joint)")
     p.add_argument("--motion", default="sample_data/gait_clips.pkl")
     p.add_argument("--smpl-data", default=None,
                    help="SMPL model pkl/npz (shaped bodies, vertex metrics)")

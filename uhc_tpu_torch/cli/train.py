@@ -11,10 +11,12 @@ Usage:
       [--dr-variants N [--dr-friction-scale F] [--dr-contact-scale C]
       [--dr-mass-scale M]]
 
---cfg names a preset (`uhc_implicit`, `uhc_implicit_shape`). The
-shape-conditioned preset gives every clip its own body from its SMPL
-betas: from --smpl-data when given, else from synthetic blendshapes (a
-loud warning says so). --dr-variants N >= 2 replicates every clip over N
+--cfg names a preset (`uhc_implicit`, `uhc_implicit_shape`) or a YAML
+config `<name>.yml` in config/ or uhc_tpu_torch/config/: `explicit`
+(explicit RFC) and `meta_joint` (per-joint meta-PD), which run through
+K1f. The shape-conditioned preset gives every clip its own body from its
+SMPL betas: from --smpl-data when given, else from synthetic blendshapes
+(a loud warning says so). --dr-variants N >= 2 replicates every clip over N
 contact- and mass-randomized models. --robot-model smplh trains on the
 52-body SMPL-H humanoid (72-dof clips get flat hands) through K1d, the
 big-tree kernel.
@@ -44,7 +46,9 @@ def _positive_int(v):
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m uhc_tpu_torch.cli.train")
     p.add_argument("--cfg", default="uhc_implicit",
-                   help="config preset: uhc_implicit, uhc_implicit_shape")
+                   help="config preset (uhc_implicit, uhc_implicit_shape) "
+                        "or <name>.yml in config/ or uhc_tpu_torch/config/ "
+                        "(explicit, meta_joint)")
     p.add_argument("--motion-file", default="sample_data/gait_clips.pkl")
     p.add_argument("--num-envs", type=_positive_int, default=1024)
     p.add_argument("--horizon", type=_positive_int, default=48)
@@ -109,7 +113,7 @@ def main(argv=None):
         if args.epoch > 0:
             p.error("--warm-start-from and --epoch (resume) are exclusive")
     try:
-        cfg = Config.preset(args.cfg)
+        cfg = Config.named(args.cfg)
     except ValueError as e:
         p.error(str(e))
     if args.robot_model is not None:

@@ -5,7 +5,10 @@ uhc/utils/config_utils/copycat_config.py:16-149) so reference experiment
 files load unchanged. The env-side subset is a frozen dataclass, fixed per
 experiment. `Config.uhc_implicit()` and `Config.uhc_implicit_shape()`
 build the release configs without YAML; `Config.preset(name)` looks them
-up by the name the CLIs take as --cfg.
+up by name, and `Config.named(name)`, the CLIs' --cfg, takes a preset or
+`<name>.yml` from config/ or this package's directory, which holds the
+explicit-RFC (`explicit.yml`, `EXPLICIT`) and per-joint meta-PD
+(`meta_joint.yml`, `META_JOINT`) variants of uhc_implicit.
 """
 from __future__ import annotations
 
@@ -15,6 +18,10 @@ import os.path as osp
 from typing import Any, Dict, Tuple
 
 import numpy as np
+
+# where Config.from_yaml looks for <cfg_id>.yml: the repository's config/
+# and this package's own directory
+YAML_DIRS = ("config", osp.dirname(osp.abspath(__file__)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,9 +184,8 @@ class Config:
                 interp(self.adp_policy_lr_cp))
 
     @classmethod
-    def from_yaml(cls, cfg_id: str, search_dirs=("config",)) -> "Config":
-        """Load `<cfg_id>.yml` from `search_dirs` (needs PyYAML; the card
-        path uses `Config.uhc_implicit` instead)."""
+    def from_yaml(cls, cfg_id: str, search_dirs=YAML_DIRS) -> "Config":
+        """Load `<cfg_id>.yml` from `search_dirs` (needs PyYAML)."""
         import yaml
 
         path = None
@@ -212,6 +218,18 @@ class Config:
             raise ValueError(f"unknown config {name!r}; presets: "
                              f"{sorted(PRESETS)}")
         return cls.from_dict(name, PRESETS[name])
+
+    @classmethod
+    def named(cls, name: str) -> "Config":
+        """The CLIs' --cfg: a preset, else `<name>.yml` (`from_yaml`)."""
+        if name in PRESETS:
+            return cls.preset(name)
+        try:
+            return cls.from_yaml(name)
+        except FileNotFoundError:
+            raise ValueError(f"unknown config {name!r}: no preset of "
+                             f"{sorted(PRESETS)} and no {name}.yml in "
+                             f"{YAML_DIRS}") from None
 
     @classmethod
     def from_dict(cls, cfg_id: str, d: Dict[str, Any]) -> "Config":
@@ -375,3 +393,24 @@ UHC_IMPLICIT_SHAPE = {
 
 PRESETS = {"uhc_implicit": UHC_IMPLICIT,
            "uhc_implicit_shape": UHC_IMPLICIT_SHAPE}
+
+# uhc_implicit with explicit residual force control: a [cp|f|τ] slot per
+# body (9 · 24 RFC columns, A = 69 + 216 = 285), the contact point
+# projected into the body's hull, the world_rfc_explicit reward
+# (humanoid_im.py:1080-1132 rfc_explicit; uhc_tpu/config/config.py reads
+# the same keys). The contact gate (residual_contact_only) stays off, as
+# in training. `explicit.yml` beside this file holds the same dict; the
+# release uhc_explicit.yml (meta-PD over a shaped library) is not in the
+# repository.
+EXPLICIT = {
+    **UHC_IMPLICIT,
+    "residual_force_mode": "explicit", "residual_force_torque": True,
+    "residual_force_bodies_num": 1, "residual_contact_projection": True,
+    "reward_id": "world_rfc_explicit",
+}
+
+# uhc_implicit with per-joint meta-PD: a kp and a kd scale per dof for the
+# whole control step (A = 69 + 6 + 2 · 69 = 213; humanoid_im.py:1053-1064)
+# in place of plain PD. `meta_joint.yml` beside this file holds the same
+# dict.
+META_JOINT = {**UHC_IMPLICIT, "meta_pd": False, "meta_pd_joint": True}

@@ -34,6 +34,22 @@
 //    per env, allocated by the caller) while the state, the per-body
 //    vectors and the PCG vectors stay in shared memory. The head/tail
 //    split runs over the big trees the same way.
+//  * K1f, explicit residual force control (VFX) and per-joint meta-PD
+//    (MPJ) of the same TPU kernel (pallas_lane.py:127-146, :878-908 and
+//    the host prep :1217-1246): `control_step_f_kernel`, the same physics
+//    with two operands of its own, prepared by the wrapper as the JAX
+//    wrapper prepares them: a (B, 9·NB) body-frame [cp|f|τ] wrench per
+//    body (hull-projected and scaled) and (B, 2, NV) per-dof kp / kd
+//    scales. Each substep rotates a body's wrench by its current
+//    orientation, gates f and τ by the body's height or by the contact
+//    pass's own hull-point test, and adds f and (xpos + cp - xipos) × f + τ
+//    to the body's external wrench, which the J6 projection already
+//    carries into the dynamics; per-dof scales replace the per-substep
+//    ones in the PD gains. The action row is read for the PD targets (and
+//    per-substep meta-PD columns) only, so 285- to 423-column actions fit
+//    the 128 columns of shared memory. 24 bodies, shared model or library
+//    (MPJ; the wrapper refuses VFX over a library, as pallas_lane.py:143
+//    does). The flags are template-constant off in K1, K1e, K1d and K2.
 //
 // The plain PyTorch version is uhc_tpu_torch/physics/solver.py
 // do_simulation (K1) and its head/tail pieces `substeps` (K2) with the
@@ -138,6 +154,11 @@ enum {
   I_RFC, I_ACTION_V, I_META_PD, I_PD_ITERS, I_FD_ITERS, I_FRAME_SKIP,
   I_TOTAL
 };
+// values of I_RFC (residual force control) and I_META_PD (gain scales);
+// explicit RFC and per-dof gains run in K1f only
+enum { RFC_NONE = 0, RFC_IMPLICIT = 1, RFC_EXPLICIT = 2,
+       RFC_EXPLICIT_HEIGHT = 3, RFC_EXPLICIT_GROUND = 4 };
+enum { GAINS_FIXED = 0, GAINS_PER_SUBSTEP = 1, GAINS_PER_DOF = 2 };
 
 // ---- matrix workspace of one env (floats) -------------------------------
 // The two preconditioners, A_pd, A_fd and the J6 / G (or K) matrices. At
@@ -198,7 +219,11 @@ enum {
   SM_AP = SM_P + NV,
   SM_DIAG = SM_AP + NV,              // 2*NV Cholesky diagonals
   SM_SCAL = SM_DIAG + 2 * NV,        // 4 PCG scalars
-  SM_TOTAL = SM_SCAL + 4
+  SM_TOTAL = SM_SCAL + 4,
+  // K1f only, past the end of every other kernel's shared memory
+  SM_VFX = SM_TOTAL,                 // 9*NB body-frame [cp|f|τ] wrenches
+  SM_KSC = SM_VFX + 9 * NB,          // 2*NV per-dof kp, kd scales
+  SM_TOTAL_F = SM_KSC + 2 * NV
 };
 
 // ---- small vector helpers --------------------------------------------------
@@ -395,7 +420,10 @@ enum { PART_FULL = 0, PART_HEAD = 1, PART_TAIL = 2 };
 // Xf); the tail loads them from X. The env's model is row seq_idx[env] of
 // the library Plib (row 0 without seq_idx). `ws` is the env's matrix
 // workspace: `sm` itself at 24 bodies, its slice of device memory on a
-// big tree.
+// big tree. EXT (K1f) reads the explicit wrench `vfx_in` (B, 9·NB) and
+// the per-dof gain scales `ksc_in` (B, 2, NV) where the int table asks
+// for them; without EXT both are null and unread.
+template <bool EXT>
 HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
                          const float* __restrict__ Plib,
                          const int* __restrict__ seq_idx,
@@ -406,14 +434,20 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
                          const float* __restrict__ tb_in,
                          float* __restrict__ qpos_out,
                          float* __restrict__ qvel_out, int act_dim,
-                         float rfc_rate, int part, float* X) {
+                         float rfc_rate, int part, float* X,
+                         const float* __restrict__ vfx_in,
+                         const float* __restrict__ ksc_in) {
   const float* __restrict__ P =
       Plib + (seq_idx ? (size_t)seq_idx[env] * P_TOTAL : (size_t)0);
   const float* S = P + P_SCALAR;
   const float dt = S[S_DT];
   const int fs = I[I_FRAME_SKIP];
-  const int meta = I[I_META_PD];
-  const int vf_dim = I[I_RFC] ? 6 : 0;
+  const int rfc = I[I_RFC];
+  const int meta = I[I_META_PD] == GAINS_PER_SUBSTEP;
+  const bool per_dof = EXT && I[I_META_PD] == GAINS_PER_DOF;
+  // the action columns kept in SM_ACT after the PD targets: implicit RFC
+  // (6), then the per-substep meta-PD scales
+  const int vf_dim = rfc == RFC_IMPLICIT ? 6 : 0;
   float* qpos = sm + SM_QPOS;
   float* qvel = sm + SM_QVEL;
   float* act = sm + SM_ACT;
@@ -430,8 +464,24 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
 
   for (int t = tid; t < NQ; t += nth) qpos[t] = qpos_in[(size_t)env * NQ + t];
   for (int t = tid; t < NV; t += nth) qvel[t] = qvel_in[(size_t)env * NV + t];
-  for (int t = tid; t < act_dim; t += nth)
-    act[t] = act_in[(size_t)env * act_dim + t];
+  if (EXT) {
+    // K1f: the wrench and per-dof scale columns come prepared in vfx_in /
+    // ksc_in; keep the PD targets and the per-substep meta-PD columns
+    int meta_cols = meta ? 2 * fs : per_dof ? 2 * NDOF : 0;
+    int skip = rfc >= RFC_EXPLICIT ? act_dim - NDOF - meta_cols : 0;
+    int keep = act_dim - skip - (per_dof ? 2 * NDOF : 0);
+    for (int t = tid; t < keep; t += nth)
+      act[t] = act_in[(size_t)env * act_dim + (t < NDOF ? t : t + skip)];
+    if (rfc >= RFC_EXPLICIT)
+      for (int t = tid; t < 9 * NB; t += nth)
+        sm[SM_VFX + t] = vfx_in[(size_t)env * 9 * NB + t];
+    if (per_dof)
+      for (int t = tid; t < 2 * NV; t += nth)
+        sm[SM_KSC + t] = ksc_in[(size_t)env * 2 * NV + t];
+  } else {
+    for (int t = tid; t < act_dim; t += nth)
+      act[t] = act_in[(size_t)env * act_dim + t];
+  }
   for (int t = tid; t < NDOF; t += nth)
     sm[SM_TB + t] = tb_in[(size_t)env * NDOF + t];
   if (part == PART_TAIL)
@@ -484,8 +534,9 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
                                           : 0.f;
           float target = base + act[d];
           sm[SM_ERR + j] = q + qvel[j] * dt - target;
-          sm[SM_KPF + j] = P[P_JKP + d] * ks;
-          sm[SM_KDF + j] = P[P_JKD + d] * ds;
+          sm[SM_KPF + j] = P[P_JKP + d] * (per_dof ? sm[SM_KSC + j] : ks);
+          sm[SM_KDF + j] = P[P_JKD + d]
+                           * (per_dof ? sm[SM_KSC + NV + j] : ds);
         }
       } else {
         // implicit residual force: heading-rotated linear part, clipped
@@ -802,6 +853,31 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
           }
         }
       }
+      if (EXT && rfc >= RFC_EXPLICIT) {
+        // explicit RFC: the body-frame wrench rotated by the body's
+        // orientation, gated, applied at xpos + cp (engine.assemble)
+        const float* w = sm + SM_VFX + 9 * b;
+        const float* q = xquat + 4 * b;
+        float cpw[3], fw[3], tw[3], r[3], c[3];
+        qrot(q, w, cpw);
+        qrot(q, w + 3, fw);
+        qrot(q, w + 6, tw);
+        float g = 1.f;
+        if (rfc == RFC_EXPLICIT_HEIGHT)
+          g = xpos[3 * b + 2] <= 0.12f ? 1.f : 0.f;
+        else if (rfc == RFC_EXPLICIT_GROUND)
+          g = sm[SM_ACTIVE + b] > 0.f ? 1.f : 0.f;   // the contact test
+        for (int k = 0; k < 3; ++k) {
+          fw[k] *= g;
+          tw[k] *= g;
+          r[k] = xpos[3 * b + k] + cpw[k] - xipos[3 * b + k];
+        }
+        cross3(r, fw, c);
+        for (int k = 0; k < 3; ++k) {
+          F[k] += fw[k];
+          T[k] += c[k] + tw[k];
+        }
+      }
       float Wv[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       if (sm[SM_ACTIVE + b] > 0.f) {
         float r[3], c[3], v6[6];
@@ -950,6 +1026,7 @@ extern "C" int uhc_control_step_layout(int* out) {
   out[4] = NB;
   out[5] = MAXACT;
   out[6] = BIG_TREE ? W_TOTAL : 0;   // device workspace floats per env
+  out[7] = BIG_TREE ? 0 : SM_TOTAL_F;  // K1f's shared memory (none: no K1f)
   return 0;
 }
 
@@ -972,32 +1049,47 @@ extern "C" int uhc_control_step_layout(int* out) {
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_kernel(KERNEL_ARGS) {
   extern __shared__ float sm[];
-  control_step_env(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS, P,
-                   seq_idx, I, qpos_in, qvel_in, act_in, tb_in, qpos_out,
-                   qvel_out, act_dim, rfc_rate, PART_FULL, nullptr);
+  control_step_env<false>(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS,
+                          P, seq_idx, I, qpos_in, qvel_in, act_in, tb_in,
+                          qpos_out, qvel_out, act_dim, rfc_rate, PART_FULL,
+                          nullptr, nullptr, nullptr);
 }
+
+#if !BIG_TREE
+__global__ void __launch_bounds__(NTHREADS, 1)
+control_step_f_kernel(KERNEL_ARGS, const float* __restrict__ vfx,
+                      const float* __restrict__ ksc) {
+  extern __shared__ float sm[];
+  control_step_env<true>(blockIdx.x, threadIdx.x, blockDim.x, sm, sm, P,
+                         seq_idx, I, qpos_in, qvel_in, act_in, tb_in,
+                         qpos_out, qvel_out, act_dim, rfc_rate, PART_FULL,
+                         nullptr, vfx, ksc);
+}
+#endif
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_head_kernel(KERNEL_ARGS, float* __restrict__ X) {
   extern __shared__ float sm[];
-  control_step_env(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS, P,
-                   seq_idx, I, qpos_in, qvel_in, act_in, tb_in, qpos_out,
-                   qvel_out, act_dim, rfc_rate, PART_HEAD, X);
+  control_step_env<false>(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS,
+                          P, seq_idx, I, qpos_in, qvel_in, act_in, tb_in,
+                          qpos_out, qvel_out, act_dim, rfc_rate, PART_HEAD,
+                          X, nullptr, nullptr);
 }
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_tail_kernel(KERNEL_ARGS, float* __restrict__ X) {
   extern __shared__ float sm[];
-  control_step_env(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS, P,
-                   seq_idx, I, qpos_in, qvel_in, act_in, tb_in, qpos_out,
-                   qvel_out, act_dim, rfc_rate, PART_TAIL, X);
+  control_step_env<false>(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS,
+                          P, seq_idx, I, qpos_in, qvel_in, act_in, tb_in,
+                          qpos_out, qvel_out, act_dim, rfc_rate, PART_TAIL,
+                          X, nullptr, nullptr);
 }
 
 template <typename Kernel, typename... Args>
 static int launch(Kernel kernel, int B, void* stream, const float* W,
-                  Args... args) {
+                  int smem_floats, Args... args) {
   if (BIG_TREE && W == nullptr) return (int)cudaErrorInvalidValue;
-  const int smem = SM_TOTAL * (int)sizeof(float);
+  const int smem = smem_floats * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -1016,8 +1108,27 @@ extern "C" int uhc_control_step(const float* P, const int* seq_idx,
                                 const float* tb, float* qpos_out,
                                 float* qvel_out, float* W, int B,
                                 int act_dim, float rfc_rate, void* stream) {
-  return launch(control_step_kernel, B, stream, W, P, seq_idx, I, qpos,
-                qvel, act, tb, qpos_out, qvel_out, W, act_dim, rfc_rate);
+  return launch(control_step_kernel, B, stream, W, SM_TOTAL, P, seq_idx, I,
+                qpos, qvel, act, tb, qpos_out, qvel_out, W, act_dim,
+                rfc_rate);
+}
+
+// K1f: K1 with the explicit wrench vfx (B, 9·NB) or null and the per-dof
+// gain scales ksc (B, 2, NV) or null; 24-body builds only.
+extern "C" int uhc_control_step_f(const float* P, const int* seq_idx,
+                                  const int* I, const float* qpos,
+                                  const float* qvel, const float* act,
+                                  const float* tb, float* qpos_out,
+                                  float* qvel_out, const float* vfx,
+                                  const float* ksc, int B, int act_dim,
+                                  float rfc_rate, void* stream) {
+#if BIG_TREE
+  return (int)cudaErrorNotSupported;
+#else
+  return launch(control_step_f_kernel, B, stream, nullptr, SM_TOTAL_F, P,
+                seq_idx, I, qpos, qvel, act, tb, qpos_out, qvel_out,
+                (float*)nullptr, act_dim, rfc_rate, vfx, ksc);
+#endif
 }
 
 extern "C" int uhc_control_step_head(const float* P, const int* seq_idx,
@@ -1027,9 +1138,9 @@ extern "C" int uhc_control_step_head(const float* P, const int* seq_idx,
                                      float* qvel_out, float* W, float* X,
                                      int B, int act_dim, float rfc_rate,
                                      void* stream) {
-  return launch(control_step_head_kernel, B, stream, W, P, seq_idx, I,
-                qpos, qvel, act, tb, qpos_out, qvel_out, W, act_dim,
-                rfc_rate, X);
+  return launch(control_step_head_kernel, B, stream, W, SM_TOTAL, P,
+                seq_idx, I, qpos, qvel, act, tb, qpos_out, qvel_out, W,
+                act_dim, rfc_rate, X);
 }
 
 extern "C" int uhc_control_step_tail(const float* P, const int* seq_idx,
@@ -1039,23 +1150,26 @@ extern "C" int uhc_control_step_tail(const float* P, const int* seq_idx,
                                      float* qvel_out, float* W, float* X,
                                      int B, int act_dim, float rfc_rate,
                                      void* stream) {
-  return launch(control_step_tail_kernel, B, stream, W, P, seq_idx, I,
-                qpos, qvel, act, tb, qpos_out, qvel_out, W, act_dim,
-                rfc_rate, X);
+  return launch(control_step_tail_kernel, B, stream, W, SM_TOTAL, P,
+                seq_idx, I, qpos, qvel, act, tb, qpos_out, qvel_out, W,
+                act_dim, rfc_rate, X);
 }
 #else
 // Host build: every env on one thread, in order, with one workspace that
 // each env reuses (shared memory itself at 24 bodies).
+template <bool EXT>
 static int run_host(const float* P, const int* seq_idx, const int* I,
                     const float* qpos, const float* qvel, const float* act,
                     const float* tb, float* qpos_out, float* qvel_out, int B,
-                    int act_dim, float rfc_rate, int part, float* X) {
-  std::vector<float> sm(SM_TOTAL);
+                    int act_dim, float rfc_rate, int part, float* X,
+                    const float* vfx, const float* ksc) {
+  std::vector<float> sm(EXT ? SM_TOTAL_F : SM_TOTAL);
   std::vector<float> wbuf(BIG_TREE ? W_TOTAL : 0);
   float* ws = BIG_TREE ? wbuf.data() : sm.data();
   for (int env = 0; env < B; ++env)
-    control_step_env(env, 0, 1, sm.data(), ws, P, seq_idx, I, qpos, qvel,
-                     act, tb, qpos_out, qvel_out, act_dim, rfc_rate, part, X);
+    control_step_env<EXT>(env, 0, 1, sm.data(), ws, P, seq_idx, I, qpos,
+                          qvel, act, tb, qpos_out, qvel_out, act_dim,
+                          rfc_rate, part, X, vfx, ksc);
   return 0;
 }
 
@@ -1065,23 +1179,37 @@ extern "C" int uhc_control_step_host(const float* P, const int* seq_idx,
                                      const float* tb, float* qpos_out,
                                      float* qvel_out, int B, int act_dim,
                                      float rfc_rate) {
-  return run_host(P, seq_idx, I, qpos, qvel, act, tb, qpos_out, qvel_out, B,
-                  act_dim, rfc_rate, PART_FULL, nullptr);
+  return run_host<false>(P, seq_idx, I, qpos, qvel, act, tb, qpos_out,
+                         qvel_out, B, act_dim, rfc_rate, PART_FULL, nullptr,
+                         nullptr, nullptr);
+}
+
+extern "C" int uhc_control_step_f_host(
+    const float* P, const int* seq_idx, const int* I, const float* qpos,
+    const float* qvel, const float* act, const float* tb, float* qpos_out,
+    float* qvel_out, const float* vfx, const float* ksc, int B, int act_dim,
+    float rfc_rate) {
+  if (BIG_TREE) return -1;
+  return run_host<true>(P, seq_idx, I, qpos, qvel, act, tb, qpos_out,
+                        qvel_out, B, act_dim, rfc_rate, PART_FULL, nullptr,
+                        vfx, ksc);
 }
 
 extern "C" int uhc_control_step_head_host(
     const float* P, const int* seq_idx, const int* I, const float* qpos,
     const float* qvel, const float* act, const float* tb, float* qpos_out,
     float* qvel_out, float* X, int B, int act_dim, float rfc_rate) {
-  return run_host(P, seq_idx, I, qpos, qvel, act, tb, qpos_out, qvel_out, B,
-                  act_dim, rfc_rate, PART_HEAD, X);
+  return run_host<false>(P, seq_idx, I, qpos, qvel, act, tb, qpos_out,
+                         qvel_out, B, act_dim, rfc_rate, PART_HEAD, X,
+                         nullptr, nullptr);
 }
 
 extern "C" int uhc_control_step_tail_host(
     const float* P, const int* seq_idx, const int* I, const float* qpos,
     const float* qvel, const float* act, const float* tb, float* qpos_out,
     float* qvel_out, float* X, int B, int act_dim, float rfc_rate) {
-  return run_host(P, seq_idx, I, qpos, qvel, act, tb, qpos_out, qvel_out, B,
-                  act_dim, rfc_rate, PART_TAIL, X);
+  return run_host<false>(P, seq_idx, I, qpos, qvel, act, tb, qpos_out,
+                         qvel_out, B, act_dim, rfc_rate, PART_TAIL, X,
+                         nullptr, nullptr);
 }
 #endif

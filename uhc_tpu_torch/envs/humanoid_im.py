@@ -5,10 +5,10 @@ The env is a set of functions over an `EnvState` of (B, ...) tensors and a
 device-resident expert library. One 30 Hz control step is frame_skip
 stable-PD substeps at 450 Hz; `make_env_step_batched` routes them through
 a hand-written CUDA control-step kernel (K1 `physics.control_step`, or K2
-`physics.control_step_split` under UHC_TPU_LANE=0; K1d on the 48-body
-masterfoot and 52-body SMPL-H trees) when given the model to bake, else
-through the plain PCG chain. Obs, reward and termination read the tree's
-sizes from its topology.
+`physics.control_step_split` under UHC_TPU_LANE=0; K1f for explicit RFC
+and per-joint meta-PD; K1d on the 48-body masterfoot and 52-body SMPL-H
+trees) when given the model to bake, else through the plain PCG chain.
+Obs, reward and termination read the tree's sizes from its topology.
 
 The model is shared, or a per-sequence library (shape-conditioned or
 domain-randomized training, `data.dataset.build_shaped_library` /
@@ -17,7 +17,8 @@ on its own sequence's model, gathered by its seq_idx (`env_models`), and
 the kernels take the library with seq_idx (K1e).
 
 Ported: obs v1 and v2 with the shape observation, the world_rfc_implicit
-reward, implicit RFC, plain and meta-PD, body-diff termination.
+and world_rfc_explicit rewards, implicit and explicit RFC, plain,
+meta-PD and per-joint meta-PD, body-diff termination.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch
 from uhc_tpu_torch.config.config import EnvConfig
 from uhc_tpu_torch.maths import (de_heading, heading_angle, heading_quat,
                                  quat_from_euler_zyx, quat_inv, quat_mul,
-                                 quat_rotate, transform_vec, wrap_to_pi)
+                                 transform_vec, wrap_to_pi)
 from uhc_tpu_torch.physics import engine as E
 from uhc_tpu_torch.physics import solver as S
 from uhc_tpu_torch.physics.model import (Model, Topology, env_models,
@@ -103,25 +104,18 @@ def do_simulation(topo: Topology, model: Model, cfg: EnvConfig, qpos, qvel,
     model = model_per_env(model, qpos.shape[0])
     ndof, vf_dim, _ = S.action_dims(topo, cfg)
     kp_scale, kd_scale = S.gain_scales(cfg, action, ndof, vf_dim)
-    base_rot = qpos.new_tensor(cfg.base_rot)
+    vf_body = S.explicit_wrench(topo, cfg, model, action, ndof, vf_dim)
     for i in range(cfg.frame_skip):
         if cfg.action_v == 1:
             base = qpos[:, 7:] + wrap_to_pi(target_base - qpos[:, 7:])
         else:
             base = torch.zeros_like(qpos[:, 7:])
         target_pos = base + action[:, :ndof]
-        qfrc = qpos.new_zeros((qpos.shape[0], topo.nv))
-        if cfg.residual_force:
-            vf = action[:, ndof:ndof + vf_dim] * (
-                cfg.residual_force_scale * rfc_rate)
-            hq = heading_quat(quat_mul(qpos[:, 3:7], quat_inv(base_rot)))
-            vf = torch.cat([quat_rotate(hq, vf[:, :3]), vf[:, 3:]], 1)
-            qfrc[:, :6] = torch.clamp(vf, -cfg.residual_force_lim,
-                                      cfg.residual_force_lim)
-        kp = model.jkp * kp_scale[:, i:i + 1]
-        kd = model.jkd * kd_scale[:, i:i + 1]
+        qfrc = S.implicit_rfc(cfg, qpos, action, ndof, rfc_rate)
+        kp = model.jkp * kp_scale[:, i]
+        kd = model.jkd * kd_scale[:, i]
         out = E.assemble(topo, model, qpos, qvel, target_pos, kp, kd, qfrc,
-                         cfg.self_collision)
+                         cfg.self_collision, vf_body, S.vf_gate_mode(cfg))
         qacc_des = LA.blocked_cho_solve(LA.blocked_cholesky(out["A_pd"]),
                                         out["pd_rhs"])
         tau = E.pd_torque_from_accel(model, qvel, out["qpos_err"], kp, kd,
@@ -332,22 +326,30 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
                           fused_model: Model = None):
     """Batched control step. With `fused_model` (the model, or the model
     library, the episode will simulate) the substeps run through a
-    control-step kernel, chosen by the tree's size and by UHC_TPU_LANE /
-    UHC_TPU_LANE_BIG when the step is built, as in the JAX package
-    (uhc_tpu/envs/humanoid_im.py:873-951):
+    control-step kernel, chosen by the tree's size, the config and
+    UHC_TPU_LANE / UHC_TPU_LANE_BIG when the step is built, as in the JAX
+    package (uhc_tpu/envs/humanoid_im.py:853-951):
     - 24 bodies: "1" (the default) gives K1 (`ControlStep`) with the
       production (1, 2) PCG schedule, UHC_TPU_LANE=0 gives K2's head/tail
       split (`ControlStepSplit`) with symmetric PCG-2;
+    - explicit RFC or per-joint meta-PD (`meta_pd_joint`) run on the
+      lane route only: K1f, the same `ControlStep` with its wrench and
+      per-dof gain operands, at (1, 2). Explicit RFC over a model library
+      and either of them under UHC_TPU_LANE=0 (or UHC_TPU_LANE_BIG=0 on a
+      big tree) run the plain chain, where the JAX package runs XLA
+      (`fused_compatible`; the hull tables are per shape);
     - 33 to 52 bodies (masterfoot, SMPL-H): K1d, the big-tree build of
       the same kernel, with the symmetric (2, 2) schedule; UHC_TPU_LANE=0
-      or UHC_TPU_LANE_BIG=0 gives K2 on the big tree at PCG-2;
+      or UHC_TPU_LANE_BIG=0 gives K2 on the big tree at PCG-2; explicit
+      RFC or per-joint meta-PD there raise NotImplementedError;
     - any other size raises NotImplementedError.
     A library takes the per-env variant of the same kernels (K1e, or K2
     over the library: the JAX package runs a library under UHC_TPU_LANE=0
-    on its XLA chain), with each env's seq_idx. Without `fused_model` the
-    substeps run through the plain PCG chain with 5 iterations (the JAX
-    default). The returned step carries the kernel wrapper it calls as
-    `step.kernel` (None for the plain chain)."""
+    on its XLA chain), with each env's seq_idx. Without `fused_model`, or
+    where the JAX package runs XLA, the substeps run through the plain PCG
+    chain with 5 iterations (the JAX default). The returned step carries
+    the kernel wrapper it calls as `step.kernel` (None for the plain
+    chain)."""
     kernel = None
     if fused_model is not None:
         big = topo.nbody in LANE_BIG_BODIES
@@ -356,7 +358,8 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
                 f"no control-step kernel for a {topo.nbody}-body tree (the "
                 f"port has {SMPL_BODIES} and {LANE_BIG_BODIES.start}-"
                 f"{LANE_BIG_BODIES.stop - 1} bodies)")
-        if model_is_batched(fused_model):
+        library = model_is_batched(fused_model)
+        if library:
             from uhc_tpu_torch.physics.control_step import PE_MODEL_LEAVES
 
             axes = model_batch_axes(fused_model)
@@ -368,18 +371,25 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
                                  f"{PE_MODEL_LEAVES}")
         lane = os.environ.get("UHC_TPU_LANE", "1") == "1" and (
             not big or os.environ.get("UHC_TPU_LANE_BIG", "1") == "1")
-        if lane:
+        from uhc_tpu_torch.physics.control_step import lane_only
+
+        # where the JAX package runs its XLA chain: explicit RFC or
+        # per-joint meta-PD off the lane route, explicit RFC over a library
+        on_xla = lane_only(cfg) and (
+            not lane or (library and S.explicit_rfc(cfg)))
+        if lane and not on_xla:
             from uhc_tpu_torch.physics.control_step import ControlStep
 
             # big trees keep the symmetric count, as in the JAX package
             kernel = ControlStep(topo, cfg, fused_model,
                                  pcg_iters=(2, 2) if big else (1, 2))
-        else:
+        elif not on_xla:
             from uhc_tpu_torch.physics.control_step_split import \
                 ControlStepSplit
 
             kernel = ControlStepSplit(topo, cfg, fused_model, pcg_iters=2)
 
+    if kernel is not None:
         def sim(model, states, actions, target_base, rfc_rate):
             seq = (None if kernel.num_models is None
                    else states.seq_idx.to(torch.int32).contiguous())

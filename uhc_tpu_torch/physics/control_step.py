@@ -26,11 +26,21 @@ per-env workspace in device memory that the wrapper allocates once for
 the largest batch it has seen; the env runs it at PCG (2, 2). A model
 library on a big tree is not ported.
 
+K1f, explicit RFC (`residual_force_mode` other than "implicit") and
+per-joint meta-PD (`meta_pd_joint`) in pallas_lane.py (`VFX`, `MPJ`,
+:127-146, :878-908, host prep :1217-1246): a config with either runs
+`control_step_f_kernel`, K1's physics with two operands the wrapper
+prepares from the actions as the JAX wrapper does, the (B, 9·nb)
+body-frame wrench of `engine.prep_explicit_vf` and the (B, 2, nv) per-dof
+kp / kd scales (ones on the root dofs). 24 bodies only (the big trees are
+ROADMAP §B); explicit RFC over a model library raises ValueError, as
+pallas_lane.py:143-146 does.
+
 `LAUNCHES` counts kernel launches (not plain-version calls) of this
 wrapper and of K2's (`control_step_split`), keyed by (entry, bodies,
-library): entry "step" (K1, K1e, K1d), "head" or "tail" (K2), the tree's
-body count, and whether a model library was given (K1e). `reset_launches`
-empties it.
+library): entry "step" (K1, K1e, K1d), "k1f" (K1f), "head" or "tail"
+(K2), the tree's body count, and whether a model library was given.
+`reset_launches` empties it.
 """
 from __future__ import annotations
 
@@ -124,14 +134,18 @@ def pack_tables(topo: Topology, cfg, model, pcg_iters=(1, 2)):
         raise ValueError("too many self-collision pairs")
     pd_iters, fd_iters = ((pcg_iters, pcg_iters)
                           if isinstance(pcg_iters, int) else pcg_iters)
+    # control_step.cu's RFC_* and GAINS_* values
+    rfc = (0 if not cfg.residual_force else 1 if not S.explicit_rfc(cfg)
+           else {None: 2, "height": 3, "ground": 4}[S.vf_gate_mode(cfg)])
+    gains = 1 if cfg.meta_pd else 2 if cfg.meta_pd_joint else 0
     itab = np.concatenate([
         np.asarray(topo.parents), topo.subtree_end(),
         np.pad(levbody, (0, NB - len(levbody))),
         np.pad(levstart, (0, NB + 1 - len(levstart))),
         [len(levels), len(pairs)],
         np.pad(pairs.reshape(-1), (0, 2 * MAXPAIR - pairs.size)),
-        [int(cfg.self_collision), int(cfg.residual_force), cfg.action_v,
-         int(cfg.meta_pd), pd_iters, fd_iters, cfg.frame_skip],
+        [int(cfg.self_collision), rfc, cfg.action_v, gains, pd_iters,
+         fd_iters, cfg.frame_skip],
     ]).astype(np.int32)
     return params, itab
 
@@ -143,6 +157,49 @@ def control_step_reference(topo: Topology, cfg, model: Model, qpos, qvel,
     library is gathered by `seq_idx` first (K1e)."""
     return S.do_simulation(topo, cfg, env_models(model, seq_idx), qpos,
                            qvel, actions, target_base, rfc_rate, pcg_iters)
+
+
+def uses_k1f(cfg) -> bool:
+    """Whether a config runs K1f: explicit RFC or per-joint gains."""
+    return S.explicit_rfc(cfg) or S.per_joint_gains(cfg)
+
+
+def lane_only(cfg) -> bool:
+    """Explicit RFC or per-joint meta-PD: terms only the lane kernel takes
+    (uhc_tpu/envs/humanoid_im.py:853 fused_compatible); the JAX package's
+    v2 head/tail kernel has slots for neither."""
+    return S.explicit_rfc(cfg) or bool(cfg.meta_pd_joint)
+
+
+def k1f_operands(topo: Topology, cfg, model: Model, actions):
+    """K1f's prepared operands from the actions (pallas_lane.py:1217-1246):
+    the (B, 9·nb) body-frame [cp|f|τ] wrench of explicit RFC (body-major,
+    `engine.prep_explicit_vf`), and the (B, 2, nv) per-dof kp / kd scales
+    of per-joint meta-PD (ones on the root dofs); None where the config
+    has no such term."""
+    B = actions.shape[0]
+    ndof, vf_dim, _ = S.action_dims(topo, cfg)
+    vfx = S.explicit_wrench(topo, cfg, model, actions, ndof, vf_dim)
+    if vfx is not None:
+        vfx = vfx.reshape(B, 9 * topo.nbody).contiguous()
+    gains = None
+    if S.per_joint_gains(cfg):
+        kp, kd = S.gain_scales(cfg, actions, ndof, vf_dim)
+        gains = actions.new_ones((B, 2, topo.nv))
+        gains[:, 0, 6:] = kp[:, 0]
+        gains[:, 1, 6:] = kd[:, 0]
+    return vfx, gains
+
+
+def kept_action_columns(topo: Topology, cfg) -> int:
+    """The action columns a kernel keeps in shared memory: the PD targets,
+    implicit RFC's 6, the per-substep meta-PD scales (K1f reads the
+    explicit wrench and per-dof scales from its own operands)."""
+    ndof, vf_dim, meta_dim = S.action_dims(topo, cfg)
+    if not uses_k1f(cfg):
+        return ndof + vf_dim + meta_dim
+    return (ndof + (0 if S.explicit_rfc(cfg) else vf_dim)
+            + (meta_dim if cfg.meta_pd else 0))
 
 
 class ControlStep:
@@ -158,6 +215,16 @@ class ControlStep:
         if self.num_models is not None and topo.nbody != LIBRARY_BODIES:
             raise NotImplementedError(f"a model library on a {topo.nbody}-"
                                       f"body tree is not ported")
+        # K1f: explicit RFC or per-joint meta-PD
+        self.k1f = uses_k1f(cfg)
+        if self.k1f and topo.nbody != LIBRARY_BODIES:
+            raise NotImplementedError(
+                f"explicit RFC and per-joint meta-PD on a {topo.nbody}-body "
+                f"tree are not ported (ROADMAP §B, K1f on the big trees)")
+        if self.num_models is not None and S.explicit_rfc(cfg):
+            raise ValueError("explicit RFC with a model library: the hull "
+                             "projection tables are per shape (the JAX lane "
+                             "kernel refuses it too)")
         self.act_dim = sum(S.action_dims(topo, cfg))
         self._model_np = model_to_numpy(model)
         self._models = {}
@@ -207,19 +274,35 @@ class ControlStep:
                 raise RuntimeError(f"table layout mismatch: kernel {lay}, "
                                    f"packed {self.params.shape}, "
                                    f"{self.itab.size}")
-            if self.act_dim > lay["maxact"]:
-                raise ValueError(f"{self.act_dim} action columns; the "
-                                 f"kernel holds at most {lay['maxact']}")
+            kept = kept_action_columns(self.topo, self.cfg)
+            if kept > lay["maxact"]:
+                raise ValueError(f"{kept} action columns; the kernel holds "
+                                 f"at most {lay['maxact']}")
             self._tables[key] = (
                 torch.as_tensor(self.params, device=device),
                 torch.as_tensor(self.itab, device=device))
         return self._tables[key]
 
-    def check_inputs(self, qpos, qvel, actions, target_base) -> int:
+    def check_inputs(self, qpos, qvel, actions, target_base,
+                     operands=None) -> int:
+        """The inputs' shapes, dtype, device and layout; with `operands`,
+        K1f's prepared (vfx, gains) too, each present exactly where the
+        config has its term."""
         B, t = qpos.shape[0], self.topo
         shapes = {"qpos": (B, t.nq), "qvel": (B, t.nv),
                   "actions": (B, self.act_dim), "target_base": (B, t.ndof)}
-        for name, t in zip(shapes, (qpos, qvel, actions, target_base)):
+        ins = [qpos, qvel, actions, target_base]
+        for name, x, want, shape in zip(
+                ("vfx", "gains"), operands or (),
+                (S.explicit_rfc(self.cfg), S.per_joint_gains(self.cfg)),
+                ((B, 9 * t.nbody), (B, 2, t.nv))):
+            if (x is not None) != want:
+                raise ValueError(f"{name}: {'missing' if want else 'given'}"
+                                 f" for this config")
+            if want:
+                shapes[name] = shape
+                ins.append(x)
+        for name, t in zip(shapes, ins):
             if tuple(t.shape) != shapes[name]:
                 raise ValueError(f"{name}: shape {tuple(t.shape)}, "
                                  f"expected {shapes[name]}")
@@ -262,6 +345,20 @@ class ControlStep:
     def count_launch(self, entry: str = "step") -> None:
         LAUNCHES[entry, self.topo.nbody, self.num_models is not None] += 1
 
+    def _launch_k1f(self, lib, P, I, qpos, qvel, actions, target_base,
+                    qpos_out, qvel_out, rfc_rate, seq_idx, stream) -> int:
+        vfx, gains = k1f_operands(self.topo, self.cfg,
+                                  self.model_on(qpos.device), actions)
+        B = self.check_inputs(qpos, qvel, actions, target_base,
+                              (vfx, gains))
+        return lib.uhc_control_step_f(
+            P.data_ptr(), self.seq_ptr(seq_idx), I.data_ptr(),
+            qpos.data_ptr(), qvel.data_ptr(), actions.data_ptr(),
+            target_base.data_ptr(), qpos_out.data_ptr(), qvel_out.data_ptr(),
+            0 if vfx is None else vfx.data_ptr(),
+            0 if gains is None else gains.data_ptr(), B, self.act_dim,
+            float(rfc_rate), stream)
+
     def __call__(self, qpos, qvel, actions, target_base, rfc_rate=1.0,
                  seq_idx=None):
         self.check_seq_idx(seq_idx, qpos)
@@ -278,16 +375,21 @@ class ControlStep:
         lib = self.library()
         P, I = self._device_tables(qpos.device)
         stream = torch.cuda.current_stream(qpos.device).cuda_stream
-        rc = lib.uhc_control_step(
-            P.data_ptr(), self.seq_ptr(seq_idx), I.data_ptr(),
-            qpos.data_ptr(), qvel.data_ptr(), actions.data_ptr(),
-            target_base.data_ptr(), qpos_out.data_ptr(), qvel_out.data_ptr(),
-            self.ws_ptr(B, qpos.device), B, self.act_dim, float(rfc_rate),
-            stream)
+        if self.k1f:
+            rc = self._launch_k1f(lib, P, I, qpos, qvel, actions,
+                                  target_base, qpos_out, qvel_out, rfc_rate,
+                                  seq_idx, stream)
+        else:
+            rc = lib.uhc_control_step(
+                P.data_ptr(), self.seq_ptr(seq_idx), I.data_ptr(),
+                qpos.data_ptr(), qvel.data_ptr(), actions.data_ptr(),
+                target_base.data_ptr(), qpos_out.data_ptr(),
+                qvel_out.data_ptr(), self.ws_ptr(B, qpos.device), B,
+                self.act_dim, float(rfc_rate), stream)
         if rc != 0:
             raise RuntimeError(f"control_step kernel launch failed: CUDA "
                                f"error {rc}")
-        self.count_launch()
+        self.count_launch("k1f" if self.k1f else "step")
         return qpos_out, qvel_out
 
 
@@ -299,7 +401,12 @@ def control_step_flops(topo: Topology, cfg, active, pcg_iters=(1, 2),
     `solver.do_simulation(..., trace=...)`), starting at substep `start`
     (1 counts K2's tail alone). Counts the subtree-limited M, J6ᵀ·wrench
     and CD sums (CD and K = W·J6 only over bodies in contact), the
-    substep-0 Cholesky inverses and the PCG matvecs."""
+    substep-0 Cholesky inverses and the PCG matvecs; with explicit RFC
+    (K1f) each body's wrench every substep: three quaternion rotations
+    (30 each), the gate (6), the lever arm and its moment (18) and the
+    add into the body's external wrench (6), whose J6 projection the
+    J6ᵀ·wrench sums already count. Per-dof gains cost nothing beyond the
+    per-substep ones."""
     pd_iters, fd_iters = ((pcg_iters, pcg_iters)
                           if isinstance(pcg_iters, int) else pcg_iters)
     NV = topo.nv
@@ -325,11 +432,13 @@ def control_step_flops(topo: Topology, cfg, active, pcg_iters=(1, 2),
     d0 = np.maximum(deep, 0)
     pairs_with = np.array([(valid & (d0 <= b) & (b < end[d0])).sum()
                            for b in range(topo.nbody)], np.float64)
+    vfx = (topo.nbody * (3 * 30 + (6 if S.vf_gate_mode(cfg) else 0) + 18
+                         + 6) if S.explicit_rfc(cfg) else 0.0)
     total = 0.0
     for s, act in enumerate(active):
         act = np.asarray(act, bool)
         B = act.shape[0]
-        total += B * (m_flops + proj + pcg + (inv if s + start == 0
-                                              else 0.0))
+        total += B * (m_flops + proj + pcg + vfx
+                      + (inv if s + start == 0 else 0.0))
         total += (act * (2.0 * 6 * pairs_with + 2.0 * 36 * NV)).sum()
     return total

@@ -24,6 +24,10 @@ K1d (`ControlStep`); Xp/Xf travel as (B, 2, nv, nv). This is the route of
 a big tree under UHC_TPU_LANE=0 or UHC_TPU_LANE_BIG=0, as in the JAX
 package.
 
+Explicit RFC and per-joint meta-PD are refused (ValueError), as the JAX
+package's v2 kernel has no slots for them; the env never routes them
+here.
+
 Launches count in `control_step.LAUNCHES` under the entries "head" and
 "tail".
 """
@@ -32,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from uhc_tpu_torch.physics import solver as S
-from uhc_tpu_torch.physics.control_step import ControlStep
+from uhc_tpu_torch.physics.control_step import ControlStep, lane_only
 from uhc_tpu_torch.physics.model import env_models
 
 
@@ -59,6 +63,11 @@ class ControlStepSplit(ControlStep):
     def __init__(self, topo, cfg, model, pcg_iters: int = 2):
         if not isinstance(pcg_iters, int):
             raise TypeError("K2 runs one PCG count on both solves")
+        if lane_only(cfg):
+            # the env routes them to K1f or the plain chain
+            raise ValueError("the head/tail kernels take neither explicit "
+                             "RFC nor per-joint meta-PD (K1f runs them on "
+                             "the lane route)")
         super().__init__(topo, cfg, model, (pcg_iters, pcg_iters))
 
     def _launch(self, entry, qpos, qvel, actions, target_base, X, rfc_rate,

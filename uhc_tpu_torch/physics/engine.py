@@ -364,12 +364,70 @@ def pd_torque_from_accel(model: Model, qvel, qpos_err, kp, kd, qacc_des):
                          -model.torque_lim)
 
 
+def project_vf_cp(model: Model, cp):
+    """Clamp explicit-RFC contact points (B, nb, num_each, 3), body frame,
+    into each body's hull AABB (uhc_tpu/physics/engine.py:503
+    project_vf_cp): interior points pass through, outside points snap to
+    the box, so the lever arm stays within the body's extent."""
+    model = model_per_env(model, cp.shape[0])
+    pts, m = model.contact_point, model.contact_mask[..., None] > 0
+    big = torch.tensor(1e9, dtype=pts.dtype, device=pts.device)
+    lo = torch.where(m, pts, big).amin(-2, keepdim=True)
+    hi = torch.where(m, pts, -big).amax(-2, keepdim=True)
+    return torch.minimum(torch.maximum(cp, lo), hi)
+
+
+def prep_explicit_vf(model: Model, cfg, vf, nbody: int):
+    """The explicit-RFC action segment (B, nbody · num_each · bvd) -> one
+    (B, nbody, 9) body-frame [cp|f|τ] wrench per body
+    (uhc_tpu/physics/engine.py:517 prep_explicit_vf): each slot's contact
+    point hull-projected when residual_contact_projection is set, force
+    and torque scaled by residual_force_scale alone (rfc_rate scales only
+    implicit RFC). With num_each > 1 the slots fold into one wrench at
+    cp = 0: τ = Σ (τ_i + cp_i × f_i), exact since rotation preserves
+    cross products."""
+    B = vf.shape[0]
+    bvd = vf.shape[1] // (nbody * cfg.residual_force_bodies_num)
+    v = vf.reshape(B, nbody, -1, bvd)
+    scale = cfg.residual_force_scale
+    cp = v[..., 0:3]
+    if cfg.residual_contact_projection:
+        cp = project_vf_cp(model, cp)
+    f = v[..., 3:6] * scale
+    t = (v[..., 6:9] * scale if cfg.residual_force_torque
+         else torch.zeros_like(f))
+    if v.shape[2] > 1:
+        f_sum = f.sum(2)
+        return torch.cat([torch.zeros_like(f_sum), f_sum,
+                          (t + cross(cp, f)).sum(2)], -1)
+    return torch.cat([cp[:, :, 0], f[:, :, 0], t[:, :, 0]], -1)
+
+
+def vf_contact_gate(model: Model, kin: dict, mode: str):
+    """(B, nb) 0/1 gate of explicit RFC (uhc_tpu/physics/engine.py:563
+    vf_contact_gate): "height" = body origin z <= 0.12, "ground" = some
+    active hull point of the body lies below the ground plane."""
+    xpos = kin["xpos"]
+    if mode == "height":
+        return (xpos[..., 2] <= 0.12).to(xpos.dtype)
+    model = model_per_env(model, xpos.shape[0])
+    wp = xpos[:, :, None] + quat_rotate(kin["xquat"][:, :, None],
+                                        model.contact_point)
+    touch = (wp[..., 2] < 0.0).to(xpos.dtype) * model.contact_mask
+    return touch.amax(-1)
+
+
 def assemble(topo: Topology, model: Model, qpos, qvel, target_pos, kp, kd,
-             qfrc_applied, self_collision: bool = False) -> dict:
+             qfrc_applied, self_collision: bool = False, vf_body=None,
+             vf_gate=None) -> dict:
     """Everything of a substep except the linear solves: the stable-PD
     system A_pd = M + dt·Kd, the forward-dynamics system
     A_fd = M + dt·(CD + limit damping), the PD right-hand side and the
-    force terms of the forward-dynamics right-hand side."""
+    force terms of the forward-dynamics right-hand side. `vf_body` is the
+    (B, nb, 9) body-frame wrench of explicit RFC (`prep_explicit_vf`):
+    rotated into the world by each body's current orientation, gated by
+    `vf_gate` (None, "height" or "ground"), and applied at the body
+    origin + cp (uhc_tpu/physics/engine.py:635-647)."""
     model = model_per_env(model, qpos.shape[0])
     kin = fk(topo, model, qpos)
     vel = velocities(topo, kin, qvel)
@@ -403,6 +461,15 @@ def assemble(topo: Topology, model: Model, qpos, qvel, target_pos, kp, kd,
     A_pd = M + torch.diag_embed(kd_full) * dt
     A_fd = M + dt * (CD + torch.diag_embed(lim_damp))
     rhs_base = qfrc_applied + qfrc_con + qfrc_lim + qfrc_damp - C
+    if vf_body is not None:
+        q = kin["xquat"]
+        cp_w, f_w, t_w = (quat_rotate(q, vf_body[..., k:k + 3])
+                          for k in (0, 3, 6))
+        if vf_gate is not None:
+            g = vf_contact_gate(model, kin, vf_gate)[..., None]
+            f_w, t_w = f_w * g, t_w * g
+        T = cross(kin["xpos"] + cp_w - kin["xipos"], f_w) + t_w
+        rhs_base = rhs_base + project(Jlin, Jang, f_w, T)
     return dict(A_pd=A_pd, A_fd=A_fd, pd_rhs=pd_rhs, qpos_err=qpos_err,
                 rhs_base=rhs_base,
                 contact_active=W.abs().sum((-1, -2)) > 0)
