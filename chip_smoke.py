@@ -18,8 +18,14 @@ agent (env.masterfoot) through K1d and K2, and K1f, the control step with
 explicit residual force control or per-joint meta-PD, held against its
 plain version in five modes, in the closed-loop eval of the gait clips
 under the `explicit` config and in training under `explicit` and
-`meta_joint` (uhc_tpu_torch/config/) -- checks their output, and times
-the kernels at B=2048 (and the big trees' at B=512).
+`meta_joint` (uhc_tpu_torch/config/), K1f on the big trees (both configs
+on SMPL-H and on masterfoot, held against its plain versions, and in
+training there, `cli/train --cfg explicit --robot-model smplh` with the
+eval at the checkpoint), and K1g, the control step with a second exact
+inverse pair at substep 8 (`refresh_at`), held against its plain versions
+and a PCG-8 step on the 24-body tree and on SMPL-H and run as bench.py
+runs its control steps -- checks their output, and times the kernels at
+B=2048 (and the big trees' at B=512).
 
 Usage: python3 chip_smoke.py        (needs one CUDA card; no arguments)
 
@@ -67,6 +73,16 @@ B_BIG_TIME = (2048, 512)
 # contacts are active and the "ground" gate is not vacuous
 # (tests/test_fused_split.py:512)
 K1F_LOWERED, K1F_SINK = 4, 0.02
+# K1f's modes on the big trees (phase k1f_big)
+K1F_BIG_MODES = ("explicit", "explicit_ground", "meta_joint")
+# K1g: the refresh substep and schedules of tests/test_fused_split.py:214-224
+# (PCG (1, 1) on 24 bodies; the big trees keep their (2, 2)), held against
+# a PCG-8 step at its bounds
+REFRESH_AT, PCG8 = 8, (8, 8)
+SCHED_QPOS_TOL, SCHED_QVEL_TOL = 2e-3, 0.2
+# the control steps of phase k1g's bench.py-style run (bench.py
+# _make_run: the state fed back, the actions held)
+K1G_CHAIN = 15
 
 _phase = ["start"]
 TRAIN_RATES = {}     # phase -> per-epoch rollout rates and PPO times
@@ -130,8 +146,11 @@ COUNTERS = {"k1": ("step", 24, False), "k2_head": ("head", 24, False),
             "k2_tail": ("tail", 24, False), "k1e": ("step", 24, True),
             "k2e_head": ("head", 24, True), "k2e_tail": ("tail", 24, True),
             "k1f": ("k1f", 24, False),
+            "k1g": ("step_refresh", 24, False),
+            "k1g_smplh": ("step_refresh", 52, False),
             **{f"{name}_{fam}": (entry, nb, False) for fam, nb in BIG
-               for name, entry in (("k1d", "step"), ("k2big_head", "head"),
+               for name, entry in (("k1d", "step"), ("k1f", "k1f"),
+                                   ("k2big_head", "head"),
                                    ("k2big_tail", "tail"))}}
 
 
@@ -329,6 +348,28 @@ def gate(name, out, plain32, plain64) -> tuple:
     return errs, fails
 
 
+def on_tree(env_cfg, family: str):
+    """`env_cfg` on a big tree: "smplh" or "masterfoot"."""
+    import dataclasses
+
+    return dataclasses.replace(env_cfg, robot_model="smplh"
+                               if family == "smplh" else "smpl",
+                               masterfoot=family == "masterfoot")
+
+
+def plain_pair(topo, env_cfg, model, ins, pcg_iters, refresh_at=None):
+    """The float32 and float64 plain versions of one control step of `ins`
+    -> (plain32, plain64)."""
+    from uhc_tpu_torch.physics import control_step as CS
+
+    return (CS.control_step_reference(topo, env_cfg, model, *ins, 1.0,
+                                      pcg_iters, refresh_at=refresh_at),
+            CS.control_step_reference(
+                topo, env_cfg, double_model(model),
+                *[t.double() for t in ins], 1.0, pcg_iters,
+                refresh_at=refresh_at))
+
+
 def big_tree(family: str, dev, meta_pd: bool = False):
     """uhc_implicit on a big tree built from the stand-in: "smplh" (52
     bodies) or "masterfoot" (48) -> (topo, env cfg, model, expert library
@@ -342,11 +383,8 @@ def big_tree(family: str, dev, meta_pd: bool = False):
     from uhc_tpu_torch.physics.model import model_from_numpy
     from uhc_tpu_torch.smpl.fixture_humanoid import load_fixture_humanoid
 
-    env = dataclasses.replace(Config.uhc_implicit().env,
-                              robot_model="smplh" if family == "smplh"
-                              else "smpl",
-                              masterfoot=family == "masterfoot",
-                              meta_pd=meta_pd)
+    env = on_tree(dataclasses.replace(Config.uhc_implicit().env,
+                                      meta_pd=meta_pd), family)
     topo24, model24 = load_fixture_humanoid()
     topo, model_np, conv, _, _ = robot_family(topo24, model24, env)
     model = model_from_numpy(model_np, dev)
@@ -397,8 +435,10 @@ def k1d_draws(dev):
 ULP_MOVES, MOVES = (1, 2), 32
 
 
-def moved_steps(topo, env_cfg, model, ins, env, dtype, seed=0, trace=None):
-    """The plain (2, 2) step in `dtype` of env `env` of `ins` (qpos, qvel,
+def moved_steps(topo, env_cfg, model, ins, env, dtype, seed=0, trace=None,
+                pcg_iters=(2, 2), refresh_at=None):
+    """The plain step in `dtype` at `pcg_iters` (the big trees' (2, 2) by
+    default; with K1g's `refresh_at`) of env `env` of `ins` (qpos, qvel,
     actions, target_base) from copies of its state moved by ULP_MOVES
     float32 ulps -> (qpos', qvel') of the len(ULP_MOVES) * MOVES copies;
     `trace` receives each substep's ground-contact sets."""
@@ -420,7 +460,7 @@ def moved_steps(topo, env_cfg, model, ins, env, dtype, seed=0, trace=None):
     return solver.do_simulation(
         topo, env_cfg, m, move(qpos), move(qvel),
         act.expand(n, -1).contiguous(), tb.expand(n, -1).contiguous(), 1.0,
-        (2, 2), trace=trace)
+        pcg_iters, trace=trace, refresh_at=refresh_at)
 
 
 def gate_big(name, out, plain32, plain64, moved) -> tuple:
@@ -582,14 +622,15 @@ def k1f_modes():
 
 
 def k1f_draw(topo, env_cfg, lib, B, gen, dev):
-    """draw_states with every K1F_LOWERED-th env lowered by K1F_SINK and
-    seeded actions: 0.02 noise, plus 0.05 on the explicit wrench columns
-    so that they matter -> (qpos, qvel, actions, target_base)."""
+    """draw_states on any tree with every K1F_LOWERED-th env lowered by
+    K1F_SINK and seeded actions: 0.02 noise, plus 0.05 on the explicit
+    wrench columns so that they matter -> (qpos, qvel, actions,
+    target_base)."""
     import torch
 
     from uhc_tpu_torch.physics import solver
 
-    qpos, qvel, tb = draw_states(lib, B, gen, dev)
+    qpos, qvel, tb = draw_big_states(lib, topo.nv, B, gen, dev)
     qpos[::K1F_LOWERED, 2] -= K1F_SINK
     nd, vf, meta = solver.action_dims(topo, env_cfg)
     act = 0.02 * torch.randn((B, nd + vf + meta), generator=gen)
@@ -635,11 +676,7 @@ def k1f_check(topo, model, lib, gen, dev) -> tuple:
                 bool(torch.isfinite(t).all()) for t in out):
             raise RuntimeError(f"K1f {mode}: launches {counts()} or output "
                                "not finite")
-        plain64 = CS.control_step_reference(
-            topo, env_cfg, double_model(model), *[t.double() for t in ins],
-            1.0, (1, 2))
-        plain32 = CS.control_step_reference(topo, env_cfg, model, *ins, 1.0,
-                                            (1, 2))
+        plain32, plain64 = plain_pair(topo, env_cfg, model, ins, (1, 2))
         e, f = gate(f"K1f {mode}", out, plain32, plain64)
         qpos, qvel, act, tb = ins
         e["zeroed_moves_qpos"] = {}
@@ -655,6 +692,139 @@ def k1f_check(topo, model, lib, gen, dev) -> tuple:
         errs[mode] = e
         fails += f
     return errs, fails
+
+
+def k1f_big_draws(dev):
+    """The draws of phase k1f_big, one case after another: (family, mode,
+    topo, env cfg, model, (qpos, qvel, actions, target_base)) for SMPL-H
+    and masterfoot in each of K1F_BIG_MODES, B_CHECK clip-frame envs each
+    (every K1F_LOWERED-th lowered by K1F_SINK), made on the host from one
+    seeded generator and moved to `dev`."""
+    import torch
+
+    gen = torch.Generator().manual_seed(17)
+    for fam, _ in BIG:
+        btopo, _, bmodel, blib = big_tree(fam, dev)
+        for mode in K1F_BIG_MODES:
+            env_cfg = on_tree(k1f_modes()[mode], fam)
+            yield fam, mode, btopo, env_cfg, bmodel, k1f_draw(
+                btopo, env_cfg, blib, B_CHECK, gen, dev)
+
+
+def k1f_big_check(draws) -> tuple:
+    """K1f on the big trees at (2, 2) on `draws` (k1f_big_draws), one launch
+    each, through `gate_big` against its float32 and float64 plain
+    versions, and zeroing each of its terms moving qpos by more than
+    QPOS_TOL -> ({family_mode: errors}, failures)."""
+    import torch
+
+    from uhc_tpu_torch.physics import control_step as CS
+
+    errs, fails = {}, []
+    for fam, mode, btopo, env_cfg, bmodel, ins in draws:
+        name = f"K1f {fam} {mode}"
+        step = CS.ControlStep(btopo, env_cfg, bmodel, (2, 2))
+        reset_counts()
+        out = step(*ins, 1.0)
+        torch.cuda.synchronize()
+        if counts() != expect(1, f"k1f_{fam}") or not all(
+                bool(torch.isfinite(t).all()) for t in out):
+            raise RuntimeError(f"{name}: launches {counts()} or output not "
+                               "finite")
+        plain32, plain64 = plain_pair(btopo, env_cfg, bmodel, ins, (2, 2))
+
+        def moved(e, btopo=btopo, env_cfg=env_cfg, bmodel=bmodel, ins=ins):
+            return [moved_steps(btopo, env_cfg, bmodel, ins, e, dt)
+                    for dt in (torch.float64, torch.float32)]
+
+        e, f = gate_big(name, out, plain32, plain64, moved)
+        qpos, qvel, act, tb = ins
+        e["zeroed_moves_qpos"] = {}
+        for term, act0 in k1f_zeroed(btopo, env_cfg, act).items():
+            gap = (step(qpos, qvel, act0, tb, 1.0)[0]
+                   - out[0]).abs().max().item()
+            e["zeroed_moves_qpos"][term] = gap
+            if not gap > QPOS_TOL:
+                f.append(f"{name}: zeroing the {term} moves qpos by {gap} "
+                         "only")
+        e["act_dim"] = step.act_dim
+        e["kept_action_columns"] = CS.kept_action_columns(btopo, env_cfg)
+        errs[f"{fam}_{mode}"] = e
+        fails += f
+    return errs, fails
+
+
+def k1g_check(topo, env_cfg, model, ins, pcg_iters, family=None) -> tuple:
+    """K1g, the control step with `refresh_at=REFRESH_AT` at `pcg_iters`,
+    on `ins` (the 24-body tree, or the big tree `family`): one launch,
+    held against its float32 and float64 plain versions by `gate_big`
+    (one PCG iteration per solve spreads float32 results as the big
+    trees' contact switches do: on one plain-PD env of the 24-body draws,
+    float32 steps from its state moved by 1-2 ulps land 1.4e-4 to 2.8e-3
+    from the float64 one in qvel, either side of QVEL_TOL), within
+    SCHED_QPOS_TOL / SCHED_QVEL_TOL of the float64 plain PCG-8 step, and
+    apart from the same step without the refresh by more than QPOS_TOL in
+    qpos -> (errors, failures, the kernel's output).
+
+    The PCG-8 bounds are the schedule's, not the kernel's: an env where
+    the float64 plain version of the same schedule misses them itself (a
+    state that one PCG iteration does not solve to them) is held to its
+    plain versions alone, as above, and printed with both distances; more
+    than one such env in eight fails."""
+    import torch
+
+    from uhc_tpu_torch.physics import control_step as CS
+
+    name = f"K1g {family or 24}"
+    step = CS.ControlStep(topo, env_cfg, model, pcg_iters,
+                          refresh_at=REFRESH_AT)
+    reset_counts()
+    out = step(*ins, 1.0)
+    torch.cuda.synchronize()
+    key = "k1g" if family is None else f"k1g_{family}"
+    if counts() != expect(1, key) or not all(
+            bool(torch.isfinite(t).all()) for t in out):
+        raise RuntimeError(f"{name}: launches {counts()} or output not "
+                           "finite")
+    plain32, plain64 = plain_pair(topo, env_cfg, model, ins, pcg_iters,
+                                  REFRESH_AT)
+
+    def moved(env):
+        return [moved_steps(topo, env_cfg, model, ins, env, dt,
+                            pcg_iters=pcg_iters, refresh_at=REFRESH_AT)
+                for dt in (torch.float64, torch.float32)]
+
+    e, f = gate_big(name, out, plain32, plain64, moved)
+    _, pcg8 = plain_pair(topo, env_cfg, model, ins, PCG8)
+
+    def from_pcg8(x):
+        return [(a.double() - b).abs().amax(1) for a, b in zip(x, pcg8)]
+
+    k8, p8 = from_pcg8(out), from_pcg8(plain64)
+    sched = (p8[0] > SCHED_QPOS_TOL) | (p8[1] > SCHED_QVEL_TOL)
+    e["kernel_vs_pcg8_plain64"] = [x[~sched].max().item() if bool(
+        (~sched).any()) else 0.0 for x in k8]
+    e["schedule_misses_pcg8"] = [
+        {"env": i, "kernel_vs_pcg8": [k8[0][i].item(), k8[1][i].item()],
+         "plain64_vs_pcg8": [p8[0][i].item(), p8[1][i].item()]}
+        for i in torch.nonzero(sched)[:, 0].tolist()]
+    dq, dv = e["kernel_vs_pcg8_plain64"]
+    if not (dq <= SCHED_QPOS_TOL and dv <= SCHED_QVEL_TOL):
+        f.append(f"{name}: |dqpos| {dq}, |dqvel| {dv} from the PCG-8 step "
+                 f"(bounds {SCHED_QPOS_TOL}, {SCHED_QVEL_TOL})")
+    if int(sched.sum()) * 8 > sched.numel():
+        f.append(f"{name}: the plain version misses the PCG-8 step on "
+                 f"{int(sched.sum())} of {sched.numel()} envs")
+    unrefreshed = CS.ControlStep(topo, env_cfg, model, pcg_iters)(*ins, 1.0)
+    e["refresh_moves_qpos"] = (out[0] - unrefreshed[0]).abs().max().item()
+    e["unrefreshed_vs_pcg8_plain64"] = [
+        (a.double() - b).abs().max().item()
+        for a, b in zip(unrefreshed, pcg8)]
+    if not e["refresh_moves_qpos"] > QPOS_TOL:
+        f.append(f"{name}: the refresh moves qpos by "
+                 f"{e['refresh_moves_qpos']} only")
+    e["pcg_iters"] = list(pcg_iters)
+    return e, f, out
 
 
 def k1e_check(topo, env_cfg, lib_model, ins, name):
@@ -945,11 +1115,7 @@ def run() -> int:
                 bool(torch.isfinite(t).all()) for t in out):
             raise RuntimeError(f"K1d {fam} {mode}: launches {counts()} or "
                                "output not finite")
-        plain64 = CS.control_step_reference(
-            btopo, benv, double_model(bmodel), *[t.double() for t in ins],
-            1.0, (2, 2))
-        plain32 = CS.control_step_reference(btopo, benv, bmodel, *ins, 1.0,
-                                            (2, 2))
+        plain32, plain64 = plain_pair(btopo, benv, bmodel, ins, (2, 2))
 
         def moved(e, btopo=btopo, benv=benv, bmodel=bmodel, ins=ins):
             return [moved_steps(btopo, benv, bmodel, ins, e, dt)
@@ -1010,6 +1176,31 @@ def run() -> int:
     done("k1f", **k1f_errs, qpos_tol=QPOS_TOL, qvel_tol=QVEL_TOL)
     if k1f_fails:
         raise RuntimeError("; ".join(k1f_fails))
+
+    phase("k1f_big", f"(B={B_CHECK}, K1f on SMPL-H and masterfoot, "
+                     f"{', '.join(K1F_BIG_MODES)}, (2, 2); one env in "
+                     f"{K1F_LOWERED} lowered {K1F_SINK} m)")
+    k1f_big_errs, k1f_big_fails = k1f_big_check(k1f_big_draws(dev))
+    done("k1f_big", **k1f_big_errs, qpos_tol=QPOS_TOL, qvel_tol=QVEL_TOL)
+    if k1f_big_fails:
+        raise RuntimeError("; ".join(k1f_big_fails))
+
+    phase("k1g", f"(B={B_CHECK}, refresh_at={REFRESH_AT}: K1 at (1, 1) on "
+                 "the kernel_vs_plain draws, K1d at (2, 2) on the SMPL-H "
+                 "plain-PD draws of k1d_vs_plain)")
+    k1g_errs, k1g_fails = {}, []
+    for mode, (env_cfg, qpos, qvel, act, tb) in draws.items():
+        k1g_errs[mode], fails, _ = k1g_check(topo, env_cfg, model,
+                                             (qpos, qvel, act, tb), (1, 1))
+        k1g_fails += fails
+    btopo, benv, bmodel, *ins = big_draws["smplh", "plain_pd"]
+    k1g_errs["smplh_plain_pd"], fails, _ = k1g_check(btopo, benv, bmodel,
+                                                     ins, (2, 2), "smplh")
+    k1g_fails += fails
+    done("k1g", **k1g_errs, qpos_tol=QPOS_TOL, qvel_tol=QVEL_TOL,
+         pcg8_qpos_tol=SCHED_QPOS_TOL, pcg8_qvel_tol=SCHED_QVEL_TOL)
+    if k1g_fails:
+        raise RuntimeError("; ".join(k1g_fails))
 
     phase("eval", "(all clips, full length, seeded weights, kernel)")
     from uhc_tpu_torch.cli.eval import run_eval
@@ -1105,10 +1296,10 @@ def run() -> int:
     phase("train_masterfoot", "(CopycatAgent with env.masterfoot=True, 512 "
                               "envs × 32 steps, 2 epochs through K1d)")
 
-    def masterfoot_agent(out):
+    def masterfoot_agent(out, mcfg=None):
         from uhc_tpu_torch.learn.agent import CopycatAgent
 
-        mcfg = Config.uhc_implicit()
+        mcfg = mcfg or Config.uhc_implicit()
         mcfg = dataclasses.replace(mcfg, env=dataclasses.replace(
             mcfg.env, masterfoot=True))
         return CopycatAgent(mcfg, "sample_data/gait_clips.pkl",
@@ -1140,6 +1331,34 @@ def run() -> int:
 
         train_counts[train_phase] = run_train(
             None, 2, train_phase, dev, routed=("k1f",), agent_fn=k1f_agent)
+
+    # K1f on the big trees: SMPL-H through cli/train (explicit with the
+    # eval at the checkpoint), masterfoot through the agent; the other
+    # config on each tree for one epoch, and explicit SMPL-H under
+    # UHC_TPU_LANE_BIG=0 on the plain chain, where the JAX package runs XLA
+    for train_phase, name, epochs, lane_big in (
+            ("train_smplh_explicit", "explicit", 2, None),
+            ("train_smplh_meta_joint", "meta_joint", 1, None),
+            ("train_smplh_explicit_plain", "explicit", 1, "0")):
+        args = ["--cfg", name] + SMPLH_TRAIN_ARGS + (
+            [] if train_phase == "train_smplh_explicit"
+            else ["--no-train-eval"])
+        phase(train_phase, f"(cli/train {' '.join(args)}, {epochs} epochs, "
+                           f"UHC_TPU_LANE_BIG={lane_big or 'unset'}: "
+                           f"{'the plain chain' if lane_big else 'K1f'})")
+        train_counts[train_phase] = run_train(
+            None, epochs, train_phase, dev, args, lane_big=lane_big,
+            routed=() if lane_big else ("k1f_smplh",))
+    for train_phase, name, cfg_dict, epochs in (
+            ("train_masterfoot_meta_joint", "meta_joint", META_JOINT, 2),
+            ("train_masterfoot_explicit", "explicit", EXPLICIT, 1)):
+        phase(train_phase, f"(CopycatAgent with env.masterfoot=True under "
+                           f"the {name} config, 512 envs × 32 steps, "
+                           f"{epochs} epochs through K1f)")
+        train_counts[train_phase] = run_train(
+            None, epochs, train_phase, dev, routed=("k1f_masterfoot",),
+            agent_fn=lambda out, name=name, cfg_dict=cfg_dict:
+            masterfoot_agent(out, Config.from_dict(name, cfg_dict)))
 
     phase("time", f"(B={B_TIME}, uhc_implicit control step)")
     step = CS.ControlStep(topo, cfg.env, model, pcg_iters=(1, 2))
@@ -1422,6 +1641,104 @@ def run() -> int:
         k1f_time[mode]["train"] = TRAIN_RATES.get(f"train_{mode}")
     done("time_k1f", **k1f_time, card=smi)
 
+    phase("time_k1f_big", f"(K1f explicit and meta_joint on SMPL-H and "
+                          f"masterfoot, B={B_BIG_TIME}, beside K1d on the "
+                          "same states in turns K1d, K1f, K1f, K1d; plain "
+                          f"versions at B={B_BIG_TIME[0]})")
+    gen_fb = torch.Generator().manual_seed(18)
+    k1f_big_time = {}
+    for fam, nb in BIG:
+        btopo, benv, bmodel, blib = big_tree(fam, dev)
+        k1d = CS.ControlStep(btopo, benv, bmodel, (2, 2))
+        k1f_big_time[fam] = {}
+        for mode in ("explicit", "meta_joint"):
+            env_cfg = on_tree(k1f_modes()[mode], fam)
+            k1f = CS.ControlStep(btopo, env_cfg, bmodel, (2, 2))
+            row = {"act_dim": k1f.act_dim,
+                   "kept_action_columns": CS.kept_action_columns(btopo,
+                                                                 env_cfg)}
+            for B in B_BIG_TIME:
+                qpos, qvel, actf, tb = k1f_draw(btopo, env_cfg, blib, B,
+                                                gen_fb, dev)
+                act1 = actf[:, :k1d.act_dim].contiguous()
+                k1d(qpos, qvel, act1, tb, 1.0)
+                k1f(qpos, qvel, actf, tb, 1.0)
+                torch.cuda.synchronize()
+                reps = 5 if B >= 2048 else 10
+                turns = [cuda_ms((lambda: k1d(qpos, qvel, act1, tb, 1.0))
+                                 if which == "k1d" else
+                                 (lambda: k1f(qpos, qvel, actf, tb, 1.0)),
+                                 reps)
+                         for which in ("k1d", "k1f", "k1f", "k1d")]
+                trace = []
+                SV.do_simulation(btopo, env_cfg, bmodel, qpos, qvel, actf, tb,
+                                 1.0, (2, 2), trace=trace)
+                vfx, gains = CS.k1f_operands(btopo, env_cfg, bmodel, actf)
+                operands = sum(x.numel() for x in (vfx, gains)
+                               if x is not None)
+                io = (qpos.numel() * 2 + qvel.numel() * 2 + actf.numel()
+                      + tb.numel() + k1f.params.size + k1f.itab.size
+                      + operands)
+                t = {"k1f_ms": 0.5 * (turns[1] + turns[2]),
+                     "k1d_same_states_ms": 0.5 * (turns[0] + turns[3]),
+                     "turns_k1d_k1f_k1f_k1d": turns,
+                     "bound": bound(CS.control_step_flops(
+                         btopo, env_cfg, trace, (2, 2)), 4 * io),
+                     "operand_floats_per_env": operands // B}
+                t["k1f_over_k1d"] = t["k1f_ms"] / t["k1d_same_states_ms"]
+                if B == B_BIG_TIME[0]:
+                    t["plain_ms"] = cuda_ms(
+                        lambda: CS.control_step_reference(
+                            btopo, env_cfg, bmodel, qpos, qvel, actf, tb,
+                            1.0, (2, 2)), 1)
+                row[f"B{B}"] = t
+            row["train"] = TRAIN_RATES.get(f"train_{fam}_{mode}")
+            k1f_big_time[fam][mode] = row
+    done("time_k1f_big", **k1f_big_time, card=smi)
+
+    phase("time_k1g", f"(B={B_TIME}, uhc_implicit: {K1G_CHAIN} control steps "
+                      f"through K1 with refresh_at={REFRESH_AT} at (1, 1), "
+                      "the state fed back as bench.py does; then K1g beside "
+                      "K1 at (1, 1) in turns K1, K1g, K1g, K1)")
+    gen_g = torch.Generator().manual_seed(19)
+    k1g = CS.ControlStep(topo, cfg.env, model, (1, 1), refresh_at=REFRESH_AT)
+    k1_11 = CS.ControlStep(topo, cfg.env, model, (1, 1))
+    qpos, qvel, tb = draw_states(lib, B_TIME, gen_g, dev)
+    act = (0.02 * torch.randn((B_TIME, k1g.act_dim), generator=gen_g)).to(dev)
+    reset_counts()
+    qc, vc = qpos, qvel
+    for _ in range(K1G_CHAIN):
+        qc, vc = k1g(qc, vc, act, tb, 1.0)
+    torch.cuda.synchronize()
+    k1g_chain = counts()
+    if k1g_chain != expect(K1G_CHAIN, "k1g") or not bool(
+            torch.isfinite(qc).all() & torch.isfinite(vc).all()):
+        raise RuntimeError(f"time_k1g: launches {k1g_chain} for {K1G_CHAIN} "
+                           "control steps, or the state is not finite")
+    turns = [cuda_ms((lambda: k1_11(qpos, qvel, act, tb, 1.0))
+                     if which == "k1" else
+                     (lambda: k1g(qpos, qvel, act, tb, 1.0)), 10)
+             for which in ("k1", "k1g", "k1g", "k1")]
+    trace = []
+    SV.do_simulation(topo, cfg.env, model, qpos, qvel, act, tb, 1.0, (1, 1),
+                     trace=trace, refresh_at=REFRESH_AT)
+    io = (qpos.numel() * 2 + qvel.numel() * 2 + act.numel() + tb.numel()
+          + k1g.params.size + k1g.itab.size)
+    k1g_time = {
+        "chain_launches": k1g_chain["k1g"],
+        "chain_final_height": [qc[:, 2].min().item(), qc[:, 2].max().item()],
+        "k1g_ms": 0.5 * (turns[1] + turns[2]),
+        "k1_11_same_states_ms": 0.5 * (turns[0] + turns[3]),
+        "turns_k1_k1g_k1g_k1": turns,
+        "plain_ms": cuda_ms(lambda: CS.control_step_reference(
+            topo, cfg.env, model, qpos, qvel, act, tb, 1.0, (1, 1),
+            refresh_at=REFRESH_AT), 2),
+        "bound": bound(CS.control_step_flops(topo, cfg.env, trace, (1, 1),
+                                             refresh_at=REFRESH_AT), 4 * io)}
+    k1g_time["k1g_over_k1_11"] = (k1g_time["k1g_ms"]
+                                  / k1g_time["k1_11_same_states_ms"])
+    done("time_k1g", **k1g_time, card=smi)
+
     src = "uhc_tpu_torch/csrc/control_step.cu"
     k2_src = "uhc_tpu/physics/pallas_substep.py:284"
     print(json.dumps({"kernels": [
@@ -1480,7 +1797,33 @@ def run() -> int:
             ("explicit", "explicit", explicit_counts["k1f"]
              + train_counts["train_explicit"]["k1f"]),
             ("meta_joint", "meta_joint",
-             train_counts["train_meta_joint"]["k1f"]))]}), flush=True)
+             train_counts["train_meta_joint"]["k1f"]))] + [
+        {"name": f"control_step_{mode}_{fam}", "route": "cuda",
+         "source": src, "replaces": "uhc_tpu/physics/pallas_lane.py:127",
+         "launches": train_counts[f"train_{fam}_{mode}"][f"k1f_{fam}"],
+         "max_abs_err": max(v for m, e in k1f_big_errs.items()
+                            if m.startswith(f"{fam}_{mode}")
+                            for k in ("kernel_vs_plain64",
+                                      "kernel_vs_plain32_sharp")
+                            for v in e[k]),
+         "ms": k1f_big_time[fam][mode][f"B{B_BIG_TIME[0]}"]["k1f_ms"],
+         "plain_ms": k1f_big_time[fam][mode][f"B{B_BIG_TIME[0]}"][
+             "plain_ms"],
+         "bound_ms": k1f_big_time[fam][mode][f"B{B_BIG_TIME[0]}"]["bound"][
+             "bound_ms"],
+         "bound_by": k1f_big_time[fam][mode][f"B{B_BIG_TIME[0]}"]["bound"][
+             "bound_by"], "library_ms": None}
+        for fam, _ in BIG for mode in ("explicit", "meta_joint")] + [
+        {"name": "control_step_refresh", "route": "cuda", "source": src,
+         "replaces": "uhc_tpu/physics/pallas_lane.py:104",
+         "launches": k1g_time["chain_launches"],
+         "max_abs_err": max(v for m in draws for k in (
+             "kernel_vs_plain64", "kernel_vs_plain32_sharp")
+             for v in k1g_errs[m][k]),
+         "ms": k1g_time["k1g_ms"], "plain_ms": k1g_time["plain_ms"],
+         "bound_ms": k1g_time["bound"]["bound_ms"],
+         "bound_by": k1g_time["bound"]["bound_by"], "library_ms": None}]}),
+        flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -128,9 +128,9 @@ def test_pack_tables_layout(setup):
     cfg = env_cfgs()["meta_pd"]
     P, I = CS.pack_tables(topo, cfg, m, (1, 2))
     assert P.dtype == np.float32 and I.dtype == np.int32
-    assert P.size == 2551 and I.size == 234
-    # schedule and flags sit at the end of the int table
-    assert I[-7:].tolist() == [1, 1, 1, 1, 1, 2, 15]
+    assert P.size == 2551 and I.size == 235
+    # schedule, flags and the refresh substep (none) end the int table
+    assert I[-8:].tolist() == [1, 1, 1, 1, 1, 2, 15, -1]
     # levels cover every non-root body once
     assert sorted(I[48:71].tolist()) == list(range(1, 24))
     with pytest.raises(NotImplementedError):

@@ -172,7 +172,7 @@ def test_pack_tables_for_big_trees(trees, family):
     assert (lay["nbody"], lay["params"], lay["itab"]) == (topo.nbody, P.size,
                                                           I.size)
     assert lay["workspace"] > 0 and lay["maxact"] >= topo.ndof + 6 + 30
-    assert I[-7:].tolist() == [1, 1, 1, 1, 2, 2, 15]
+    assert I[-8:].tolist() == [1, 1, 1, 1, 2, 2, 15, -1]
     assert sorted(I[2 * topo.nbody:3 * topo.nbody - 1].tolist()) == list(
         range(1, topo.nbody))
     step = CS.ControlStep(topo, cfg, m, (2, 2))

@@ -194,7 +194,8 @@ def test_split_schedule_is_symmetric(setup):
 
     _, _, tt, m, _ = setup
     step = K2.ControlStepSplit(tt, env_cfgs()["plain_pd"], m)
-    assert step.pcg_iters == (2, 2) and step.itab[-3:-1].tolist() == [2, 2]
+    assert step.pcg_iters == (2, 2) and step.itab[-4:-2].tolist() == [2, 2]
+    assert step.itab[-1] == -1          # the v2 kernel has no refresh
     with pytest.raises(TypeError):
         K2.ControlStepSplit(tt, env_cfgs()["plain_pd"], m, (1, 2))
 

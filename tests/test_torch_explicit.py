@@ -284,8 +284,8 @@ def test_k1f_tables_and_operands(setup):
     for mode, (rfc, gains) in flags.items():
         cfg = s["cfgs"][mode]
         P, I = CS.pack_tables(s["tt"], cfg, s["m"], (1, 2))
-        assert I.size == 234 and I[-6].item() == rfc and \
-            I[-4].item() == gains, mode
+        assert I.size == 235 and I[-7].item() == rfc and \
+            I[-5].item() == gains, mode
         step = CS.ControlStep(s["tt"], cfg, s["m"], (1, 2))
         assert step.k1f == (mode != "uhc_implicit")
         assert CS.kept_action_columns(s["tt"], cfg) <= 128
@@ -364,11 +364,13 @@ def test_routing_matches_jax(setup, monkeypatch):
         CS.ControlStep(s["tt"], s["cfgs"]["explicit"], libm)
 
 
-def test_big_trees_refuse_k1f(setup, tmp_path):
-    """SMPL-H and masterfoot with explicit RFC or per-joint meta-PD: the
-    JAX lane route would take them; the port refuses them with
-    NotImplementedError naming ROADMAP §B, at the wrapper and at the env
-    step on the lane route."""
+def test_big_trees_refuse_k1f(setup, tmp_path, monkeypatch):
+    """SMPL-H and masterfoot with explicit RFC or per-joint meta-PD, which
+    the port once refused: the wrapper and the env step on the lane route
+    now give K1f at (2, 2), the env step under UHC_TPU_LANE_BIG=0 the
+    plain chain (the JAX package's XLA fallback), and a model library on
+    a big tree is still refused (tests/test_torch_k1f_big.py holds the
+    routing against the JAX package's own)."""
     from test_torch_helpers import BIG_FAMILIES, big_env_cfg, big_trees
     from uhc_tpu_torch.envs import humanoid_im as H
     from uhc_tpu_torch.physics import control_step as CS
@@ -381,10 +383,19 @@ def test_big_trees_refuse_k1f(setup, tmp_path):
         for terms in ({"residual_force_mode": "explicit"},
                       {"meta_pd_joint": True}):
             cfg = dataclasses.replace(big_env_cfg(fam), **terms)
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                CS.ControlStep(topo, cfg, m, (2, 2))
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                H.make_env_step_batched(topo, cfg, fused_model=m)
+            step = CS.ControlStep(topo, cfg, m, (2, 2))
+            assert step.k1f and step.num_models is None
+            monkeypatch.delenv("UHC_TPU_LANE_BIG", raising=False)
+            k = H.make_env_step_batched(topo, cfg, fused_model=m).kernel
+            assert type(k) is CS.ControlStep and k.k1f
+            assert k.pcg_iters == (2, 2) and k.topo.nbody == topo.nbody
+            monkeypatch.setenv("UHC_TPU_LANE_BIG", "0")
+            assert H.make_env_step_batched(topo, cfg,
+                                           fused_model=m).kernel is None
+            lib = dataclasses.replace(m, friction=m.friction.expand(
+                3).clone())
+            with pytest.raises(NotImplementedError, match="library"):
+                CS.ControlStep(topo, cfg, lib, (2, 2))
 
 
 def test_explicit_rollout_matches_jax(setup):

@@ -19,7 +19,8 @@ SMPL betas: from --smpl-data when given, else from synthetic blendshapes
 (a loud warning says so). --dr-variants N >= 2 replicates every clip over N
 contact- and mass-randomized models. --robot-model smplh trains on the
 52-body SMPL-H humanoid (72-dof clips get flat hands) through K1d, the
-big-tree kernel.
+big-tree kernel, or through K1f's big build with `--cfg explicit` or
+`--cfg meta_joint`.
 
 Runs on CUDA unless --device says otherwise; without a card it raises.
 Each epoch logs `R= succ= eps= len= sps= T=`; scalars go to

@@ -103,9 +103,9 @@ def _bind(lib, suffix: str, stream: bool):
     Xp/Xf), then B, act_dim, rfc_rate. On CUDA each of them takes the
     matrix workspace (null at 24 bodies) before Xp/Xf and the stream
     last; the host build keeps its own workspace. uhc_control_step_f
-    (K1f, 24-body builds) takes K1's 9 pointers, the explicit wrench and
-    the per-dof gain scales (either null), then B, act_dim, rfc_rate and,
-    on CUDA, the stream."""
+    (K1f) takes K1's 9 pointers, on CUDA the workspace, the explicit
+    wrench and the per-dof gain scales (either null), then B, act_dim,
+    rfc_rate and, on CUDA, the stream."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for entry, nptr in (("uhc_control_step", 9),
                         ("uhc_control_step_head", 10),
@@ -115,7 +115,8 @@ def _bind(lib, suffix: str, stream: bool):
                        + [i32, i32, f32] + ([ptr] if stream else []))
         fn.restype = i32
     fn = getattr(lib, "uhc_control_step_f" + suffix)
-    fn.argtypes = [ptr] * 11 + [i32, i32, f32] + ([ptr] if stream else [])
+    fn.argtypes = ([ptr] * (11 + (1 if stream else 0)) + [i32, i32, f32]
+                   + ([ptr] if stream else []))
     fn.restype = i32
     lib.uhc_control_step_layout.argtypes = [ptr]
     lib.uhc_control_step_layout.restype = i32
@@ -152,8 +153,7 @@ def layout(lib) -> dict:
     """Sizes the C side expects: params floats, table ints, shared-memory
     floats, threads per block, bodies, action columns it holds, the
     device workspace floats per env (0 where the matrices sit in shared
-    memory), and K1f's shared-memory floats (0 for a build without
-    K1f)."""
+    memory), and K1f's shared-memory floats."""
     buf = (ctypes.c_int * 8)()
     lib.uhc_control_step_layout(buf)
     return {"params": buf[0], "itab": buf[1], "smem_floats": buf[2],

@@ -47,9 +47,20 @@
 //    carries into the dynamics; per-dof scales replace the per-substep
 //    ones in the PD gains. The action row is read for the PD targets (and
 //    per-substep meta-PD columns) only, so 285- to 423-column actions fit
-//    the 128 columns of shared memory. 24 bodies, shared model or library
-//    (MPJ; the wrapper refuses VFX over a library, as pallas_lane.py:143
-//    does). The flags are template-constant off in K1, K1e, K1d and K2.
+//    the 128 columns of shared memory at 24 bodies, and 429- to 621-column
+//    ones the 256 of a big build. 24 bodies with a shared model or a
+//    library (MPJ; the wrapper refuses VFX over a library, as
+//    pallas_lane.py:143 does), and the big trees with a shared model,
+//    their matrices in the device workspace as in K1d; the two operand
+//    regions sit past every other kernel's shared memory. The flags are
+//    template-constant off in K1, K1e, K1d and K2.
+//  * K1g, `refresh_at` of the same TPU kernel (pallas_lane.py:104-111,
+//    :1151-1181): the int table's I_REFRESH names a substep k at which the
+//    exact inverse pair is computed again from that substep's A_pd, A_fd,
+//    as at substep 0 (-1: none; K2 always passes -1). Its `cond_inv` is
+//    this source's layout anyway (the inverse pair runs under a run-time
+//    branch of one rolled substep loop), and its `merge_j6` too (phase G
+//    projects the bias and external wrenches of every body in one pass).
 //
 // The plain PyTorch version is uhc_tpu_torch/physics/solver.py
 // do_simulation (K1) and its head/tail pieces `substeps` (K2) with the
@@ -152,6 +163,8 @@ enum {
   I_PAIRS = I_NPAIR + 1,           // MAXPAIR*2
   I_SELFCOL = I_PAIRS + MAXPAIR * 2,
   I_RFC, I_ACTION_V, I_META_PD, I_PD_ITERS, I_FD_ITERS, I_FRAME_SKIP,
+  I_REFRESH,                       // K1g: the substep of the second exact
+                                   // inverse pair, -1 for none
   I_TOTAL
 };
 // values of I_RFC (residual force control) and I_META_PD (gain scales);
@@ -964,7 +977,9 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
     }
     SYNC();
 
-    if (s == 0) exact_inverses(sm, ws, tid, nth);
+    // the inverses overwrite J6 and G, which nothing reads again before
+    // the next substep's phase E rebuilds them: so also at I_REFRESH
+    if (s == 0 || s == I[I_REFRESH]) exact_inverses(sm, ws, tid, nth);
 
     // -- stable PD: q̈_des, torques, forward dynamics -------------------
     pcg(sm, ws + W_APD, ws + W_XP, sm + SM_PDRHS, I[I_PD_ITERS], tid, nth);
@@ -1026,7 +1041,7 @@ extern "C" int uhc_control_step_layout(int* out) {
   out[4] = NB;
   out[5] = MAXACT;
   out[6] = BIG_TREE ? W_TOTAL : 0;   // device workspace floats per env
-  out[7] = BIG_TREE ? 0 : SM_TOTAL_F;  // K1f's shared memory (none: no K1f)
+  out[7] = SM_TOTAL_F;                 // K1f's shared memory
   return 0;
 }
 
@@ -1055,17 +1070,15 @@ control_step_kernel(KERNEL_ARGS) {
                           nullptr, nullptr, nullptr);
 }
 
-#if !BIG_TREE
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_f_kernel(KERNEL_ARGS, const float* __restrict__ vfx,
                       const float* __restrict__ ksc) {
   extern __shared__ float sm[];
-  control_step_env<true>(blockIdx.x, threadIdx.x, blockDim.x, sm, sm, P,
-                         seq_idx, I, qpos_in, qvel_in, act_in, tb_in,
+  control_step_env<true>(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS,
+                         P, seq_idx, I, qpos_in, qvel_in, act_in, tb_in,
                          qpos_out, qvel_out, act_dim, rfc_rate, PART_FULL,
                          nullptr, vfx, ksc);
 }
-#endif
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_head_kernel(KERNEL_ARGS, float* __restrict__ X) {
@@ -1114,21 +1127,17 @@ extern "C" int uhc_control_step(const float* P, const int* seq_idx,
 }
 
 // K1f: K1 with the explicit wrench vfx (B, 9·NB) or null and the per-dof
-// gain scales ksc (B, 2, NV) or null; 24-body builds only.
+// gain scales ksc (B, 2, NV) or null; W as for K1.
 extern "C" int uhc_control_step_f(const float* P, const int* seq_idx,
                                   const int* I, const float* qpos,
                                   const float* qvel, const float* act,
                                   const float* tb, float* qpos_out,
-                                  float* qvel_out, const float* vfx,
-                                  const float* ksc, int B, int act_dim,
-                                  float rfc_rate, void* stream) {
-#if BIG_TREE
-  return (int)cudaErrorNotSupported;
-#else
-  return launch(control_step_f_kernel, B, stream, nullptr, SM_TOTAL_F, P,
-                seq_idx, I, qpos, qvel, act, tb, qpos_out, qvel_out,
-                (float*)nullptr, act_dim, rfc_rate, vfx, ksc);
-#endif
+                                  float* qvel_out, float* W,
+                                  const float* vfx, const float* ksc, int B,
+                                  int act_dim, float rfc_rate, void* stream) {
+  return launch(control_step_f_kernel, B, stream, W, SM_TOTAL_F, P, seq_idx,
+                I, qpos, qvel, act, tb, qpos_out, qvel_out, W, act_dim,
+                rfc_rate, vfx, ksc);
 }
 
 extern "C" int uhc_control_step_head(const float* P, const int* seq_idx,
@@ -1189,7 +1198,6 @@ extern "C" int uhc_control_step_f_host(
     const float* qvel, const float* act, const float* tb, float* qpos_out,
     float* qvel_out, const float* vfx, const float* ksc, int B, int act_dim,
     float rfc_rate) {
-  if (BIG_TREE) return -1;
   return run_host<true>(P, seq_idx, I, qpos, qvel, act, tb, qpos_out,
                         qvel_out, B, act_dim, rfc_rate, PART_FULL, nullptr,
                         vfx, ksc);

@@ -332,17 +332,20 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
     - 24 bodies: "1" (the default) gives K1 (`ControlStep`) with the
       production (1, 2) PCG schedule, UHC_TPU_LANE=0 gives K2's head/tail
       split (`ControlStepSplit`) with symmetric PCG-2;
-    - explicit RFC or per-joint meta-PD (`meta_pd_joint`) run on the
-      lane route only: K1f, the same `ControlStep` with its wrench and
-      per-dof gain operands, at (1, 2). Explicit RFC over a model library
-      and either of them under UHC_TPU_LANE=0 (or UHC_TPU_LANE_BIG=0 on a
-      big tree) run the plain chain, where the JAX package runs XLA
-      (`fused_compatible`; the hull tables are per shape);
     - 33 to 52 bodies (masterfoot, SMPL-H): K1d, the big-tree build of
       the same kernel, with the symmetric (2, 2) schedule; UHC_TPU_LANE=0
-      or UHC_TPU_LANE_BIG=0 gives K2 on the big tree at PCG-2; explicit
-      RFC or per-joint meta-PD there raise NotImplementedError;
+      or UHC_TPU_LANE_BIG=0 gives K2 on the big tree at PCG-2;
+    - explicit RFC or per-joint meta-PD (`meta_pd_joint`) run on the
+      lane route only: K1f, the same `ControlStep` with its wrench and
+      per-dof gain operands, at the tree's schedule ((1, 2) on 24 bodies,
+      (2, 2) on 33 to 52). Explicit RFC over a model library and either
+      of them under UHC_TPU_LANE=0 (or UHC_TPU_LANE_BIG=0 on a big tree)
+      run the plain chain, where the JAX package runs XLA
+      (`fused_compatible`; the hull tables are per shape);
     - any other size raises NotImplementedError.
+    UHC_TPU_MERGEJ6=1, which makes the JAX lane kernel project every
+    wrench in one contraction, picks the same kernel here: K1's phase G
+    already projects each body's bias and external wrench in one pass.
     A library takes the per-env variant of the same kernels (K1e, or K2
     over the library: the JAX package runs a library under UHC_TPU_LANE=0
     on its XLA chain), with each env's seq_idx. Without `fused_model`, or

@@ -4,7 +4,8 @@ the 52-body SMPL-H (`env.robot_model == "smplh"`, anthropometric finger
 chains, `smpl.smplh.smplh_model`) or the 48-body masterfoot
 (`env.masterfoot`, `smpl.masterfoot.masterfoot_model`, whose converter
 remaps the 24-body clips onto the tree and gives its diff weights). On
-CUDA a big tree runs through K1d.
+CUDA a big tree runs through K1d, or K1f under explicit RFC or per-joint
+meta-PD.
 
 With a shape-conditioned config (`has_shape`) every clip gets its own body
 from its SMPL betas (`data.dataset.build_shaped_library`): real SMPL model

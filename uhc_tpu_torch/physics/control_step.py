@@ -32,14 +32,22 @@ per-joint meta-PD (`meta_pd_joint`) in pallas_lane.py (`VFX`, `MPJ`,
 `control_step_f_kernel`, K1's physics with two operands the wrapper
 prepares from the actions as the JAX wrapper does, the (B, 9·nb)
 body-frame wrench of `engine.prep_explicit_vf` and the (B, 2, nv) per-dof
-kp / kd scales (ones on the root dofs). 24 bodies only (the big trees are
-ROADMAP §B); explicit RFC over a model library raises ValueError, as
-pallas_lane.py:143-146 does.
+kp / kd scales (ones on the root dofs). On the 24-body tree with a shared
+model or a library (per-joint meta-PD only), and on the big trees with a
+shared model, where it takes K1d's workspace; explicit RFC over a model
+library raises ValueError, as pallas_lane.py:143-146 does.
+
+K1g, `refresh_at=k` (pallas_lane.py:104-111, :1151-1181): the exact
+inverse pair is computed again at substep k from that substep's systems,
+as at substep 0; every kernel of the wrapper takes it (the int table's
+I_REFRESH), and the plain version is `solver.do_simulation(...,
+refresh_at=k)`.
 
 `LAUNCHES` counts kernel launches (not plain-version calls) of this
 wrapper and of K2's (`control_step_split`), keyed by (entry, bodies,
-library): entry "step" (K1, K1e, K1d), "k1f" (K1f), "head" or "tail"
-(K2), the tree's body count, and whether a model library was given.
+library): entry "step" (K1, K1e, K1d), "k1f" (K1f), either with
+"_refresh" where K1g's refresh_at is set, "head" or "tail" (K2), the
+tree's body count, and whether a model library was given.
 `reset_launches` empties it.
 """
 from __future__ import annotations
@@ -87,11 +95,12 @@ def library_size(m: dict):
     return sizes.pop() if sizes else None
 
 
-def pack_tables(topo: Topology, cfg, model, pcg_iters=(1, 2)):
+def pack_tables(topo: Topology, cfg, model, pcg_iters=(1, 2),
+                refresh_at=None):
     """Model + topology + config -> (float32 params, int32 table) in the
     layout of control_step.cu (P_* / I_* enums) of the build for
-    topo.nbody bodies. A model library gives (S, P_TOTAL) params, one
-    packed model per row."""
+    topo.nbody bodies; `refresh_at` fills I_REFRESH (-1 for None). A
+    model library gives (S, P_TOTAL) params, one packed model per row."""
     if topo.joint_kind != "euler":
         raise ValueError(f"the control-step kernel is built for euler-joint "
                          f"trees, not {topo.joint_kind} joints")
@@ -101,7 +110,8 @@ def pack_tables(topo: Topology, cfg, model, pcg_iters=(1, 2)):
     if n_lib is not None:
         rows = [pack_tables(topo, cfg, {
             k: (v[s] if np.ndim(v) > MODEL_BASE_NDIM[k] else v)
-            for k, v in m.items()}, pcg_iters) for s in range(n_lib)]
+            for k, v in m.items()}, pcg_iters, refresh_at)
+            for s in range(n_lib)]
         return np.stack([p for p, _ in rows]), rows[0][1]
     cp = np.asarray(m["contact_point"], np.float32)
     cmask = np.asarray(m["contact_mask"], np.float32)
@@ -145,18 +155,20 @@ def pack_tables(topo: Topology, cfg, model, pcg_iters=(1, 2)):
         [len(levels), len(pairs)],
         np.pad(pairs.reshape(-1), (0, 2 * MAXPAIR - pairs.size)),
         [int(cfg.self_collision), rfc, cfg.action_v, gains, pd_iters,
-         fd_iters, cfg.frame_skip],
+         fd_iters, cfg.frame_skip, -1 if refresh_at is None else refresh_at],
     ]).astype(np.int32)
     return params, itab
 
 
 def control_step_reference(topo: Topology, cfg, model: Model, qpos, qvel,
                            actions, target_base, rfc_rate=1.0,
-                           pcg_iters=(1, 2), seq_idx=None):
-    """The plain PyTorch version of the kernel (same schedule); a model
-    library is gathered by `seq_idx` first (K1e)."""
+                           pcg_iters=(1, 2), seq_idx=None, refresh_at=None):
+    """The plain PyTorch version of the kernel (same schedule, the same
+    refresh substep); a model library is gathered by `seq_idx` first
+    (K1e)."""
     return S.do_simulation(topo, cfg, env_models(model, seq_idx), qpos,
-                           qvel, actions, target_base, rfc_rate, pcg_iters)
+                           qvel, actions, target_base, rfc_rate, pcg_iters,
+                           refresh_at=refresh_at)
 
 
 def uses_k1f(cfg) -> bool:
@@ -206,9 +218,14 @@ class ControlStep:
     """The kernel wrapper with the model baked in."""
 
     def __init__(self, topo: Topology, cfg, model: Model,
-                 pcg_iters=(1, 2)):
+                 pcg_iters=(1, 2), refresh_at=None):
+        if refresh_at is not None and not 0 < refresh_at < cfg.frame_skip:
+            raise ValueError(f"refresh_at={refresh_at}: a substep in [1, "
+                             f"{cfg.frame_skip})")
         self.topo, self.cfg, self.pcg_iters = topo, cfg, pcg_iters
-        self.params, self.itab = pack_tables(topo, cfg, model, pcg_iters)
+        self.refresh_at = refresh_at
+        self.params, self.itab = pack_tables(topo, cfg, model, pcg_iters,
+                                             refresh_at)
         # rows of the model library (K1e), None for a shared model (K1)
         self.num_models = (self.params.shape[0] if self.params.ndim == 2
                            else None)
@@ -217,10 +234,6 @@ class ControlStep:
                                       f"body tree is not ported")
         # K1f: explicit RFC or per-joint meta-PD
         self.k1f = uses_k1f(cfg)
-        if self.k1f and topo.nbody != LIBRARY_BODIES:
-            raise NotImplementedError(
-                f"explicit RFC and per-joint meta-PD on a {topo.nbody}-body "
-                f"tree are not ported (ROADMAP §B, K1f on the big trees)")
         if self.num_models is not None and S.explicit_rfc(cfg):
             raise ValueError("explicit RFC with a model library: the hull "
                              "projection tables are per shape (the JAX lane "
@@ -355,6 +368,7 @@ class ControlStep:
             P.data_ptr(), self.seq_ptr(seq_idx), I.data_ptr(),
             qpos.data_ptr(), qvel.data_ptr(), actions.data_ptr(),
             target_base.data_ptr(), qpos_out.data_ptr(), qvel_out.data_ptr(),
+            self.ws_ptr(B, qpos.device),
             0 if vfx is None else vfx.data_ptr(),
             0 if gains is None else gains.data_ptr(), B, self.act_dim,
             float(rfc_rate), stream)
@@ -365,7 +379,8 @@ class ControlStep:
         if qpos.device.type == "cpu":
             return control_step_reference(
                 self.topo, self.cfg, self.model_on("cpu"), qpos, qvel,
-                actions, target_base, rfc_rate, self.pcg_iters, seq_idx)
+                actions, target_base, rfc_rate, self.pcg_iters, seq_idx,
+                self.refresh_at)
         if qpos.device.type != "cuda":
             raise ValueError(f"unsupported device {qpos.device}")
         B = self.check_inputs(qpos, qvel, actions, target_base)
@@ -389,23 +404,24 @@ class ControlStep:
         if rc != 0:
             raise RuntimeError(f"control_step kernel launch failed: CUDA "
                                f"error {rc}")
-        self.count_launch("k1f" if self.k1f else "step")
+        self.count_launch(("k1f" if self.k1f else "step")
+                          + ("" if self.refresh_at is None else "_refresh"))
         return qpos_out, qvel_out
 
 
 def control_step_flops(topo: Topology, cfg, active, pcg_iters=(1, 2),
-                       start: int = 0):
+                       start: int = 0, refresh_at=None):
     """Floating-point operations (multiply-add = 2) the kernel's algorithm
     needs for one control step of a batch, from the data: `active` holds,
     per substep, the (B, nb) bool ground-contact sets (as recorded by
     `solver.do_simulation(..., trace=...)`), starting at substep `start`
     (1 counts K2's tail alone). Counts the subtree-limited M, J6ᵀ·wrench
     and CD sums (CD and K = W·J6 only over bodies in contact), the
-    substep-0 Cholesky inverses and the PCG matvecs; with explicit RFC
-    (K1f) each body's wrench every substep: three quaternion rotations
-    (30 each), the gate (6), the lever arm and its moment (18) and the
-    add into the body's external wrench (6), whose J6 projection the
-    J6ᵀ·wrench sums already count. Per-dof gains cost nothing beyond the
+    Cholesky inverses of substep 0 (and of substep `refresh_at`, K1g) and
+    the PCG matvecs; with explicit RFC (K1f) each body's wrench every
+    substep: three quaternion rotations (30 each), the gate (6), the
+    lever arm and its moment (18) and the add into the body's external
+    wrench (6), whose J6 projection the J6ᵀ·wrench sums already count. Per-dof gains cost nothing beyond the
     per-substep ones."""
     pd_iters, fd_iters = ((pcg_iters, pcg_iters)
                           if isinstance(pcg_iters, int) else pcg_iters)
@@ -439,6 +455,6 @@ def control_step_flops(topo: Topology, cfg, active, pcg_iters=(1, 2),
         act = np.asarray(act, bool)
         B = act.shape[0]
         total += B * (m_flops + proj + pcg + vfx
-                      + (inv if s + start == 0 else 0.0))
+                      + (inv if s + start in (0, refresh_at) else 0.0))
         total += (act * (2.0 * 6 * pairs_with + 2.0 * 36 * NV)).sum()
     return total

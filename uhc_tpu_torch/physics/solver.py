@@ -146,22 +146,28 @@ def explicit_wrench(topo: Topology, cfg, model: Model, actions, ndof: int,
 
 
 def do_simulation(topo: Topology, cfg, model: Model, qpos, qvel, actions,
-                  target_base, rfc_rate, pcg_iters=(1, 2), trace=None):
+                  target_base, rfc_rate, pcg_iters=(1, 2), trace=None,
+                  refresh_at=None):
     """One control step (frame_skip substeps) for a batch of envs; `model`
     is shared or per env (`env_models` of a library by seq_idx).
 
-    `pcg_iters` is an int or a (pd_iters, fd_iters) pair. A `trace` list
-    receives each substep's (B, nb) ground-contact sets."""
+    `pcg_iters` is an int or a (pd_iters, fd_iters) pair. `refresh_at=k`
+    computes the exact inverse pair again at substep k, from that
+    substep's systems (the plain version of K1g; tools/solver_variants.py
+    `sched_pcg`). A `trace` list receives each substep's (B, nb)
+    ground-contact sets."""
     return substeps(topo, cfg, model, qpos, qvel, actions, target_base,
-                    rfc_rate, pcg_iters, 0, cfg.frame_skip, trace=trace)[:2]
+                    rfc_rate, pcg_iters, 0, cfg.frame_skip, trace=trace,
+                    refresh_at=refresh_at)[:2]
 
 
 def substeps(topo: Topology, cfg, model: Model, qpos, qvel, actions,
              target_base, rfc_rate, pcg_iters, start: int, stop: int,
-             inverses=None, trace=None):
+             inverses=None, trace=None, refresh_at=None):
     """Substeps [start, stop) of one control step -> (qpos, qvel,
     (Xpd, Xfd)). A range that starts at 0 computes the exact inverses at
-    substep 0; a later start takes them as `inverses`."""
+    substep 0; a later start takes them as `inverses`. Substep
+    `refresh_at` computes them again."""
     check_supported(cfg)
     pd_iters, fd_iters = ((pcg_iters, pcg_iters)
                           if isinstance(pcg_iters, int) else pcg_iters)
@@ -187,7 +193,7 @@ def substeps(topo: Topology, cfg, model: Model, qpos, qvel, actions,
                          cfg.self_collision, vf_body, vf_gate_mode(cfg))
         if trace is not None:
             trace.append(out["contact_active"].cpu().numpy())
-        if i == 0:
+        if i == 0 or i == refresh_at:
             Xpd, Xfd = exact_inverse(out["A_pd"]), exact_inverse(out["A_fd"])
         qacc_des = pcg_solve(out["A_pd"], out["pd_rhs"], Xpd, pd_iters)
         tau = E.pd_torque_from_accel(model, qvel, out["qpos_err"], kp, kd,
