@@ -21,11 +21,16 @@ under the `explicit` config and in training under `explicit` and
 `meta_joint` (uhc_tpu_torch/config/), K1f on the big trees (both configs
 on SMPL-H and on masterfoot, held against its plain versions, and in
 training there, `cli/train --cfg explicit --robot-model smplh` with the
-eval at the checkpoint), and K1g, the control step with a second exact
+eval at the checkpoint), K1g, the control step with a second exact
 inverse pair at substep 8 (`refresh_at`), held against its plain versions
 and a PCG-8 step on the 24-body tree and on SMPL-H and run as bench.py
-runs its control steps -- checks their output, and times the kernels at
-B=2048 (and the big trees' at B=512).
+runs its control steps, K2 on the 55-body SMPL-X (its own nvcc build,
+held against its plain versions and its K1 build, and the env's rollout
+of 512 envs × 32 steps through it), and K2b, the head/tail split with the
+bfloat16 preconditioner (held against its plain versions, its one-launch
+form and a PCG-8 step on the 24-body tree, SMPL-H and SMPL-X, and driven
+through the port of tools/kernel_bench.py) -- checks their output, and
+times the kernels at B=2048 (and the big trees' at B=512).
 
 Usage: python3 chip_smoke.py        (needs one CUDA card; no arguments)
 
@@ -39,7 +44,6 @@ result.
 import json
 import os
 import signal
-import subprocess
 import sys
 import time
 import traceback
@@ -62,9 +66,19 @@ SHAPE_TRAIN_ARGS = ["--cfg", "uhc_implicit_shape", "--motion-file",
                     SHAPE_CLIPS, "--num-envs", "1024", "--horizon", "32",
                     "--no-train-eval"]
 DR_TRAIN_ARGS = TRAIN_ARGS + ["--dr-variants", "4"]
-# the kernel builds: the 24-body humanoid, masterfoot, SMPL-H
-BODIES = (24, 48, 52)
+# the kernel builds: the 24-body humanoid, masterfoot, SMPL-H, SMPL-X
+BODIES = (24, 48, 52, 55)
 BIG = (("smplh", 52), ("masterfoot", 48))
+SMPLX_BODIES = 55
+# phase rollout_smplx: the big trees' rollout size (SMPLH_TRAIN_ARGS)
+SMPLX_ROLLOUT = (512, 32)
+# phase k2b: the trees of its draws, and the launch counters' tree names
+K2B_TREES = (("smpl", 24), ("smplh", 52), ("smplx", SMPLX_BODIES))
+# phase kernel_bench: the rows of uhc_tpu_torch.cli.kernel_bench
+KERNEL_BENCH_ROWS = ("SPLIT=1,PCG=2", "SPLIT=1,PCG=2,BF16=1",
+                     "SPLIT=1,PCG=2,MODEL=smplh",
+                     "SPLIT=1,PCG=2,BF16=1,MODEL=smplh",
+                     "SPLIT=0,PCG=2,BF16=1", "LANE=1,PCGPD=1,PCG=2")
 # the JAX package's SMPL-H run (tools/train_queue.sh:39-42)
 SMPLH_TRAIN_ARGS = ["--robot-model", "smplh", "--num-envs", "512",
                     "--horizon", "32"]
@@ -151,7 +165,16 @@ COUNTERS = {"k1": ("step", 24, False), "k2_head": ("head", 24, False),
             **{f"{name}_{fam}": (entry, nb, False) for fam, nb in BIG
                for name, entry in (("k1d", "step"), ("k1f", "k1f"),
                                    ("k2big_head", "head"),
-                                   ("k2big_tail", "tail"))}}
+                                   ("k2big_tail", "tail"))},
+            # K2 on SMPL-X, and K1's build at 55 bodies (a check only)
+            "k2_head_smplx": ("head", SMPLX_BODIES, False),
+            "k2_tail_smplx": ("tail", SMPLX_BODIES, False),
+            "k1_smplx": ("step", SMPLX_BODIES, False),
+            # K2b: head, tail and the one-launch form (split=False)
+            **{f"{name}_{tree}": (entry, nb, False) for tree, nb in K2B_TREES
+               for name, entry in (("k2b_head", "head_bf16"),
+                                   ("k2b_tail", "tail_bf16"),
+                                   ("k1_bf16", "step_bf16"))}}
 
 
 def reset_counts() -> None:
@@ -357,17 +380,19 @@ def on_tree(env_cfg, family: str):
                                masterfoot=family == "masterfoot")
 
 
-def plain_pair(topo, env_cfg, model, ins, pcg_iters, refresh_at=None):
+def plain_pair(topo, env_cfg, model, ins, pcg_iters, refresh_at=None,
+               precond_bf16=False):
     """The float32 and float64 plain versions of one control step of `ins`
     -> (plain32, plain64)."""
     from uhc_tpu_torch.physics import control_step as CS
 
     return (CS.control_step_reference(topo, env_cfg, model, *ins, 1.0,
-                                      pcg_iters, refresh_at=refresh_at),
+                                      pcg_iters, refresh_at=refresh_at,
+                                      precond_bf16=precond_bf16),
             CS.control_step_reference(
                 topo, env_cfg, double_model(model),
                 *[t.double() for t in ins], 1.0, pcg_iters,
-                refresh_at=refresh_at))
+                refresh_at=refresh_at, precond_bf16=precond_bf16))
 
 
 def big_tree(family: str, dev, meta_pd: bool = False):
@@ -433,34 +458,50 @@ def k1d_draws(dev):
 # a missed env's state moved by 1 and by 2 float32 ulps (relative 2⁻²³ per
 # ulp, every entry of qpos and qvel, seeded signs), MOVES copies each
 ULP_MOVES, MOVES = (1, 2), 32
+# gate_bf16 moves this many missed envs' states in one plain step
+MOVED_CHUNK = 8
 
 
 def moved_steps(topo, env_cfg, model, ins, env, dtype, seed=0, trace=None,
-                pcg_iters=(2, 2), refresh_at=None):
+                pcg_iters=(2, 2), refresh_at=None, precond_bf16=False,
+                inverses=None, stop=None):
     """The plain step in `dtype` at `pcg_iters` (the big trees' (2, 2) by
-    default; with K1g's `refresh_at`) of env `env` of `ins` (qpos, qvel,
-    actions, target_base) from copies of its state moved by ULP_MOVES
-    float32 ulps -> (qpos', qvel') of the len(ULP_MOVES) * MOVES copies;
-    `trace` receives each substep's ground-contact sets."""
+    default; with K1g's `refresh_at`, with K2b's `precond_bf16` and the
+    (B, 2, nv, nv) `inverses` the step takes in place of substep 0's; its
+    first `stop` substeps alone where given, the head's 1) of env `env`
+    of `ins` (qpos, qvel, actions, target_base), or of each env of a list
+    one after another, from copies of its state moved by ULP_MOVES float32
+    ulps -> (qpos', qvel') of the len(ULP_MOVES) * MOVES copies of each
+    env; `trace` receives each substep's ground-contact sets."""
     import torch
 
     from uhc_tpu_torch.physics import solver
 
-    qpos, qvel, act, tb = [x[env:env + 1].to(dtype) for x in ins]
+    envs = [env] if isinstance(env, int) else list(env)
+    qpos, qvel, act, tb = [x[envs].to(dtype) for x in ins]
     n = len(ULP_MOVES) * MOVES
     gen = torch.Generator().manual_seed(seed)
     rel = torch.tensor([u * 2.0 ** -23 for u in ULP_MOVES
                         for _ in range(MOVES)], dtype=dtype)[:, None]
+    rel = rel.repeat(len(envs), 1)
+
+    def copies(x):
+        return x.repeat_interleave(n, 0).contiguous()
 
     def move(x):
-        sign = 2 * torch.randint(0, 2, (n, x.shape[1]), generator=gen) - 1
-        return (x * (1 + (rel * sign).to(x))).contiguous()
+        sign = 2 * torch.randint(0, 2, (len(rel), x.shape[1]),
+                                 generator=gen) - 1
+        return (copies(x) * (1 + (rel * sign).to(x))).contiguous()
 
     m = model if dtype == torch.float32 else double_model(model)
-    return solver.do_simulation(
-        topo, env_cfg, m, move(qpos), move(qvel),
-        act.expand(n, -1).contiguous(), tb.expand(n, -1).contiguous(), 1.0,
-        pcg_iters, trace=trace, refresh_at=refresh_at)
+    given = None if inverses is None else (
+        copies(inverses[envs, 0].to(dtype)),
+        copies(inverses[envs, 1].to(dtype)))
+    return solver.substeps(
+        topo, env_cfg, m, move(qpos), move(qvel), copies(act), copies(tb),
+        1.0, pcg_iters, 0, env_cfg.frame_skip if stop is None else stop,
+        inverses=given, trace=trace, refresh_at=refresh_at,
+        precond_bf16=precond_bf16)[:2]
 
 
 def gate_big(name, out, plain32, plain64, moved) -> tuple:
@@ -762,15 +803,10 @@ def k1g_check(topo, env_cfg, model, ins, pcg_iters, family=None) -> tuple:
     trees' contact switches do: on one plain-PD env of the 24-body draws,
     float32 steps from its state moved by 1-2 ulps land 1.4e-4 to 2.8e-3
     from the float64 one in qvel, either side of QVEL_TOL), within
-    SCHED_QPOS_TOL / SCHED_QVEL_TOL of the float64 plain PCG-8 step, and
-    apart from the same step without the refresh by more than QPOS_TOL in
-    qpos -> (errors, failures, the kernel's output).
-
-    The PCG-8 bounds are the schedule's, not the kernel's: an env where
-    the float64 plain version of the same schedule misses them itself (a
-    state that one PCG iteration does not solve to them) is held to its
-    plain versions alone, as above, and printed with both distances; more
-    than one such env in eight fails."""
+    SCHED_QPOS_TOL / SCHED_QVEL_TOL of the float64 plain PCG-8 step where
+    its schedule is (`pcg8_gate`), and apart from the same step without
+    the refresh by more than QPOS_TOL in qpos -> (errors, failures, the
+    kernel's output)."""
     import torch
 
     from uhc_tpu_torch.physics import control_step as CS
@@ -795,6 +831,32 @@ def k1g_check(topo, env_cfg, model, ins, pcg_iters, family=None) -> tuple:
                 for dt in (torch.float64, torch.float32)]
 
     e, f = gate_big(name, out, plain32, plain64, moved)
+    pcg8 = pcg8_gate(name, topo, env_cfg, model, ins, out, plain64, e, f)
+    unrefreshed = CS.ControlStep(topo, env_cfg, model, pcg_iters)(*ins, 1.0)
+    e["refresh_moves_qpos"] = (out[0] - unrefreshed[0]).abs().max().item()
+    e["unrefreshed_vs_pcg8_plain64"] = [
+        (a.double() - b).abs().max().item()
+        for a, b in zip(unrefreshed, pcg8)]
+    if not e["refresh_moves_qpos"] > QPOS_TOL:
+        f.append(f"{name}: the refresh moves qpos by "
+                 f"{e['refresh_moves_qpos']} only")
+    e["pcg_iters"] = list(pcg_iters)
+    return e, f, out
+
+
+def pcg8_gate(name, topo, env_cfg, model, ins, out, plain64, e, f):
+    """Hold a kernel's (qpos, qvel) within SCHED_QPOS_TOL / SCHED_QVEL_TOL
+    of the float64 plain PCG-8 step, wherever the float64 plain version of
+    its own schedule (`plain64`) is within them; add the readings to the
+    errors `e` and the failures to `f`.
+
+    The PCG-8 bounds are the schedule's, not the kernel's: an env where
+    the float64 plain version of the same schedule misses them itself (a
+    state its PCG iterations do not solve to them) is held to its plain
+    versions alone and printed with both distances; more than one such
+    env in eight fails. Returns the float64 PCG-8 step."""
+    import torch
+
     _, pcg8 = plain_pair(topo, env_cfg, model, ins, PCG8)
 
     def from_pcg8(x):
@@ -815,16 +877,458 @@ def k1g_check(topo, env_cfg, model, ins, pcg_iters, family=None) -> tuple:
     if int(sched.sum()) * 8 > sched.numel():
         f.append(f"{name}: the plain version misses the PCG-8 step on "
                  f"{int(sched.sum())} of {sched.numel()} envs")
-    unrefreshed = CS.ControlStep(topo, env_cfg, model, pcg_iters)(*ins, 1.0)
-    e["refresh_moves_qpos"] = (out[0] - unrefreshed[0]).abs().max().item()
-    e["unrefreshed_vs_pcg8_plain64"] = [
-        (a.double() - b).abs().max().item()
-        for a, b in zip(unrefreshed, pcg8)]
-    if not e["refresh_moves_qpos"] > QPOS_TOL:
-        f.append(f"{name}: the refresh moves qpos by "
-                 f"{e['refresh_moves_qpos']} only")
-    e["pcg_iters"] = list(pcg_iters)
-    return e, f, out
+    return pcg8
+
+
+def smplx_pose(pose_aa):
+    """A 72-dof SMPL clip as a 165-dof SMPL-X pose: body dofs 0-65 from
+    the clip, jaw and eyes (66-74) at 0.1 (tests/test_smplh.py:137),
+    fingers zero."""
+    import numpy as np
+
+    pose_aa = np.asarray(pose_aa, np.float32)
+    out = np.zeros((len(pose_aa), 165), np.float32)
+    out[:, :66] = pose_aa[:, :66]
+    out[:, 66:75] = 0.1
+    return out
+
+
+def smplx_tree(dev, meta_pd: bool = False):
+    """uhc_implicit on the 55-body SMPL-X tree built from the stand-in
+    (`smplx_model`'s anthropometric defaults) -> (topo, env cfg, model,
+    expert library of the six gait clips as 165-dof poses)."""
+    import dataclasses
+
+    from uhc_tpu_torch.config.config import Config
+    from uhc_tpu_torch.data.dataset import (build_expert_library,
+                                            load_motion_file)
+    from uhc_tpu_torch.physics.model import model_from_numpy
+    from uhc_tpu_torch.smpl.fixture_humanoid import load_fixture_humanoid
+    from uhc_tpu_torch.smpl.smplh import smplx_model, smplx_topology
+
+    topo24, model24 = load_fixture_humanoid()
+    topo = smplx_topology()
+    model = model_from_numpy(smplx_model(topo24, model24), dev)
+    seqs = {k: {"pose_aa": smplx_pose(v["pose_aa"]), "trans": v["trans"]}
+            for k, v in load_motion_file(
+                "sample_data/gait_clips.pkl").items()}
+    lib, _ = build_expert_library(topo, model, seqs)
+    env = dataclasses.replace(Config.uhc_implicit().env, meta_pd=meta_pd)
+    return topo, env, model, lib
+
+
+def smplx_draws(dev):
+    """The draws of phase k2_smplx: (mode, topo, env cfg, model, (qpos,
+    qvel, actions, target_base)) in plain PD and meta-PD, B_CHECK envs
+    each from the SMPL-X library, made on the host from one seeded
+    generator and moved to `dev`."""
+    import torch
+
+    from uhc_tpu_torch.physics import solver
+
+    gen = torch.Generator().manual_seed(20)
+    for mode in ("plain_pd", "meta_pd"):
+        topo, env, model, lib = smplx_tree(dev, mode == "meta_pd")
+        qpos, qvel, tb = draw_big_states(lib, topo.nv, B_CHECK, gen, dev)
+        n_act = sum(solver.action_dims(topo, env))
+        act = (0.02 * torch.randn((B_CHECK, n_act), generator=gen)).to(dev)
+        yield mode, topo, env, model, (qpos, qvel, act, tb)
+
+
+def x_check(name, X, X32, X64, fails, precond_bf16=False) -> dict:
+    """A head's Xp/Xf `X` against the float64 plain exact inverses `X64`:
+    max abs, and max relative to max|X| of each matrix, held to
+    X_REL_TOL, or where the float32 plain inverses `X32` themselves miss
+    it, to twice their own error on the same draws (both factor in
+    float32, rounding about cond(A)·2⁻²⁴; on SMPL-X, whose face
+    micro-bodies make A worse conditioned, the float32 plain inverses read
+    1.5e-4 and the host build of the kernel's unblocked factorization up
+    to 1.29 times that, on 64 CPU draws). Under `precond_bf16` each entry
+    may differ from the exact inverse by its own rounding to bfloat16 too
+    (half an ulp, at most 2⁻⁸ of the entry), which the relative reading
+    leaves out; that it is the nearest bfloat16 to K2's own float32 entry
+    is checked bit for bit apart (`k2b_check`). Failures go to `fails`."""
+    scale = X64.abs().amax((2, 3), keepdim=True)
+    rounding = 2.0 ** -8 * X64.abs() if precond_bf16 else 0.0
+    diff = (X.double() - X64).abs()
+    rel = ((diff - rounding).clamp(min=0) / scale).max().item()
+    rel32 = ((X32.double() - X64).abs() / scale).max().item()
+    tol = max(X_REL_TOL, 2 * rel32)
+    if not rel <= tol:
+        fails.append(f"{name}: head Xp/Xf relative error {rel} (bound "
+                     f"{tol}; the float32 plain inverses {rel32})")
+    return {"head_X_vs_plain64": [diff.max().item(), rel],
+            "plain32_X_vs_plain64": rel32, "x_rel_tol": tol}
+
+
+def head_references(topo, env_cfg, model, ins) -> tuple:
+    """K2's plain head (substep 0 at PCG-2, exact inverses) on `ins` in
+    float32 and in float64 -> ((qpos, qvel, X) float32, the same float64)."""
+    from uhc_tpu_torch.physics import control_step_split as K2
+
+    return (K2.head_reference(topo, env_cfg, model, *ins, 1.0, 2),
+            K2.head_reference(topo, env_cfg, double_model(model),
+                              *[t.double() for t in ins], 1.0, 2))
+
+
+def k2_smplx_check(draws) -> tuple:
+    """K2 on SMPL-X (head + tail of the -DNB=55 build at PCG-2) on each
+    draw: one head and one tail launch, finite, bit-equal to the 55-body
+    K1 build at (2, 2) (a check only: no route runs K1 on 55 bodies),
+    held to its float32 and float64 plain versions by `gate_big`, the
+    head's state likewise against the plain head, and the head's Xp/Xf to
+    the float64 plain inverses by `x_check` -> (errors, failures)."""
+    import torch
+
+    from uhc_tpu_torch.physics import control_step as CS
+    from uhc_tpu_torch.physics import control_step_split as K2
+
+    errs, fails = {}, []
+    for mode, topo, env, model, ins in draws:
+        name = f"K2 smplx {mode}"
+        split = K2.ControlStepSplit(topo, env, model, 2)
+        reset_counts()
+        qh, vh, X = split.head(*ins, 1.0)
+        out = split.tail(qh, vh, ins[2], ins[3], X, 1.0)
+        if counts() != expect(1, "k2_head_smplx", "k2_tail_smplx"):
+            raise RuntimeError(f"{name}: launches {counts()}")
+        q1, v1 = CS.ControlStep(topo, env, model, (2, 2))(*ins, 1.0)
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(t).all()) for t in (*out, X)):
+            raise RuntimeError(f"{name}: output not finite")
+        if not (torch.equal(q1, out[0]) and torch.equal(v1, out[1])):
+            raise RuntimeError(
+                f"{name}: head + tail differ from K1 at (2, 2): |dqpos| "
+                f"{(q1 - out[0]).abs().max().item()}, |dqvel| "
+                f"{(v1 - out[1]).abs().max().item()}")
+        plain32, plain64 = plain_pair(topo, env, model, ins, (2, 2))
+
+        def moved(e, topo=topo, env=env, model=model, ins=ins, stop=None):
+            return [moved_steps(topo, env, model, ins, e, dt, stop=stop)
+                    for dt in (torch.float64, torch.float32)]
+
+        e, f = gate_big(name, out, plain32, plain64, moved)
+        h32, h64 = head_references(topo, env, model, ins)
+        eh, fh = gate_big(f"{name} head", (qh, vh), h32[:2], h64[:2],
+                          lambda e_, moved=moved: moved(e_, stop=1))
+        e.update(x_check(name, X, h32[2], h64[2], f), head=eh,
+                 split_equals_k1=True, act_dim=split.act_dim)
+        errs[mode] = e
+        fails += f + fh
+    return errs, fails
+
+
+def gate_bf16(name, out, X, topo, env_cfg, model, ins, stop=None) -> tuple:
+    """K2b's (qpos, qvel) `out` on `ins` (after its first `stop` substeps
+    where given: the head's state with 1), from its own Xp/Xf `X` (the
+    head's bfloat16 buffer as float32), against its float32 and float64
+    plain versions given that X -> (errors, failures).
+
+    A step with the bfloat16 preconditioner is discontinuous at every
+    bfloat16 midpoint: two float32 computations of a PCG vector that
+    differ in their last bits round apart on some entries, and PCG-2 moves
+    the result by up to the rounding's own move (K2b against K2: up to
+    4e-2 in qvel on these draws). Given the kernel's Xp/Xf only the
+    vectors' roundings still split, and still the float32 plain version
+    misses the float64 one (at 1e-5 / 1e-3) on 6-14 % of the envs (chip
+    run, 256 draws each), more than `gate_big`'s one in eight, by as much
+    as the kernel does. So each env is held on its own:
+    - a sharp env (the float32 plain version within a tenth of the bounds
+      of the float64 one) where the kernel is inside the bounds of the
+      float64 plain version is held to the float32 plain version at the
+      bounds too;
+    - every env where the kernel misses the bounds of the float64 plain
+      version is measured: its family is the float32 plain version and
+      the plain steps (float64 and float32, given X) from its state moved
+      by ULP_MOVES float32 ulps; its spread is the farthest the family
+      lands from the float64 plain version, in qpos and in qvel apart.
+      Where the spread is within a tenth of the bounds (no midpoint split
+      within reach) a member of the family must land within the bounds of
+      the kernel's (a witness, as in `gate_big`); elsewhere the kernel's
+      distance from the float64 plain version must be within the spread
+      plus the bounds (which a witness implies). A sharp env whose family
+      spreads wider than a tenth of the bounds is held by the second rule:
+      its float32 plain version only happened to round as float64 did;
+    - the kernel may miss on no more envs than the float32 plain version
+      does, plus half that and one.
+    Every missed env is printed with its distances, spread, nearest moved
+    step (in units of the bounds) and the rule it passed by."""
+    import torch
+
+    from uhc_tpu_torch.physics import solver as SV
+
+    stop = env_cfg.frame_skip if stop is None else stop
+
+    def plain(dtype):
+        m = model if dtype == torch.float32 else double_model(model)
+        Xd = X.to(dtype)
+        return SV.substeps(topo, env_cfg, m, *[t.to(dtype) for t in ins],
+                           1.0, (2, 2), 0, stop, inverses=(Xd[:, 0], Xd[:, 1]),
+                           precond_bf16=True)[:2]
+
+    given32, given64 = plain(torch.float32), plain(torch.float64)
+
+    def per_env(a, b):
+        return (a.double() - b.double()).abs().amax(1)
+
+    tols = (QPOS_TOL, QVEL_TOL)
+    k64 = [per_env(a, b) for a, b in zip(out, given64)]
+    k32 = [per_env(a, b) for a, b in zip(out, given32)]
+    p64 = [per_env(a, b) for a, b in zip(given32, given64)]
+    k_out = (k64[0] > QPOS_TOL) | (k64[1] > QVEL_TOL)
+    p_out = (p64[0] > QPOS_TOL) | (p64[1] > QVEL_TOL)
+    sharp = (p64[0] <= QPOS_TOL / 10) & (p64[1] <= QVEL_TOL / 10)
+    every = torch.ones_like(k_out)
+
+    def mx(x, mask):
+        return x[mask].max().item() if bool(mask.any()) else 0.0
+
+    n = len(ULP_MOVES) * MOVES
+    missed, fails = [], []
+    envs = torch.nonzero(k_out)[:, 0].tolist()
+    for c in range(0, len(envs), MOVED_CHUNK):
+        chunk = envs[c:c + MOVED_CHUNK]
+        steps = [moved_steps(topo, env_cfg, model, ins, chunk, dt,
+                             precond_bf16=True, inverses=X, stop=stop)
+                 for dt in (torch.float64, torch.float32)]
+        for j, e in enumerate(chunk):
+            moved = [torch.cat([s[p][j * n:(j + 1) * n] for s in steps])
+                     for p in (0, 1)]
+            ratio = torch.maximum(*[per_env(moved[p], out[p][e:e + 1])
+                                    / tols[p] for p in (0, 1)])
+            spread = [max(p64[p][e].item(), per_env(
+                moved[p], given64[p][e:e + 1]).max().item()) for p in (0, 1)]
+            row = {"env": e, "kernel_vs_plain64": [k64[0][e].item(),
+                                                   k64[1][e].item()],
+                   "plain32_vs_plain64": [p64[0][e].item(),
+                                          p64[1][e].item()],
+                   "sharp": bool(sharp[e]), "spread": spread,
+                   "nearest_moved_step": ratio.min().item(),
+                   "moved_steps_within_bounds": int((ratio <= 1).sum())}
+            smooth = all(spread[p] <= tols[p] / 10 for p in (0, 1))
+            if row["moved_steps_within_bounds"]:
+                row["passed_by"] = "witness"
+            elif not smooth and all(row["kernel_vs_plain64"][p]
+                                    <= spread[p] + tols[p] for p in (0, 1)):
+                row["passed_by"] = "spread"
+            else:
+                row["passed_by"] = None
+                fails.append(f"{name}: env {e} misses the float64 plain "
+                             f"version by {row['kernel_vs_plain64']} (the "
+                             f"float32 plain version by "
+                             f"{row['plain32_vs_plain64']}), no plain step "
+                             f"from its state moved by {ULP_MOVES} float32 "
+                             f"ulps lands within the bounds of it (nearest "
+                             f"{row['nearest_moved_step']} × the bounds), "
+                             f"and its family's spread {spread} "
+                             + ("is within a tenth of the bounds" if smooth
+                                else "plus the bounds is less"))
+            missed.append(row)
+    held32 = sharp & ~k_out
+    errs = {"kernel_vs_plain64": [mx(k64[0], ~p_out), mx(k64[1], ~p_out)],
+            "kernel_vs_plain64_every_env": [mx(k64[0], every),
+                                            mx(k64[1], every)],
+            "kernel_vs_plain32_sharp": [mx(k32[0], held32),
+                                        mx(k32[1], held32)],
+            "kernel_vs_plain32": [mx(k32[0], every), mx(k32[1], every)],
+            "plain32_vs_plain64": [mx(p64[0], every), mx(p64[1], every)],
+            "sharp_envs": int(sharp.sum()),
+            "kernel_misses": int(k_out.sum()),
+            "plain32_misses": int(p_out.sum()),
+            "both_miss": int((k_out & p_out).sum()),
+            "passed_by_spread": sum(r["passed_by"] == "spread"
+                                    for r in missed),
+            "kernel_missed_envs": missed}
+    dq, dv = errs["kernel_vs_plain32_sharp"]
+    if not (dq <= QPOS_TOL and dv <= QVEL_TOL):
+        fails.append(f"{name}: kernel_vs_plain32 on the sharp envs |dqpos| "
+                     f"{dq} (bound {QPOS_TOL}), |dqvel| {dv} (bound "
+                     f"{QVEL_TOL})")
+    n_k, n_p = errs["kernel_misses"], errs["plain32_misses"]
+    if n_k > n_p + n_p // 2 + 1:
+        fails.append(f"{name}: the kernel misses the bounds of the float64 "
+                     f"plain version on {n_k} envs, the float32 plain "
+                     f"version on {n_p}")
+    return errs, fails
+
+
+def k2b_check(tree, topo, env_cfg, model, ins) -> tuple:
+    """K2b (head + tail with the bfloat16 preconditioner at PCG-2) on the
+    draws `ins` of `tree` ("smpl", "smplh" or "smplx") -> (errors,
+    failures): one head and one tail launch, a torch.bfloat16 Xp/Xf
+    buffer, finite, bit-equal to K1 with the flag at (2, 2)
+    (split=False); the head's Xp/Xf bit-equal to K2's head's float32
+    Xp/Xf on the same states rounded to the nearest bfloat16, ties to even
+    (torch's .to(bfloat16)), and held to the float64 plain exact inverses
+    by `x_check`; the step and the head's state held to their plain
+    versions given the head's Xp/Xf by `gate_bf16`, and the step to the
+    float64 plain PCG-8 step by `pcg8_gate`. The plain versions that round
+    their own Xp/Xf are printed beside them (`own_rounding`), and the
+    same step without the flag (K2)."""
+    import torch
+
+    from uhc_tpu_torch.physics import control_step as CS
+    from uhc_tpu_torch.physics import control_step_split as K2
+
+    name = f"K2b {tree} {'meta_pd' if env_cfg.meta_pd else 'plain_pd'}"
+    split = K2.ControlStepSplit(topo, env_cfg, model, 2, precond_bf16=True)
+    reset_counts()
+    qh, vh, X = split.head(*ins, 1.0)
+    out = split.tail(qh, vh, ins[2], ins[3], X, 1.0)
+    if counts() != expect(1, f"k2b_head_{tree}", f"k2b_tail_{tree}") \
+            or X.dtype != torch.bfloat16:
+        raise RuntimeError(f"{name}: launches {counts()}, Xp/Xf {X.dtype}")
+    q1, v1 = CS.ControlStep(topo, env_cfg, model, (2, 2),
+                            precond_bf16=True)(*ins, 1.0)
+    q2, v2 = CS.ControlStep(topo, env_cfg, model, (2, 2))(*ins, 1.0)
+    X2 = K2.ControlStepSplit(topo, env_cfg, model, 2).head(*ins, 1.0)[2]
+    torch.cuda.synchronize()
+    Xf = X.float()
+    if not all(bool(torch.isfinite(t).all()) for t in (*out, Xf)):
+        raise RuntimeError(f"{name}: output not finite")
+    if not (torch.equal(q1, out[0]) and torch.equal(v1, out[1])):
+        raise RuntimeError(
+            f"{name}: head + tail differ from K1 with the flag at (2, 2): "
+            f"|dqpos| {(q1 - out[0]).abs().max().item()}, |dqvel| "
+            f"{(v1 - out[1]).abs().max().item()}")
+    rne = X2.to(torch.bfloat16)
+    if not torch.equal(X.view(torch.int16), rne.view(torch.int16)):
+        n = int((X.view(torch.int16) != rne.view(torch.int16)).sum())
+        raise RuntimeError(f"{name}: {n} of {X.numel()} head Xp/Xf entries "
+                           f"are not K2's rounded to the nearest bfloat16")
+    e, f = gate_bf16(name, out, Xf, topo, env_cfg, model, ins)
+    eh, fh = gate_bf16(f"{name} head", (qh, vh), Xf, topo, env_cfg, model,
+                       ins, stop=1)
+    own32, own64 = plain_pair(topo, env_cfg, model, ins, (2, 2),
+                              precond_bf16=True)
+
+    def per_env(a, b):
+        return [(x.double() - y.double()).abs().amax(1) for x, y in zip(a, b)]
+
+    def misses(d):
+        return int(((d[0] > QPOS_TOL) | (d[1] > QVEL_TOL)).sum())
+
+    k64, p64 = per_env(out, own64), per_env(own32, own64)
+    e["own_rounding"] = {
+        "kernel_vs_plain64": [x.max().item() for x in k64],
+        "kernel_vs_plain32": [x.max().item() for x in per_env(out, own32)],
+        "plain32_vs_plain64": [x.max().item() for x in p64],
+        "kernel_misses": misses(k64), "plain32_misses": misses(p64)}
+    pcg8_gate(name, topo, env_cfg, model, ins, out, own64, e, f)
+    h32, h64 = head_references(topo, env_cfg, model, ins)
+    e.update(x_check(name, Xf, h32[2], h64[2], f, True), head=eh,
+             x_equals_k2_rounded=True, split_equals_k1_bf16=True,
+             bf16_moves=[(out[0] - q2).abs().max().item(),
+                         (out[1] - v2).abs().max().item()])
+    return e, f + fh
+
+
+def rollout_smplx(dev) -> dict:
+    """The env's main path on SMPL-X: `make_env_step_batched(smplx_topology(),
+    cfg, fused_model=model)` through learn/rollout.py, SMPLX_ROLLOUT envs
+    × steps with a seeded MCP policy at SMPL-X's obs and action widths and
+    unit diff weights (the JAX package has none for SMPL-X): one K2-55
+    head and tail launch per step and no call of the plain chain, finite
+    rewards and observations -> its numbers."""
+    import torch
+
+    from uhc_tpu_torch.config.config import Config
+    from uhc_tpu_torch.envs import humanoid_im as H
+    from uhc_tpu_torch.learn import nets, running_norm as RN
+    from uhc_tpu_torch.learn.rollout import init_env_states, make_rollout_fn
+    from uhc_tpu_torch.physics import solver
+    from uhc_tpu_torch.physics.control_step_split import ControlStepSplit
+
+    topo, env, model, lib = smplx_tree(dev)
+    B, T = SMPLX_ROLLOUT
+    cfg = Config.uhc_implicit()
+    obs_dim, act_dim = H.obs_dim(topo, env), sum(H.action_dims(topo, env))
+    kernel = H.make_env_step_batched(topo, env, fused_model=model).kernel
+    if type(kernel) is not ControlStepSplit or kernel.pcg_iters != (2, 2):
+        raise RuntimeError(f"SMPL-X routes to {kernel}")
+    policy = nets.make_policy(cfg, obs_dim, act_dim,
+                              torch.Generator().manual_seed(21), dev)
+    rollout = make_rollout_fn(topo, env, policy, T, fused_model=model)
+    aux = {"neutral_qpos": lib["qpos"][0, 0],
+           "neutral_qvel": torch.zeros(topo.nv, device=dev),
+           "jpos_diffw": torch.ones(topo.nbody, device=dev),
+           "body_diffw": torch.ones(topo.nbody - 1, device=dev)}
+    gen = torch.Generator(device=dev).manual_seed(21)
+    states = init_env_states(topo, env, model, lib, aux, gen, B)
+    plain_calls = []
+    plain = solver.do_simulation
+
+    def counted(*a, **k):
+        plain_calls.append(1)
+        return plain(*a, **k)
+
+    reset_counts()
+    solver.do_simulation = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, traj, last = rollout(
+            model, lib, aux, torch.full((act_dim,), cfg.log_std, device=dev),
+            RN.init(obs_dim, dev), states, gen, 1.0, 1.0,
+            torch.zeros(lib["len"].shape[0], device=dev))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        solver.do_simulation = plain
+    got = counts()
+    if got != expect(T, "k2_head_smplx", "k2_tail_smplx") or plain_calls:
+        raise RuntimeError(f"rollout_smplx: launches {got}, plain chain "
+                           f"calls {len(plain_calls)}")
+    if not all(bool(torch.isfinite(t).all()) for t in (
+            traj.rewards, traj.states, last)):
+        raise RuntimeError("rollout_smplx: rewards or observations not "
+                           "finite")
+    return {"launches": got, "num_envs": B, "horizon": T,
+            "obs_dim": obs_dim, "action_dim": act_dim,
+            "env_steps_per_s": B * T / secs, "seconds": secs,
+            "reward_mean": traj.rewards.mean().item(),
+            "episodes_done": int(traj.dones.sum()),
+            "plain_chain_calls": 0}
+
+
+def smplx_rows(src, k2_src, rollout_x, k2x_errs, smplx_time) -> list:
+    """The kernels-line rows of K2's head and tail on SMPL-X: launches
+    from phase rollout_smplx, times at B_BIG_TIME[0]."""
+    t = smplx_time[f"B{B_BIG_TIME[0]}"]
+    return [
+        {"name": f"control_step_{part}_smplx", "route": "cuda",
+         "source": src, "replaces": k2_src,
+         "launches": rollout_x["launches"][f"k2_{part}_smplx"],
+         "max_abs_err": max(v for e in k2x_errs.values()
+                            for v in (e["head"] if part == "head" else e)[
+                                "kernel_vs_plain64"]),
+         "ms": t[f"{part}_ms"], "plain_ms": t[f"plain_{part}_ms"],
+         "bound_ms": t["bound"][part]["bound_ms"],
+         "bound_by": t["bound"][part]["bound_by"], "library_ms": None}
+        for part in ("head", "tail")]
+
+
+def k2b_rows(src, k2_src, bench_counts, k2b_errs, t) -> list:
+    """The kernels-line rows of K2b on the 24-body tree: head, tail and
+    the one-launch form (split=False); launches from phase kernel_bench,
+    times `t` from phase time (B_TIME), errors over every tree of phase
+    k2b (head + tail equal the one-launch form bit for bit there)."""
+    tail_err = max(v for e in k2b_errs.values()
+                   for v in e["kernel_vs_plain64"])
+    head_err = max(v for e in k2b_errs.values()
+                   for v in e["head"]["kernel_vs_plain64"])
+    rows = [(f"control_step_{part}_bf16", bench_counts[f"k2b_{part}_smpl"],
+             err, t[f"{part}_ms"], t[f"plain_{part}_ms"],
+             t["bound"][part])
+            for part, err in (("head", head_err), ("tail", tail_err))]
+    rows.append(("control_step_bf16", bench_counts["k1_bf16_smpl"],
+                 tail_err, t["k1_bf16_ms"], t["k1_bf16_plain_ms"],
+                 t["k1_bf16_bound"]))
+    return [{"name": name, "route": "cuda", "source": src,
+             "replaces": k2_src, "launches": n, "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+             "bound_by": b["bound_by"], "library_ms": None}
+            for name, n, err, ms, plain_ms, b in rows]
 
 
 def k1e_check(topo, env_cfg, lib_model, ins, name):
@@ -867,18 +1371,17 @@ def run() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this "
                            "script needs a CUDA card")
+    from uhc_tpu_torch.device import card_line
+
     dev = torch.device("cuda")
     card = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=20).stdout.strip().splitlines()[0]
+    smi = card_line()
     done("device", card=card, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, numpy=np.__version__,
          python=sys.version.split()[0], count=torch.cuda.device_count())
 
-    phase("build", "(nvcc, sm_90a; 24, 48 and 52 bodies, one nvcc each, "
-                   "at once)")
+    phase("build", "(nvcc, sm_90a; 24, 48, 52 and 55 bodies, one nvcc "
+                   "each, at once)")
     from uhc_tpu_torch.csrc import build
 
     t0 = time.perf_counter()
@@ -1202,6 +1705,38 @@ def run() -> int:
     if k1g_fails:
         raise RuntimeError("; ".join(k1g_fails))
 
+    phase("k2_smplx", f"(B={B_CHECK}, K2 head + tail on the 55-body SMPL-X "
+                      "at PCG-2, plain PD and meta-PD, vs its plain versions "
+                      "and the 55-body K1 build)")
+    smplx = list(smplx_draws(dev))
+    k2x_errs, k2x_fails = k2_smplx_check(smplx)
+    done("k2_smplx", **k2x_errs, qpos_tol=QPOS_TOL, qvel_tol=QVEL_TOL,
+         x_rel_tol=X_REL_TOL)
+    if k2x_fails:
+        raise RuntimeError("; ".join(k2x_fails))
+
+    phase("k2b", f"(B={B_CHECK}, K2b at PCG-2 on the draws of "
+                 "kernel_vs_plain (24 bodies), k1d_vs_plain (SMPL-H) and "
+                 "k2_smplx, plain PD and meta-PD)")
+    k2b_errs, k2b_fails = {}, []
+    k2b_cases = (
+        [("smpl", mode, topo, env_cfg, model, (qpos, qvel, act, tb))
+         for mode, (env_cfg, qpos, qvel, act, tb) in draws.items()]
+        + [("smplh", mode, *big_draws["smplh", mode][:3],
+            tuple(big_draws["smplh", mode][3:]))
+           for mode in ("plain_pd", "meta_pd")]
+        + [("smplx", mode, xtopo, xenv, xmodel, xins)
+           for mode, xtopo, xenv, xmodel, xins in smplx])
+    for tree, mode, btopo, benv, bmodel, ins in k2b_cases:
+        k2b_errs[f"{tree}_{mode}"], fails = k2b_check(tree, btopo, benv,
+                                                      bmodel, ins)
+        k2b_fails += fails
+    done("k2b", **k2b_errs, qpos_tol=QPOS_TOL, qvel_tol=QVEL_TOL,
+         pcg8_qpos_tol=SCHED_QPOS_TOL, pcg8_qvel_tol=SCHED_QVEL_TOL,
+         x_rel_tol=X_REL_TOL)
+    if k2b_fails:
+        raise RuntimeError("; ".join(k2b_fails))
+
     phase("eval", "(all clips, full length, seeded weights, kernel)")
     from uhc_tpu_torch.cli.eval import run_eval
 
@@ -1360,6 +1895,45 @@ def run() -> int:
             agent_fn=lambda out, name=name, cfg_dict=cfg_dict:
             masterfoot_agent(out, Config.from_dict(name, cfg_dict)))
 
+    phase("rollout_smplx", "(make_env_step_batched on the 55-body SMPL-X "
+                           "through learn/rollout.py, "
+                           f"{SMPLX_ROLLOUT[0]} envs × {SMPLX_ROLLOUT[1]} "
+                           "steps, seeded MCP policy: K2 at PCG-2)")
+    rollout_x = rollout_smplx(dev)
+    done("rollout_smplx", **rollout_x)
+
+    phase("kernel_bench", "(python -m uhc_tpu_torch.cli.kernel_bench, "
+                          "B=2048, STEPS=20: " + " ".join(KERNEL_BENCH_ROWS)
+          + ")")
+    from uhc_tpu_torch.cli import kernel_bench
+
+    os.environ["B"], os.environ["STEPS"] = "2048", "20"
+    reset_counts()
+    try:
+        bench_lines = kernel_bench.main(list(KERNEL_BENCH_ROWS))
+    finally:
+        os.environ.pop("B", None)
+        os.environ.pop("STEPS", None)
+    bench_counts = counts()
+    for row, line in zip(KERNEL_BENCH_ROWS, bench_lines):
+        c = kernel_bench.parse_cfg(row)
+        nb = dict(K2B_TREES)[c["MODEL"]]
+        bf = "_bf16" if c["BF16"] and not c["LANE"] else ""
+        parts = ("head", "tail") if c["SPLIT"] and not c["LANE"] else (
+            "step",)
+        want = {f"{e}{bf}/{nb}": 20 for e in parts}
+        if line["launches"] != want or not line["substeps_per_sec"] > 0 \
+                or set(line["no_effect_on_card"]) != set(
+                    kernel_bench.NO_EFFECT_ON_CARD):
+            raise RuntimeError(f"kernel_bench {row}: {line}")
+    ms = {row: line["ms_per_ctrl_step"]
+          for row, line in zip(KERNEL_BENCH_ROWS, bench_lines)}
+    done("kernel_bench", launches=bench_counts, rows=len(bench_lines),
+         ms_per_ctrl_step=ms, k2b_over_k2={
+             "smpl": ms["SPLIT=1,PCG=2,BF16=1"] / ms["SPLIT=1,PCG=2"],
+             "smplh": (ms["SPLIT=1,PCG=2,BF16=1,MODEL=smplh"]
+                       / ms["SPLIT=1,PCG=2,MODEL=smplh"])})
+
     phase("time", f"(B={B_TIME}, uhc_implicit control step)")
     step = CS.ControlStep(topo, cfg.env, model, pcg_iters=(1, 2))
     qpos, qvel, tb = draw_states(lib, B_TIME, gen, dev)
@@ -1442,16 +2016,53 @@ def run() -> int:
     tables = step.params.size + step.itab.size
     state_io = (qpos.numel() * 2 + qvel.numel() * 2 + act.numel()
                 + tb.numel() + tables)
-    k2_bound = {}
-    for part, active, start in (("head", trace2[:1], 0),
-                                ("tail", trace2[1:], 1)):
-        fl = CS.control_step_flops(topo, cfg.env, active, (2, 2), start)
-        by = 4 * (state_io + X.numel())
-        t_op, t_by = fl / H100_F32_FLOPS, by / H100_BYTES_PER_S
-        k2_bound[part] = {"flops": fl, "bytes": by,
-                          "bound_ms": 1e3 * max(t_op, t_by),
-                          "bound_by": "operations" if t_op >= t_by
-                          else "bytes"}
+    def k2_bounds(x_bytes):
+        out = {}
+        for part, active, start in (("head", trace2[:1], 0),
+                                    ("tail", trace2[1:], 1)):
+            fl = CS.control_step_flops(topo, cfg.env, active, (2, 2), start)
+            by = 4 * state_io + x_bytes
+            t_op, t_by = fl / H100_F32_FLOPS, by / H100_BYTES_PER_S
+            out[part] = {"flops": fl, "bytes": by,
+                         "bound_ms": 1e3 * max(t_op, t_by),
+                         "bound_by": "operations" if t_op >= t_by
+                         else "bytes"}
+        return out
+
+    k2_bound = k2_bounds(4 * X.numel())
+    # K2b at the same inputs after K2: head and tail apart (its Xp/Xf
+    # move as bfloat16), and its one-launch form, K1 with the flag at
+    # (2, 2)
+    k2b = K2.ControlStepSplit(topo, cfg.env, model, 2, precond_bf16=True)
+    k1b = CS.ControlStep(topo, cfg.env, model, (2, 2), precond_bf16=True)
+    qhb, vhb, Xb = k2b.head(qpos, qvel, act, tb, 1.0)
+    k2b.tail(qhb, vhb, act, tb, Xb, 1.0)
+    k1b(qpos, qvel, act, tb, 1.0)
+    torch.cuda.synchronize()
+    k2b_t = {
+        "head_ms": cuda_ms(lambda: k2b.head(qpos, qvel, act, tb, 1.0), 10),
+        "tail_ms": cuda_ms(lambda: k2b.tail(qhb, vhb, act, tb, Xb, 1.0), 10),
+        "k1_bf16_ms": cuda_ms(lambda: k1b(qpos, qvel, act, tb, 1.0), 10),
+        "plain_head_ms": cuda_ms(lambda: K2.head_reference(
+            topo, cfg.env, model, qpos, qvel, act, tb, 1.0, 2,
+            precond_bf16=True), 2),
+        "plain_tail_ms": cuda_ms(lambda: K2.tail_reference(
+            topo, cfg.env, model, qhb, vhb, act, tb, Xb, 1.0, 2,
+            precond_bf16=True), 2),
+        "k1_bf16_plain_ms": cuda_ms(lambda: CS.control_step_reference(
+            topo, cfg.env, model, qpos, qvel, act, tb, 1.0, (2, 2),
+            precond_bf16=True), 2),
+        "x_bytes": Xb.numel() * Xb.element_size(),
+        "bound": k2_bounds(Xb.numel() * Xb.element_size())}
+    k2b_t["over_k2"] = ((k2b_t["head_ms"] + k2b_t["tail_ms"])
+                        / (head_ms + tail_ms))
+    fl22 = CS.control_step_flops(topo, cfg.env, trace2, (2, 2))
+    k2b_t["k1_bf16_bound"] = {
+        "flops": fl22, "bytes": 4 * state_io,
+        "bound_ms": 1e3 * max(fl22 / H100_F32_FLOPS,
+                              4 * state_io / H100_BYTES_PER_S),
+        "bound_by": ("operations" if fl22 / H100_F32_FLOPS
+                     >= 4 * state_io / H100_BYTES_PER_S else "bytes")}
     done("time", kernel_ms=kernel_ms, plain_ms=plain_ms,
          substeps_per_s=B_TIME * cfg.env.frame_skip / (kernel_ms / 1e3),
          flops_per_step=flops, bound_ms=bound_ms, bound_by=bound_by,
@@ -1459,7 +2070,7 @@ def run() -> int:
          env_step_ms=1e3 * env_s / n_env, timed_launches=timed_launches,
          k2_head_ms=head_ms, k2_tail_ms=tail_ms,
          k2_plain_head_ms=plain_head_ms, k2_plain_tail_ms=plain_tail_ms,
-         k2_bound=k2_bound, card=smi)
+         k2_bound=k2_bound, k2b=k2b_t, card=smi)
 
     # K1e over the shaped library beside K1 (the shared stand-in) on the
     # same states, uhc_implicit_shape's meta-PD control step, timed in
@@ -1552,6 +2163,7 @@ def run() -> int:
         btopo, benv, bmodel, blib = big_tree(fam, dev)
         k1d = CS.ControlStep(btopo, benv, bmodel, (2, 2))
         split = K2.ControlStepSplit(btopo, benv, bmodel, 2)
+        k2b = K2.ControlStepSplit(btopo, benv, bmodel, 2, precond_bf16=True)
         per_env_ws = build.layout(k1d.library())["workspace"]
         row = {"bodies": nb, "nv": btopo.nv}
         for B in B_BIG_TIME:
@@ -1569,6 +2181,16 @@ def run() -> int:
                                                        1.0), reps),
                  "tail_ms": cuda_ms(lambda: split.tail(qh, vh, act, tb, X,
                                                        1.0), reps)}
+            # K2b at the same inputs after K2
+            qhb, vhb, Xb = k2b.head(qpos, qvel, act, tb, 1.0)
+            k2b.tail(qhb, vhb, act, tb, Xb, 1.0)
+            torch.cuda.synchronize()
+            t["k2b_head_ms"] = cuda_ms(lambda: k2b.head(qpos, qvel, act, tb,
+                                                        1.0), reps)
+            t["k2b_tail_ms"] = cuda_ms(lambda: k2b.tail(qhb, vhb, act, tb,
+                                                        Xb, 1.0), reps)
+            t["k2b_over_k2"] = ((t["k2b_head_ms"] + t["k2b_tail_ms"])
+                                / (t["head_ms"] + t["tail_ms"]))
             trace = []
             SV.do_simulation(btopo, benv, bmodel, qpos, qvel, act, tb, 1.0,
                              (2, 2), trace=trace)
@@ -1578,7 +2200,9 @@ def run() -> int:
                 btopo, benv, tr, (2, 2), st), 4 * (state_io + extra))
                 for part, tr, st, extra in (
                     ("k1d", trace, 0, 0), ("head", trace[:1], 0, X.numel()),
-                    ("tail", trace[1:], 1, X.numel()))}
+                    ("tail", trace[1:], 1, X.numel()),
+                    ("k2b_head", trace[:1], 0, Xb.numel() // 2),
+                    ("k2b_tail", trace[1:], 1, Xb.numel() // 2))}
             # the implementation's own traffic, apart from the bound: the
             # matrix workspace written and read back once a substep
             ws_bytes = 2 * benv.frame_skip * B * per_env_ws * 4
@@ -1593,6 +2217,12 @@ def run() -> int:
                     btopo, benv, bmodel, qpos, qvel, act, tb, 1.0, 2), 1)
                 t["plain_tail_ms"] = cuda_ms(lambda: K2.tail_reference(
                     btopo, benv, bmodel, qh, vh, act, tb, X, 1.0, 2), 1)
+                t["plain_k2b_head_ms"] = cuda_ms(lambda: K2.head_reference(
+                    btopo, benv, bmodel, qpos, qvel, act, tb, 1.0, 2,
+                    precond_bf16=True), 1)
+                t["plain_k2b_tail_ms"] = cuda_ms(lambda: K2.tail_reference(
+                    btopo, benv, bmodel, qhb, vhb, act, tb, Xb, 1.0, 2,
+                    precond_bf16=True), 1)
             row[f"B{B}"] = t
         train_phase = "train_smplh" if fam == "smplh" else "train_masterfoot"
         row["train"] = TRAIN_RATES[train_phase]
@@ -1739,6 +2369,44 @@ def run() -> int:
                                   / k1g_time["k1_11_same_states_ms"])
     done("time_k1g", **k1g_time, card=smi)
 
+    phase("time_smplx", f"(K2 head and tail on SMPL-X, B={B_BIG_TIME}; "
+                        f"plain versions at B={B_BIG_TIME[0]})")
+    gen_x = torch.Generator().manual_seed(22)
+    xtopo, xenv, xmodel, xlib = smplx_tree(dev)
+    split_x = K2.ControlStepSplit(xtopo, xenv, xmodel, 2)
+    smplx_time = {"bodies": xtopo.nbody, "nv": xtopo.nv}
+    for B in B_BIG_TIME:
+        qpos, qvel, tb = draw_big_states(xlib, xtopo.nv, B, gen_x, dev)
+        act = (0.02 * torch.randn((B, split_x.act_dim),
+                                  generator=gen_x)).to(dev)
+        qh, vh, X = split_x.head(qpos, qvel, act, tb, 1.0)
+        split_x.tail(qh, vh, act, tb, X, 1.0)
+        torch.cuda.synchronize()
+        reps = 5 if B >= 2048 else 10
+        t = {"head_ms": cuda_ms(lambda: split_x.head(qpos, qvel, act, tb,
+                                                     1.0), reps),
+             "tail_ms": cuda_ms(lambda: split_x.tail(qh, vh, act, tb, X,
+                                                     1.0), reps)}
+        trace = []
+        SV.do_simulation(xtopo, xenv, xmodel, qpos, qvel, act, tb, 1.0,
+                         (2, 2), trace=trace)
+        state_io = (qpos.numel() * 2 + qvel.numel() * 2 + act.numel()
+                    + tb.numel() + split_x.params.size + split_x.itab.size)
+        t["bound"] = {part: bound(CS.control_step_flops(
+            xtopo, xenv, tr, (2, 2), st), 4 * (state_io + X.numel()))
+            for part, tr, st in (("head", trace[:1], 0),
+                                 ("tail", trace[1:], 1))}
+        t["substeps_per_s"] = B * xenv.frame_skip / (
+            (t["head_ms"] + t["tail_ms"]) / 1e3)
+        if B == B_BIG_TIME[0]:
+            t["plain_head_ms"] = cuda_ms(lambda: K2.head_reference(
+                xtopo, xenv, xmodel, qpos, qvel, act, tb, 1.0, 2), 1)
+            t["plain_tail_ms"] = cuda_ms(lambda: K2.tail_reference(
+                xtopo, xenv, xmodel, qh, vh, act, tb, X, 1.0, 2), 1)
+        smplx_time[f"B{B}"] = t
+    smplx_time["rollout_env_steps_per_s"] = rollout_x["env_steps_per_s"]
+    done("time_smplx", **smplx_time, card=smi)
+
     src = "uhc_tpu_torch/csrc/control_step.cu"
     k2_src = "uhc_tpu/physics/pallas_substep.py:284"
     print(json.dumps({"kernels": [
@@ -1822,7 +2490,9 @@ def run() -> int:
              for v in k1g_errs[m][k]),
          "ms": k1g_time["k1g_ms"], "plain_ms": k1g_time["plain_ms"],
          "bound_ms": k1g_time["bound"]["bound_ms"],
-         "bound_by": k1g_time["bound"]["bound_by"], "library_ms": None}]}),
+         "bound_by": k1g_time["bound"]["bound_by"], "library_ms": None}]
+        + smplx_rows(src, k2_src, rollout_x, k2x_errs, smplx_time)
+        + k2b_rows(src, k2_src, bench_counts, k2b_errs, k2b_t)}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,8 @@
 """Evaluation CLI (PyTorch twin of uhc_tpu.cli.eval): closed-loop copycat
-evaluation of every clip of a motion file, on the stand-in humanoid.
+evaluation of every clip of a motion file, on the tree the config names,
+built from the stand-in humanoid as the agent builds it
+(`learn.agent.robot_family`: SMPL-H for `robot: {model: smplh}`, the
+enlarged feet of bigfoot, masterfoot's 48 bodies for `masterfoot: true`).
 
 Usage:
   python -m uhc_tpu_torch.cli.eval [--cfg uhc_implicit]
@@ -13,7 +16,8 @@ body from its betas (synthetic blendshapes without --smpl-data), and the
 summary adds vertex penetration and skate. Prints per-sequence metrics and
 one SUMMARY JSON line. Physics runs through the control-step kernel on
 CUDA (K1, K1e over a shaped library, K1f for explicit RFC or per-joint
-meta-PD; the plain PyTorch version on the CPU).
+meta-PD, K1d on the big trees); on the CPU through the plain PCG-5 chain,
+as the agent does and as the JAX eval runs XLA off its TPU.
 """
 from __future__ import annotations
 
@@ -29,32 +33,33 @@ from uhc_tpu_torch.device import resolve_device
 def run_eval(motion: str, checkpoint: str | None = None, device=None,
              seed: int = 0, max_seq_len: int | None = None,
              cfg="uhc_implicit", smpl_data=None) -> dict:
-    """Build the stand-in humanoid, expert library and policy, run the
-    closed-loop evaluation; returns {"summary", "per_seq", "control_steps",
-    "seconds", "ms_per_step", "traj", "policy", "rs"}. `cfg` is a Config
-    or a name for `Config.named`."""
+    """Build the configured tree from the stand-in humanoid, its expert
+    library and the policy at its widths, run the closed-loop evaluation;
+    returns {"summary", "per_seq", "control_steps", "seconds",
+    "ms_per_step", "traj", "fail_safe", "percent", "policy", "rs"}. `cfg`
+    is a Config or a name for `Config.named`."""
     from uhc_tpu_torch.config.config import Config
     from uhc_tpu_torch.data import joblib_compat
     from uhc_tpu_torch.data.dataset import (load_motion_file,
                                             neutral_from_library)
     from uhc_tpu_torch.envs import humanoid_im as H
     from uhc_tpu_torch.learn import nets, running_norm as RN
-    from uhc_tpu_torch.learn.agent import build_library, root_offsets
+    from uhc_tpu_torch.learn.agent import (build_library, robot_family,
+                                           root_offsets)
     from uhc_tpu_torch.learn.evaluate import make_eval_fn, summarize
     from uhc_tpu_torch.physics.model import model_from_numpy
-    from uhc_tpu_torch.smpl.constants import default_diff_weights
     from uhc_tpu_torch.smpl.fixture_humanoid import load_fixture_humanoid
 
     dev = resolve_device(device)
     if not isinstance(cfg, Config):
         cfg = Config.named(cfg)
-    topo, model_np = load_fixture_humanoid()
+    topo, model_np, converter, jpw, bdw = robot_family(
+        *load_fixture_humanoid(), cfg.env)
     model = model_from_numpy(model_np, dev)
     lib, keys, sim_model, smpl_data = build_library(
         topo, model, cfg.env, load_motion_file(motion), smpl_data,
-        max_len=max_seq_len)
+        max_len=max_seq_len, converter=converter)
     nq, nv = neutral_from_library(lib)
-    jpw, bdw = default_diff_weights()
     aux = {"neutral_qpos": nq, "neutral_qvel": nv,
            "jpos_diffw": torch.as_tensor(jpw, device=dev),
            "body_diffw": torch.as_tensor(bdw, device=dev)}
@@ -75,7 +80,8 @@ def run_eval(motion: str, checkpoint: str | None = None, device=None,
                              torch.ones(obs_dim, device=dev))
     max_steps = int(lib["len"].max()) - 1
     eval_fn = make_eval_fn(topo, cfg.env, policy, max_steps,
-                           fused_model=sim_model)
+                           fused_model=(sim_model if dev.type == "cuda"
+                                        else None))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -87,7 +93,7 @@ def run_eval(motion: str, checkpoint: str | None = None, device=None,
                     smpl_data=smpl_data, root_offset=root_offsets(sim_model))
     res.update(control_steps=max_steps, seconds=secs,
                ms_per_step=1000.0 * secs / max_steps, traj=traj,
-               policy=policy, rs=rs)
+               fail_safe=fail_safe, percent=percent, policy=policy, rs=rs)
     return res
 
 

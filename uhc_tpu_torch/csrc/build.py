@@ -3,7 +3,8 @@ interface, loaded with ctypes.
 
 The control-step source is compiled once per tree size: `-DNB=<bodies>`
 fixes the body count (24 for the SMPL humanoid, 48 for masterfoot, 52 for
-SMPL-H), so every library holds the same three kernels for one tree.
+SMPL-H, 55 for SMPL-X), so every library holds the same kernels for one
+tree.
 `load_library(nb)` compiles `control_step.cu` for sm_90a with nvcc (from
 PATH or $CUDA_HOME/bin) on first use into `uhc_tpu_torch/_build/`, named by
 a hash of the sources and flags so an edit rebuilds it; `build_libraries`
@@ -97,19 +98,25 @@ def _build_many(kind: str, nbs) -> dict:
 
 
 def _bind(lib, suffix: str, stream: bool):
-    """Declare the entry points: uhc_control_step (K1, K1e, K1d) takes 9
-    pointers (model library, seq_idx or null, int table, 4 inputs, 2
-    outputs), uhc_control_step_head / _tail (K2) take 10 (the last is
-    Xp/Xf), then B, act_dim, rfc_rate. On CUDA each of them takes the
-    matrix workspace (null at 24 bodies) before Xp/Xf and the stream
-    last; the host build keeps its own workspace. uhc_control_step_f
-    (K1f) takes K1's 9 pointers, on CUDA the workspace, the explicit
-    wrench and the per-dof gain scales (either null), then B, act_dim,
-    rfc_rate and, on CUDA, the stream."""
+    """Declare the entry points: uhc_control_step (K1, K1e, K1d) and
+    uhc_control_step_bf16 (K2b at split=False) take 9 pointers (model
+    library, seq_idx or null, int table, 4 inputs, 2 outputs),
+    uhc_control_step_head / _tail (K2) and their _bf16 twins (K2b) take
+    10 (the last is Xp/Xf, float32 or bfloat16), then B, act_dim,
+    rfc_rate. On CUDA each of them takes the matrix workspace (null at 24
+    bodies) before Xp/Xf and the stream last; the host build keeps its
+    own workspace. uhc_control_step_f (K1f) takes K1's 9 pointers, on
+    CUDA the workspace, the explicit wrench and the per-dof gain scales
+    (either null), then B, act_dim, rfc_rate and, on CUDA, the stream.
+    The host build also has uhc_bf16_bits_host (x, out, n): K2b's rounding
+    alone."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for entry, nptr in (("uhc_control_step", 9),
                         ("uhc_control_step_head", 10),
-                        ("uhc_control_step_tail", 10)):
+                        ("uhc_control_step_tail", 10),
+                        ("uhc_control_step_bf16", 9),
+                        ("uhc_control_step_head_bf16", 10),
+                        ("uhc_control_step_tail_bf16", 10)):
         fn = getattr(lib, entry + suffix)
         fn.argtypes = ([ptr] * (nptr + (1 if stream else 0))
                        + [i32, i32, f32] + ([ptr] if stream else []))
@@ -118,6 +125,9 @@ def _bind(lib, suffix: str, stream: bool):
     fn.argtypes = ([ptr] * (11 + (1 if stream else 0)) + [i32, i32, f32]
                    + ([ptr] if stream else []))
     fn.restype = i32
+    if not stream:
+        lib.uhc_bf16_bits_host.argtypes = [ptr, ptr, i32]
+        lib.uhc_bf16_bits_host.restype = i32
     lib.uhc_control_step_layout.argtypes = [ptr]
     lib.uhc_control_step_layout.restype = i32
     return lib

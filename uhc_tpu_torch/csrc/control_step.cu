@@ -61,6 +61,19 @@
 //    this source's layout anyway (the inverse pair runs under a run-time
 //    branch of one rolled substep loop), and its `merge_j6` too (phase G
 //    projects the bias and external wrenches of every body in one pass).
+//  * K2b, the bfloat16 preconditioner of pallas_substep.py
+//    make_fused_do_simulation (precond_bf16=True, :245-254, :884-887,
+//    :1033): `control_step_bf16_kernel` (split=False) and
+//    `control_step_head_bf16_kernel` + `_tail_bf16_kernel` (split=True),
+//    the template's BF16 instance. Every entry of Xp and Xf is rounded to
+//    the nearest bfloat16 as the exact inverses are written; each
+//    preconditioner product X v (the PCG warm start and every z = X r)
+//    rounds v to bfloat16 first, so its products are exact in float32 and
+//    accumulate in float32; A, the residuals and the PCG scalars stay
+//    float32. Head and tail hand Xp, Xf over as (B, 2, NV, NV) bfloat16,
+//    half of K2's round trip. One rounding function by bit arithmetic
+//    (`bf16_bits`, torch's round-to-nearest-even) serves the CUDA and the
+//    host build. With BF16 false every kernel compiles as before.
 //
 // The plain PyTorch version is uhc_tpu_torch/physics/solver.py
 // do_simulation (K1) and its head/tail pieces `substeps` (K2) with the
@@ -94,6 +107,7 @@
 
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -255,6 +269,35 @@ HD void cross3(const float* a, const float* b, float* o) {
   o[0] = x; o[1] = y; o[2] = z;
 }
 
+// float <-> its bits, the same on the card and on the host
+#ifdef __CUDACC__
+HD uint32_t float_bits(float x) { return __float_as_uint(x); }
+HD float bits_float(uint32_t u) { return __uint_as_float(u); }
+#else
+HD uint32_t float_bits(float x) {
+  uint32_t u;
+  memcpy(&u, &x, sizeof u);
+  return u;
+}
+HD float bits_float(uint32_t u) {
+  float x;
+  memcpy(&x, &u, sizeof x);
+  return x;
+}
+#endif
+
+// K2b: the bfloat16 nearest to x, ties to even (NaN -> 0x7FC0), as its 16
+// bits: c10::BFloat16's rounding, so it agrees with torch's .to(bfloat16)
+HD uint16_t bf16_bits(float x) {
+  uint32_t u = float_bits(x);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return (uint16_t)0x7fc0u;
+  return (uint16_t)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+}
+
+HD float bf16_float(uint16_t h) { return bits_float((uint32_t)h << 16); }
+
+HD float round_bf16(float x) { return bf16_float(bf16_bits(x)); }
+
 // R(q) v = v + 2 (w·u×v + u×(u×v))
 HD void qrot(const float* q, const float* v, float* o) {
   float uv[3], uuv[3];
@@ -322,7 +365,24 @@ HD float dot75(const float* a, const float* b) {
   return s;
 }
 
-// PCG with warm start x0 = X b (X ≈ A⁻¹): the solution lands in SM_X
+// y = X v, the preconditioner product. BF16 (K2b): X holds bfloat16
+// values and v is rounded to bfloat16 into `vr` first, so every product is
+// exact in float32 and the sum accumulates in float32.
+template <bool BF16>
+HD void precond(const float* X, const float* v, float* y, float* vr,
+                int tid, int nth) {
+  if (BF16) {
+    for (int i = tid; i < NV; i += nth) vr[i] = round_bf16(v[i]);
+    SYNC();
+    v = vr;
+  }
+  matvec(X, v, y, tid, nth);
+}
+
+// PCG with warm start x0 = X b (X ≈ A⁻¹): the solution lands in SM_X. The
+// bfloat16 copies of b and r (BF16) go through SM_AP, which holds nothing
+// live at those points.
+template <bool BF16>
 HD void pcg(float* sm, const float* A, const float* X, const float* b,
             int iters, int tid, int nth) {
   float* x = sm + SM_X;
@@ -331,7 +391,7 @@ HD void pcg(float* sm, const float* A, const float* X, const float* b,
   float* p = sm + SM_P;
   float* Ap = sm + SM_AP;
   float* scal = sm + SM_SCAL;
-  matvec(X, b, x, tid, nth);
+  precond<BF16>(X, b, x, Ap, tid, nth);
   SYNC();
   for (int i = tid; i < NV; i += nth) {
     float s = 0.0f;
@@ -339,7 +399,7 @@ HD void pcg(float* sm, const float* A, const float* X, const float* b,
     r[i] = b[i] - s;
   }
   SYNC();
-  matvec(X, r, z, tid, nth);
+  precond<BF16>(X, r, z, Ap, tid, nth);
   SYNC();
   if (tid == 0) scal[0] = dot75(r, z);
   for (int i = tid; i < NV; i += nth) p[i] = z[i];
@@ -355,7 +415,7 @@ HD void pcg(float* sm, const float* A, const float* X, const float* b,
       r[i] -= alpha * Ap[i];
     }
     SYNC();
-    matvec(X, r, z, tid, nth);
+    precond<BF16>(X, r, z, Ap, tid, nth);
     SYNC();
     if (tid == 0) {
       float rz_new = dot75(r, z);
@@ -371,7 +431,9 @@ HD void pcg(float* sm, const float* A, const float* X, const float* b,
 
 // Exact inverses of A_pd -> Xp and A_fd -> Xf (substep 0): right-looking
 // Cholesky of both in place in Xp / Xf, lower-triangular inverses Y into
-// the J6 / G workspace, then X = Yᵀ Y.
+// the J6 / G workspace, then X = Yᵀ Y, each entry rounded to bfloat16 as
+// it is written under BF16 (K2b).
+template <bool BF16>
 HD void exact_inverses(float* sm, float* ws, int tid, int nth) {
   float* diag = sm + SM_DIAG;
   for (int t = tid; t < 2 * NV * NV; t += nth) {
@@ -419,6 +481,7 @@ HD void exact_inverses(float* sm, float* ws, int tid, int nth) {
     float* X = ws + (m ? W_XF : W_XP);
     float s = 0.0f;
     for (int k = i; k < NV; ++k) s += Y[k * NV + i] * Y[k * NV + j];
+    if (BF16) s = round_bf16(s);
     X[i * NV + j] = s;
     X[j * NV + i] = s;
   }
@@ -430,13 +493,14 @@ HD void exact_inverses(float* sm, float* ws, int tid, int nth) {
 enum { PART_FULL = 0, PART_HEAD = 1, PART_TAIL = 2 };
 
 // Substeps of one env. The head stores Xp, Xf to X (env-major, Xp then
-// Xf); the tail loads them from X. The env's model is row seq_idx[env] of
-// the library Plib (row 0 without seq_idx). `ws` is the env's matrix
+// Xf); the tail loads them from X: float32, or the 16 bits of each
+// bfloat16 under BF16 (K2b). The env's model is row seq_idx[env] of the
+// library Plib (row 0 without seq_idx). `ws` is the env's matrix
 // workspace: `sm` itself at 24 bodies, its slice of device memory on a
 // big tree. EXT (K1f) reads the explicit wrench `vfx_in` (B, 9·NB) and
 // the per-dof gain scales `ksc_in` (B, 2, NV) where the int table asks
 // for them; without EXT both are null and unread.
-template <bool EXT>
+template <bool EXT, bool BF16>
 HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
                          const float* __restrict__ Plib,
                          const int* __restrict__ seq_idx,
@@ -499,7 +563,9 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
     sm[SM_TB + t] = tb_in[(size_t)env * NDOF + t];
   if (part == PART_TAIL)
     for (int t = tid; t < 2 * NV * NV; t += nth)
-      ws[W_XP + t] = X[(size_t)env * 2 * NV * NV + t];
+      ws[W_XP + t] = BF16 ? bf16_float(reinterpret_cast<const uint16_t*>(
+                                X)[(size_t)env * 2 * NV * NV + t])
+                          : X[(size_t)env * 2 * NV * NV + t];
   SYNC();
 
   const int s_begin = part == PART_TAIL ? 1 : 0;
@@ -979,10 +1045,11 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
 
     // the inverses overwrite J6 and G, which nothing reads again before
     // the next substep's phase E rebuilds them: so also at I_REFRESH
-    if (s == 0 || s == I[I_REFRESH]) exact_inverses(sm, ws, tid, nth);
+    if (s == 0 || s == I[I_REFRESH]) exact_inverses<BF16>(sm, ws, tid, nth);
 
     // -- stable PD: q̈_des, torques, forward dynamics -------------------
-    pcg(sm, ws + W_APD, ws + W_XP, sm + SM_PDRHS, I[I_PD_ITERS], tid, nth);
+    pcg<BF16>(sm, ws + W_APD, ws + W_XP, sm + SM_PDRHS, I[I_PD_ITERS], tid,
+              nth);
     for (int t = tid; t < NV; t += nth) sm[SM_QACCD + t] = sm[SM_X + t];
     SYNC();
     for (int t = tid; t < NDOF; t += nth) {
@@ -993,7 +1060,8 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
       sm[SM_RHS + j] += clampf(tau, -lim, lim);
     }
     SYNC();
-    pcg(sm, ws + W_AFD, ws + W_XF, sm + SM_RHS, I[I_FD_ITERS], tid, nth);
+    pcg<BF16>(sm, ws + W_AFD, ws + W_XF, sm + SM_RHS, I[I_FD_ITERS], tid,
+              nth);
 
     // -- integrate: semi-implicit Euler, quaternion root ----------------
     for (int t = tid; t < NV; t += nth) qvel[t] = qvel[t] + dt * sm[SM_X + t];
@@ -1025,8 +1093,13 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
   }
 
   if (part == PART_HEAD)
-    for (int t = tid; t < 2 * NV * NV; t += nth)
-      X[(size_t)env * 2 * NV * NV + t] = ws[W_XP + t];
+    for (int t = tid; t < 2 * NV * NV; t += nth) {
+      if (BF16)
+        reinterpret_cast<uint16_t*>(X)[(size_t)env * 2 * NV * NV + t] =
+            bf16_bits(ws[W_XP + t]);
+      else
+        X[(size_t)env * 2 * NV * NV + t] = ws[W_XP + t];
+    }
   for (int t = tid; t < NQ; t += nth) qpos_out[(size_t)env * NQ + t] = qpos[t];
   for (int t = tid; t < NV; t += nth) qvel_out[(size_t)env * NV + t] = qvel[t];
 }
@@ -1064,7 +1137,7 @@ extern "C" int uhc_control_step_layout(int* out) {
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_kernel(KERNEL_ARGS) {
   extern __shared__ float sm[];
-  control_step_env<false>(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS,
+  control_step_env<false, false>(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS,
                           P, seq_idx, I, qpos_in, qvel_in, act_in, tb_in,
                           qpos_out, qvel_out, act_dim, rfc_rate, PART_FULL,
                           nullptr, nullptr, nullptr);
@@ -1074,7 +1147,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_f_kernel(KERNEL_ARGS, const float* __restrict__ vfx,
                       const float* __restrict__ ksc) {
   extern __shared__ float sm[];
-  control_step_env<true>(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS,
+  control_step_env<true, false>(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS,
                          P, seq_idx, I, qpos_in, qvel_in, act_in, tb_in,
                          qpos_out, qvel_out, act_dim, rfc_rate, PART_FULL,
                          nullptr, vfx, ksc);
@@ -1083,7 +1156,7 @@ control_step_f_kernel(KERNEL_ARGS, const float* __restrict__ vfx,
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_head_kernel(KERNEL_ARGS, float* __restrict__ X) {
   extern __shared__ float sm[];
-  control_step_env<false>(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS,
+  control_step_env<false, false>(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS,
                           P, seq_idx, I, qpos_in, qvel_in, act_in, tb_in,
                           qpos_out, qvel_out, act_dim, rfc_rate, PART_HEAD,
                           X, nullptr, nullptr);
@@ -1092,10 +1165,40 @@ control_step_head_kernel(KERNEL_ARGS, float* __restrict__ X) {
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_tail_kernel(KERNEL_ARGS, float* __restrict__ X) {
   extern __shared__ float sm[];
-  control_step_env<false>(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS,
+  control_step_env<false, false>(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS,
                           P, seq_idx, I, qpos_in, qvel_in, act_in, tb_in,
                           qpos_out, qvel_out, act_dim, rfc_rate, PART_TAIL,
                           X, nullptr, nullptr);
+}
+
+// K2b: K1 at a symmetric schedule (split=False), head and tail with the
+// bfloat16 preconditioner; X is (B, 2, NV, NV) bfloat16
+__global__ void __launch_bounds__(NTHREADS, 1)
+control_step_bf16_kernel(KERNEL_ARGS) {
+  extern __shared__ float sm[];
+  control_step_env<false, true>(blockIdx.x, threadIdx.x, blockDim.x, sm,
+                                ENV_WS, P, seq_idx, I, qpos_in, qvel_in,
+                                act_in, tb_in, qpos_out, qvel_out, act_dim,
+                                rfc_rate, PART_FULL, nullptr, nullptr,
+                                nullptr);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+control_step_head_bf16_kernel(KERNEL_ARGS, float* __restrict__ X) {
+  extern __shared__ float sm[];
+  control_step_env<false, true>(blockIdx.x, threadIdx.x, blockDim.x, sm,
+                                ENV_WS, P, seq_idx, I, qpos_in, qvel_in,
+                                act_in, tb_in, qpos_out, qvel_out, act_dim,
+                                rfc_rate, PART_HEAD, X, nullptr, nullptr);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+control_step_tail_bf16_kernel(KERNEL_ARGS, float* __restrict__ X) {
+  extern __shared__ float sm[];
+  control_step_env<false, true>(blockIdx.x, threadIdx.x, blockDim.x, sm,
+                                ENV_WS, P, seq_idx, I, qpos_in, qvel_in,
+                                act_in, tb_in, qpos_out, qvel_out, act_dim,
+                                rfc_rate, PART_TAIL, X, nullptr, nullptr);
 }
 
 template <typename Kernel, typename... Args>
@@ -1114,7 +1217,8 @@ static int launch(Kernel kernel, int B, void* stream, const float* W,
 // (0 = ok). P is the (S, P_TOTAL) model library, seq_idx (B,) int32 rows
 // of it or null (row 0 for every env). W is the matrix workspace, B ×
 // W_TOTAL float32 on a big tree (null at 24 bodies). X is (B, 2, NV, NV)
-// float32: written by the head, read by the tail.
+// float32 (bfloat16 for the _bf16 entries, K2b): written by the head, read
+// by the tail.
 extern "C" int uhc_control_step(const float* P, const int* seq_idx,
                                 const int* I, const float* qpos,
                                 const float* qvel, const float* act,
@@ -1163,10 +1267,42 @@ extern "C" int uhc_control_step_tail(const float* P, const int* seq_idx,
                 seq_idx, I, qpos, qvel, act, tb, qpos_out, qvel_out, W,
                 act_dim, rfc_rate, X);
 }
+
+extern "C" int uhc_control_step_bf16(const float* P, const int* seq_idx,
+                                     const int* I, const float* qpos,
+                                     const float* qvel, const float* act,
+                                     const float* tb, float* qpos_out,
+                                     float* qvel_out, float* W, int B,
+                                     int act_dim, float rfc_rate,
+                                     void* stream) {
+  return launch(control_step_bf16_kernel, B, stream, W, SM_TOTAL, P,
+                seq_idx, I, qpos, qvel, act, tb, qpos_out, qvel_out, W,
+                act_dim, rfc_rate);
+}
+
+extern "C" int uhc_control_step_head_bf16(
+    const float* P, const int* seq_idx, const int* I, const float* qpos,
+    const float* qvel, const float* act, const float* tb, float* qpos_out,
+    float* qvel_out, float* W, void* X, int B, int act_dim, float rfc_rate,
+    void* stream) {
+  return launch(control_step_head_bf16_kernel, B, stream, W, SM_TOTAL, P,
+                seq_idx, I, qpos, qvel, act, tb, qpos_out, qvel_out, W,
+                act_dim, rfc_rate, (float*)X);
+}
+
+extern "C" int uhc_control_step_tail_bf16(
+    const float* P, const int* seq_idx, const int* I, const float* qpos,
+    const float* qvel, const float* act, const float* tb, float* qpos_out,
+    float* qvel_out, float* W, void* X, int B, int act_dim, float rfc_rate,
+    void* stream) {
+  return launch(control_step_tail_bf16_kernel, B, stream, W, SM_TOTAL, P,
+                seq_idx, I, qpos, qvel, act, tb, qpos_out, qvel_out, W,
+                act_dim, rfc_rate, (float*)X);
+}
 #else
 // Host build: every env on one thread, in order, with one workspace that
 // each env reuses (shared memory itself at 24 bodies).
-template <bool EXT>
+template <bool EXT, bool BF16 = false>
 static int run_host(const float* P, const int* seq_idx, const int* I,
                     const float* qpos, const float* qvel, const float* act,
                     const float* tb, float* qpos_out, float* qvel_out, int B,
@@ -1176,9 +1312,9 @@ static int run_host(const float* P, const int* seq_idx, const int* I,
   std::vector<float> wbuf(BIG_TREE ? W_TOTAL : 0);
   float* ws = BIG_TREE ? wbuf.data() : sm.data();
   for (int env = 0; env < B; ++env)
-    control_step_env<EXT>(env, 0, 1, sm.data(), ws, P, seq_idx, I, qpos,
-                          qvel, act, tb, qpos_out, qvel_out, act_dim,
-                          rfc_rate, part, X, vfx, ksc);
+    control_step_env<EXT, BF16>(env, 0, 1, sm.data(), ws, P, seq_idx, I,
+                                qpos, qvel, act, tb, qpos_out, qvel_out,
+                                act_dim, rfc_rate, part, X, vfx, ksc);
   return 0;
 }
 
@@ -1219,5 +1355,39 @@ extern "C" int uhc_control_step_tail_host(
   return run_host<false>(P, seq_idx, I, qpos, qvel, act, tb, qpos_out,
                          qvel_out, B, act_dim, rfc_rate, PART_TAIL, X,
                          nullptr, nullptr);
+}
+
+extern "C" int uhc_control_step_bf16_host(
+    const float* P, const int* seq_idx, const int* I, const float* qpos,
+    const float* qvel, const float* act, const float* tb, float* qpos_out,
+    float* qvel_out, int B, int act_dim, float rfc_rate) {
+  return run_host<false, true>(P, seq_idx, I, qpos, qvel, act, tb,
+                               qpos_out, qvel_out, B, act_dim, rfc_rate,
+                               PART_FULL, nullptr, nullptr, nullptr);
+}
+
+extern "C" int uhc_control_step_head_bf16_host(
+    const float* P, const int* seq_idx, const int* I, const float* qpos,
+    const float* qvel, const float* act, const float* tb, float* qpos_out,
+    float* qvel_out, void* X, int B, int act_dim, float rfc_rate) {
+  return run_host<false, true>(P, seq_idx, I, qpos, qvel, act, tb,
+                               qpos_out, qvel_out, B, act_dim, rfc_rate,
+                               PART_HEAD, (float*)X, nullptr, nullptr);
+}
+
+// K2b's rounding alone over n floats, as 16-bit words (the host build's
+// check of bf16_bits against torch's .to(bfloat16)).
+extern "C" int uhc_bf16_bits_host(const float* x, uint16_t* out, int n) {
+  for (int i = 0; i < n; ++i) out[i] = bf16_bits(x[i]);
+  return 0;
+}
+
+extern "C" int uhc_control_step_tail_bf16_host(
+    const float* P, const int* seq_idx, const int* I, const float* qpos,
+    const float* qvel, const float* act, const float* tb, float* qpos_out,
+    float* qvel_out, void* X, int B, int act_dim, float rfc_rate) {
+  return run_host<false, true>(P, seq_idx, I, qpos, qvel, act, tb,
+                               qpos_out, qvel_out, B, act_dim, rfc_rate,
+                               PART_TAIL, (float*)X, nullptr, nullptr);
 }
 #endif

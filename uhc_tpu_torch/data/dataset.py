@@ -99,7 +99,8 @@ def _pose_to_qpose(topo: Topology, model: Model, pose_aa, trans, device):
     """The pose vector through the topology's converter: the 52-body
     SMPL-H tree takes all 156 dofs, a 72-dof SMPL clip on it gets flat
     hands (its two hand-root joints dropped, the finger chains zero); the
-    24-body tree takes 72 dofs (a SMPL-H pose loses its hands)."""
+    55-body SMPL-X tree takes 165-dof poses only; the 24-body tree takes
+    72 dofs (a SMPL-H pose loses its hands)."""
     root_offset = model.body_pos[0].cpu().numpy()
     if topo.nbody == 52:
         from uhc_tpu_torch.smpl.smplh import smplh_to_qpose
@@ -109,6 +110,12 @@ def _pose_to_qpose(topo: Topology, model: Model, pose_aa, trans, device):
                 [pose_aa[:, :66],
                  np.zeros((len(pose_aa), 90), pose_aa.dtype)], -1)
         return smplh_to_qpose(pose_aa, root_offset, trans, device=device)
+    if topo.nbody == 55:
+        from uhc_tpu_torch.smpl.smplh import smplx_to_qpose
+
+        if pose_aa.shape[-1] != 165:
+            raise ValueError("55-body topology needs 165-dof SMPL-X poses")
+        return smplx_to_qpose(pose_aa, root_offset, trans, device=device)
     return smpl_to_qpose(_body_dofs(pose_aa), root_offset, trans,
                          device=device)
 

@@ -7,7 +7,8 @@ stable-PD substeps at 450 Hz; `make_env_step_batched` routes them through
 a hand-written CUDA control-step kernel (K1 `physics.control_step`, or K2
 `physics.control_step_split` under UHC_TPU_LANE=0; K1f for explicit RFC
 and per-joint meta-PD; K1d on the 48-body masterfoot and 52-body SMPL-H
-trees) when given the model to bake, else through the plain PCG chain.
+trees; K2 on the 55-body SMPL-X) when given the model to bake, else
+through the plain PCG chain.
 Obs, reward and termination read the tree's sizes from its topology.
 
 The model is shared, or a per-sequence library (shape-conditioned or
@@ -70,8 +71,10 @@ PER_SEQ_KEYS = ("len", "height_lb", "head_height_lb", "beta", "gender",
                 "shape_obs", "weight")
 
 # Trees with a control-step kernel, as the JAX package routes them
-# (uhc_tpu/envs/humanoid_im.py:873-877): the 24-body SMPL humanoid, and
-# 33 to 52 bodies on the big-tree path (masterfoot, SMPL-H).
+# (uhc_tpu/envs/humanoid_im.py:873-877,953-957): the 24-body SMPL humanoid,
+# 33 to 52 bodies on the lane kernel's big-tree path (masterfoot, SMPL-H),
+# and more than 52 (SMPL-X) on the head/tail kernel only. 25 to 32 bodies
+# (the lane kernel's K1 layout at those sizes) are not ported.
 SMPL_BODIES, LANE_BIG_BODIES = 24, range(33, 53)
 
 
@@ -335,14 +338,20 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
     - 33 to 52 bodies (masterfoot, SMPL-H): K1d, the big-tree build of
       the same kernel, with the symmetric (2, 2) schedule; UHC_TPU_LANE=0
       or UHC_TPU_LANE_BIG=0 gives K2 on the big tree at PCG-2;
+    - more than 52 bodies (the 55-body SMPL-X): K2 on that tree's build at
+      PCG-2 whatever UHC_TPU_LANE / UHC_TPU_LANE_BIG say (the JAX lane
+      route stops at 52); a model library there runs the plain chain, as
+      the JAX package runs XLA;
     - explicit RFC or per-joint meta-PD (`meta_pd_joint`) run on the
       lane route only: K1f, the same `ControlStep` with its wrench and
       per-dof gain operands, at the tree's schedule ((1, 2) on 24 bodies,
       (2, 2) on 33 to 52). Explicit RFC over a model library and either
-      of them under UHC_TPU_LANE=0 (or UHC_TPU_LANE_BIG=0 on a big tree)
-      run the plain chain, where the JAX package runs XLA
-      (`fused_compatible`; the hull tables are per shape);
-    - any other size raises NotImplementedError.
+      of them under UHC_TPU_LANE=0 (or UHC_TPU_LANE_BIG=0 on a big tree,
+      or on a tree of more than 52 bodies) run the plain chain, where the
+      JAX package runs XLA (`fused_compatible`; the hull tables are per
+      shape);
+    - 25 to 32 bodies raise NotImplementedError (the JAX lane kernel's K1
+      at those sizes is not ported), as does any tree under 24.
     UHC_TPU_MERGEJ6=1, which makes the JAX lane kernel project every
     wrench in one contraction, picks the same kernel here: K1's phase G
     already projects each body's bias and external wrench in one pass.
@@ -356,11 +365,12 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
     kernel = None
     if fused_model is not None:
         big = topo.nbody in LANE_BIG_BODIES
-        if topo.nbody != SMPL_BODIES and not big:
+        split_only = topo.nbody >= LANE_BIG_BODIES.stop
+        if topo.nbody != SMPL_BODIES and not (big or split_only):
             raise NotImplementedError(
                 f"no control-step kernel for a {topo.nbody}-body tree (the "
-                f"port has {SMPL_BODIES} and {LANE_BIG_BODIES.start}-"
-                f"{LANE_BIG_BODIES.stop - 1} bodies)")
+                f"port has {SMPL_BODIES}, {LANE_BIG_BODIES.start}-"
+                f"{LANE_BIG_BODIES.stop - 1} and more bodies)")
         library = model_is_batched(fused_model)
         if library:
             from uhc_tpu_torch.physics.control_step import PE_MODEL_LEAVES
@@ -372,14 +382,17 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
                 raise ValueError(f"model library leaves {extra} differ per "
                                  "sequence; the per-env kernel takes "
                                  f"{PE_MODEL_LEAVES}")
-        lane = os.environ.get("UHC_TPU_LANE", "1") == "1" and (
+        lane = not split_only and os.environ.get(
+            "UHC_TPU_LANE", "1") == "1" and (
             not big or os.environ.get("UHC_TPU_LANE_BIG", "1") == "1")
         from uhc_tpu_torch.physics.control_step import lane_only
 
         # where the JAX package runs its XLA chain: explicit RFC or
-        # per-joint meta-PD off the lane route, explicit RFC over a library
-        on_xla = lane_only(cfg) and (
-            not lane or (library and S.explicit_rfc(cfg)))
+        # per-joint meta-PD off the lane route, explicit RFC over a
+        # library, a library on the head/tail-only trees
+        on_xla = (lane_only(cfg) and (
+            not lane or (library and S.explicit_rfc(cfg)))) or (
+            split_only and library)
         if lane and not on_xla:
             from uhc_tpu_torch.physics.control_step import ControlStep
 

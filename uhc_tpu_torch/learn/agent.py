@@ -3,9 +3,10 @@ CopycatAgent) on the 24-body stand-in humanoid or a tree built from it:
 the 52-body SMPL-H (`env.robot_model == "smplh"`, anthropometric finger
 chains, `smpl.smplh.smplh_model`) or the 48-body masterfoot
 (`env.masterfoot`, `smpl.masterfoot.masterfoot_model`, whose converter
-remaps the 24-body clips onto the tree and gives its diff weights). On
-CUDA a big tree runs through K1d, or K1f under explicit RFC or per-joint
-meta-PD.
+remaps the 24-body clips onto the tree and gives its diff weights), each
+with the enlarged feet of `env.bigfoot` (`smpl.masterfoot.bigfoot_model`,
+set by a YAML whose mujoco_model names "bigfoot"). On CUDA a big tree
+runs through K1d, or K1f under explicit RFC or per-joint meta-PD.
 
 With a shape-conditioned config (`has_shape`) every clip gets its own body
 from its SMPL betas (`data.dataset.build_shaped_library`): real SMPL model
@@ -83,15 +84,6 @@ class CopycatAgent:
         self.topo, model_np = load_fixture_humanoid()
         self.topo, model_np, self.converter, jpw, bdw = robot_family(
             self.topo, model_np, self.env_cfg)
-        if self.topo.nbody != 24 and (self.env_cfg.has_shape
-                                      or dr_variants >= 2
-                                      or smpl_data is not None):
-            # the JAX agent refuses dr_variants on these trees
-            # (uhc_tpu/learn/agent.py:142-144); a shape library on them
-            # and SMPL-H model data (smplh_model_from_data) are not ported
-            raise NotImplementedError(
-                "model libraries and SMPL model data are supported on the "
-                "24-body SMPL family")
         self.model = model_from_numpy(model_np, dev)
         (self.expert_lib, self.seq_keys, self.sim_model,
          self.smpl_data) = build_library(
@@ -314,9 +306,10 @@ def robot_family(topo, model, env_cfg):
     """The tree the config trains on, from the 24-body humanoid ->
     (topo, model with numpy leaves, converter or None, jpos_diffw,
     body_diffw), as uhc_tpu/learn/agent.py:69-106,171-191 builds it:
-    SMPL-H for robot_model "smplh", then masterfoot's sole bodies when
-    `masterfoot` is set (its converter remaps 24-body clips onto the tree
-    and gives the diff weights)."""
+    SMPL-H for robot_model "smplh", then the enlarged feet of `bigfoot`
+    (the same tree), then masterfoot's sole bodies when `masterfoot` is
+    set (its converter remaps 24-body clips onto the tree and gives the
+    diff weights)."""
     converter = None
     if env_cfg.robot_model == "smplh":
         from uhc_tpu_torch.smpl.smplh import (smplh_diff_weights,
@@ -327,6 +320,10 @@ def robot_family(topo, model, env_cfg):
         jpw, bdw = smplh_diff_weights()
     else:
         jpw, bdw = default_diff_weights()
+    if env_cfg.bigfoot:
+        from uhc_tpu_torch.smpl.masterfoot import bigfoot_model
+
+        model = bigfoot_model(topo, model)
     if env_cfg.masterfoot:
         from uhc_tpu_torch.smpl.masterfoot import masterfoot_model
 
@@ -348,6 +345,14 @@ def build_library(topo, model, env_cfg, seqs, smpl_data=None,
     the converter's tree). smpl_data (one SMPLData, the neutral one of a
     gendered set) is what the eval's vertex metrics use, None without
     model data."""
+    if topo.nbody != 24 and (env_cfg.has_shape or dr_variants >= 2
+                             or smpl_data is not None):
+        # the JAX agent refuses dr_variants on these trees
+        # (uhc_tpu/learn/agent.py:142-144); a shape library on them and
+        # SMPL-H model data (smplh_model_from_data) are not ported
+        raise NotImplementedError(
+            "model libraries and SMPL model data are supported on the "
+            "24-body SMPL family")
     if env_cfg.has_shape:
         shape_data = load_shape_data(topo, model, smpl_data)
         lib, keys, sim_model = build_shaped_library(

@@ -43,11 +43,23 @@ as at substep 0; every kernel of the wrapper takes it (the int table's
 I_REFRESH), and the plain version is `solver.do_simulation(...,
 refresh_at=k)`.
 
+K2b, the bfloat16 preconditioner (pallas_substep.py:284
+make_fused_do_simulation with precond_bf16=True, split=False):
+`ControlStep(..., precond_bf16=True)` at a symmetric schedule runs
+`control_step_bf16_kernel`, the same physics with the exact inverses
+rounded to bfloat16 and every preconditioner product's vector too, on any
+tree and over a model library; its plain version is
+`solver.do_simulation(..., precond_bf16=True)`. It is refused at an
+asymmetric schedule, with K1f's terms and with refresh_at, as the JAX
+package's v2 kernel has no such mode. The split=True form is
+`control_step_split.ControlStepSplit(..., precond_bf16=True)`.
+
 `LAUNCHES` counts kernel launches (not plain-version calls) of this
 wrapper and of K2's (`control_step_split`), keyed by (entry, bodies,
 library): entry "step" (K1, K1e, K1d), "k1f" (K1f), either with
-"_refresh" where K1g's refresh_at is set, "head" or "tail" (K2), the
-tree's body count, and whether a model library was given.
+"_refresh" where K1g's refresh_at is set, "head" or "tail" (K2), each of
+"step", "head" and "tail" with "_bf16" under K2b, the tree's body count,
+and whether a model library was given.
 `reset_launches` empties it.
 """
 from __future__ import annotations
@@ -162,13 +174,14 @@ def pack_tables(topo: Topology, cfg, model, pcg_iters=(1, 2),
 
 def control_step_reference(topo: Topology, cfg, model: Model, qpos, qvel,
                            actions, target_base, rfc_rate=1.0,
-                           pcg_iters=(1, 2), seq_idx=None, refresh_at=None):
+                           pcg_iters=(1, 2), seq_idx=None, refresh_at=None,
+                           precond_bf16: bool = False):
     """The plain PyTorch version of the kernel (same schedule, the same
-    refresh substep); a model library is gathered by `seq_idx` first
-    (K1e)."""
+    refresh substep, the same preconditioner rounding); a model library is
+    gathered by `seq_idx` first (K1e)."""
     return S.do_simulation(topo, cfg, env_models(model, seq_idx), qpos,
                            qvel, actions, target_base, rfc_rate, pcg_iters,
-                           refresh_at=refresh_at)
+                           refresh_at=refresh_at, precond_bf16=precond_bf16)
 
 
 def uses_k1f(cfg) -> bool:
@@ -218,12 +231,22 @@ class ControlStep:
     """The kernel wrapper with the model baked in."""
 
     def __init__(self, topo: Topology, cfg, model: Model,
-                 pcg_iters=(1, 2), refresh_at=None):
+                 pcg_iters=(1, 2), refresh_at=None,
+                 precond_bf16: bool = False):
         if refresh_at is not None and not 0 < refresh_at < cfg.frame_skip:
             raise ValueError(f"refresh_at={refresh_at}: a substep in [1, "
                              f"{cfg.frame_skip})")
+        pd_iters, fd_iters = ((pcg_iters, pcg_iters)
+                              if isinstance(pcg_iters, int) else pcg_iters)
+        if precond_bf16 and (pd_iters != fd_iters or uses_k1f(cfg)
+                             or refresh_at is not None):
+            # JAX's v2 kernel (pallas_substep.py) is the only one with the
+            # flag: one PCG count, implicit RFC, per-substep gains
+            raise ValueError("precond_bf16 takes a symmetric PCG schedule "
+                             "and neither explicit RFC, per-joint meta-PD "
+                             "nor refresh_at")
         self.topo, self.cfg, self.pcg_iters = topo, cfg, pcg_iters
-        self.refresh_at = refresh_at
+        self.refresh_at, self.precond_bf16 = refresh_at, precond_bf16
         self.params, self.itab = pack_tables(topo, cfg, model, pcg_iters,
                                              refresh_at)
         # rows of the model library (K1e), None for a shared model (K1)
@@ -380,7 +403,7 @@ class ControlStep:
             return control_step_reference(
                 self.topo, self.cfg, self.model_on("cpu"), qpos, qvel,
                 actions, target_base, rfc_rate, self.pcg_iters, seq_idx,
-                self.refresh_at)
+                self.refresh_at, self.precond_bf16)
         if qpos.device.type != "cuda":
             raise ValueError(f"unsupported device {qpos.device}")
         B = self.check_inputs(qpos, qvel, actions, target_base)
@@ -395,7 +418,9 @@ class ControlStep:
                                   target_base, qpos_out, qvel_out, rfc_rate,
                                   seq_idx, stream)
         else:
-            rc = lib.uhc_control_step(
+            entry = ("uhc_control_step_bf16" if self.precond_bf16
+                     else "uhc_control_step")
+            rc = getattr(lib, entry)(
                 P.data_ptr(), self.seq_ptr(seq_idx), I.data_ptr(),
                 qpos.data_ptr(), qvel.data_ptr(), actions.data_ptr(),
                 target_base.data_ptr(), qpos_out.data_ptr(),
@@ -405,7 +430,8 @@ class ControlStep:
             raise RuntimeError(f"control_step kernel launch failed: CUDA "
                                f"error {rc}")
         self.count_launch(("k1f" if self.k1f else "step")
-                          + ("" if self.refresh_at is None else "_refresh"))
+                          + ("" if self.refresh_at is None else "_refresh")
+                          + ("_bf16" if self.precond_bf16 else ""))
         return qpos_out, qvel_out
 
 

@@ -6,7 +6,10 @@ A_fd by blocked Cholesky against the identity; every substep then solves
 both systems by preconditioned conjugate gradient warm-started from those
 inverses, with `(pd_iters, fd_iters)` iterations. `substeps` runs a range
 of them: substep 0 alone returns the inverses (the plain version of K2's
-head), substeps 1.. take them (its tail).
+head), substeps 1.. take them (its tail). With `precond_bf16` (the plain
+version of K2b) the inverses are rounded to bfloat16 as they are made, and
+every preconditioner product rounds its vector to bfloat16 first, in the
+chain's own dtype otherwise.
 """
 from __future__ import annotations
 
@@ -34,11 +37,22 @@ def _dot(a, b):
     return (a * b).sum(-1, keepdim=True)
 
 
-def pcg_solve(A, b, X, iters: int = 5):
-    """Preconditioned CG with warm start x₀ = X·b (X ≈ A⁻¹)."""
-    x = _mv(X, b)
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """Each entry rounded to the nearest bfloat16 (ties to even), kept in
+    t's dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def pcg_solve(A, b, X, iters: int = 5, precond_bf16: bool = False):
+    """Preconditioned CG with warm start x₀ = X·b (X ≈ A⁻¹). With
+    `precond_bf16` (X holding bfloat16 values) every product with X rounds
+    its vector to bfloat16 first (pallas_substep.py `_mv_pre`)."""
+    def pre(v):
+        return _mv(X, round_bf16(v) if precond_bf16 else v)
+
+    x = pre(b)
     r = b - _mv(A, x)
-    z = _mv(X, r)
+    z = pre(r)
     p = z
     rz = _dot(r, z)
     for _ in range(iters):
@@ -46,7 +60,7 @@ def pcg_solve(A, b, X, iters: int = 5):
         alpha = rz / (_dot(p, Ap) + 1e-12)
         x = x + alpha * p
         r = r - alpha * Ap
-        z = _mv(X, r)
+        z = pre(r)
         rz_new = _dot(r, z)
         beta = rz_new / (rz + 1e-12)
         p = z + beta * p
@@ -147,27 +161,36 @@ def explicit_wrench(topo: Topology, cfg, model: Model, actions, ndof: int,
 
 def do_simulation(topo: Topology, cfg, model: Model, qpos, qvel, actions,
                   target_base, rfc_rate, pcg_iters=(1, 2), trace=None,
-                  refresh_at=None):
+                  refresh_at=None, precond_bf16: bool = False,
+                  inverses=None):
     """One control step (frame_skip substeps) for a batch of envs; `model`
     is shared or per env (`env_models` of a library by seq_idx).
 
     `pcg_iters` is an int or a (pd_iters, fd_iters) pair. `refresh_at=k`
     computes the exact inverse pair again at substep k, from that
     substep's systems (the plain version of K1g; tools/solver_variants.py
-    `sched_pcg`). A `trace` list receives each substep's (B, nb)
+    `sched_pcg`). `precond_bf16` rounds the preconditioner to bfloat16
+    (the plain version of K2b); given `inverses` (Xpd, Xfd) stand in for
+    substep 0's. A `trace` list receives each substep's (B, nb)
     ground-contact sets."""
     return substeps(topo, cfg, model, qpos, qvel, actions, target_base,
-                    rfc_rate, pcg_iters, 0, cfg.frame_skip, trace=trace,
-                    refresh_at=refresh_at)[:2]
+                    rfc_rate, pcg_iters, 0, cfg.frame_skip,
+                    inverses=inverses, trace=trace, refresh_at=refresh_at,
+                    precond_bf16=precond_bf16)[:2]
 
 
 def substeps(topo: Topology, cfg, model: Model, qpos, qvel, actions,
              target_base, rfc_rate, pcg_iters, start: int, stop: int,
-             inverses=None, trace=None, refresh_at=None):
+             inverses=None, trace=None, refresh_at=None,
+             precond_bf16: bool = False):
     """Substeps [start, stop) of one control step -> (qpos, qvel,
     (Xpd, Xfd)). A range that starts at 0 computes the exact inverses at
-    substep 0; a later start takes them as `inverses`. Substep
-    `refresh_at` computes them again."""
+    substep 0 unless `inverses` are given in their place (a kernel's own
+    preconditioner, for instance); a later start takes them as
+    `inverses`. Substep `refresh_at` computes them again. `precond_bf16`
+    rounds the inverses to bfloat16 as they are made and every
+    preconditioner product's vector (K2b); given inverses must then hold
+    bfloat16 values."""
     check_supported(cfg)
     pd_iters, fd_iters = ((pcg_iters, pcg_iters)
                           if isinstance(pcg_iters, int) else pcg_iters)
@@ -176,9 +199,9 @@ def substeps(topo: Topology, cfg, model: Model, qpos, qvel, actions,
     B = qpos.shape[0]
     model = model_per_env(model, B)
     vf_body = explicit_wrench(topo, cfg, model, actions, ndof, vf_dim)
-    if (start == 0) == (inverses is not None):
+    if start > 0 and inverses is None:
         raise ValueError("the inverses come from substep 0: pass them "
-                         "exactly when start > 0")
+                         "when start > 0")
     Xpd, Xfd = (None, None) if inverses is None else inverses
     for i in range(start, stop):
         if cfg.action_v == 1:
@@ -193,13 +216,16 @@ def substeps(topo: Topology, cfg, model: Model, qpos, qvel, actions,
                          cfg.self_collision, vf_body, vf_gate_mode(cfg))
         if trace is not None:
             trace.append(out["contact_active"].cpu().numpy())
-        if i == 0 or i == refresh_at:
+        if (i == 0 and inverses is None) or i == refresh_at:
             Xpd, Xfd = exact_inverse(out["A_pd"]), exact_inverse(out["A_fd"])
-        qacc_des = pcg_solve(out["A_pd"], out["pd_rhs"], Xpd, pd_iters)
+            if precond_bf16:
+                Xpd, Xfd = round_bf16(Xpd), round_bf16(Xfd)
+        qacc_des = pcg_solve(out["A_pd"], out["pd_rhs"], Xpd, pd_iters,
+                             precond_bf16)
         tau = E.pd_torque_from_accel(model, qvel, out["qpos_err"], kp, kd,
                                      qacc_des)
         rhs = out["rhs_base"].clone()
         rhs[:, 6:] += tau
-        qacc = pcg_solve(out["A_fd"], rhs, Xfd, fd_iters)
+        qacc = pcg_solve(out["A_fd"], rhs, Xfd, fd_iters, precond_bf16)
         qpos, qvel = E.integrate(model, qpos, qvel, qacc)
     return qpos, qvel, (Xpd, Xfd)

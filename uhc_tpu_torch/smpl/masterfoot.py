@@ -1,6 +1,7 @@
 """Masterfoot: the 48-body foot-model variant as a programmatic Model
-transform (PyTorch twin of uhc_tpu.smpl.masterfoot masterfoot_topology /
-masterfoot_model).
+transform, and bigfoot, the enlarged-feet variant of the same tree
+(PyTorch twin of uhc_tpu.smpl.masterfoot masterfoot_topology /
+masterfoot_model / bigfoot_model).
 
 Reference masterfoot (uhc/smpllib/smpl_robot.py:1336 add_masterfoot,
 config/masterfoot/*.yml `masterfoot: true`): each ankle body gets 12
@@ -15,6 +16,8 @@ the body order stays depth-first and every subtree stays one contiguous
 index range (which the control-step kernel's sums rely on).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -171,3 +174,20 @@ def masterfoot_model(topo: Topology, model: Model,
         "contact_mask": cmask, "sc_point": sc_point,
         "sc_radius": sc_radius})
     return new_topo, new_model, conv
+
+
+def bigfoot_model(topo: Topology, model: Model, scale: float = 1.6) -> Model:
+    """Enlarged feet (config/bigfoot lineage): the L/R_Ankle and L/R_Toe
+    bodies' contact points and inertial offsets scaled by `scale` about
+    each body origin, their mass by scale³ and inertia by scale⁵; the
+    tree is unchanged. Numpy leaves, the JAX package's arithmetic."""
+    names = list(topo.body_names)
+    feet = [names.index(n) for n in ("L_Ankle", "R_Ankle", "L_Toe", "R_Toe")]
+    s = np.ones(topo.nbody, np.float32)
+    s[feet] = scale
+    return dataclasses.replace(
+        model,
+        contact_point=np.asarray(model.contact_point) * s[:, None, None],
+        body_ipos=np.asarray(model.body_ipos) * s[:, None],
+        body_mass=np.asarray(model.body_mass) * s**3,
+        body_inertia=np.asarray(model.body_inertia) * s[:, None]**5)

@@ -1,6 +1,7 @@
-"""SMPL-H: the 52-body humanoid with articulated hands (PyTorch twin of
-uhc_tpu.smpl.smplh smplh_topology / default_finger_offsets / smplh_model /
-smplh_to_qpose / smplh_diff_weights).
+"""SMPL-H: the 52-body humanoid with articulated hands, and SMPL-X, the
+55-body one with a jaw and two eyes (PyTorch twin of uhc_tpu.smpl.smplh
+smplh_topology / default_finger_offsets / smplh_model / smplh_to_qpose /
+smplh_diff_weights / smplx_topology / smplx_model / smplx_to_qpose).
 
 Reference: uhc/smpllib/smpl_parser.py:42 SMPLH_BONE_ORDER_NAMES; per-finger
 gain tables uhc/smpllib/smpl_mujoco.py:93-200 (the port's copy:
@@ -14,8 +15,16 @@ every finger chain, like every subtree, is one contiguous index range.
 
 No SMPL-H model data is in the repository, so finger joint offsets are
 anthropometric chains derived from the base model's wrist->hand offset.
+
+SMPL-X (reference smpl_parser.py:97 SMPLX_BONE_ORDER_NAMES) inserts Jaw,
+L_Eye_Smplhf and R_Eye_Smplhf after the 22 body joints, all three hanging
+off the Head: pose vectors are 165 = 55 × 3 dofs, and the bodies are the
+SMPL-H build plus three face micro-bodies at default offsets from the
+Head (no SMPL-X model data is in the repository either).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -47,9 +56,11 @@ SMPLH_PARENTS = np.array(
 NUM_SMPLH_BODIES = 52
 
 
-def _dfs_order():
-    children = {i: [] for i in range(-1, NUM_SMPLH_BODIES)}
-    for i, p in enumerate(SMPLH_PARENTS):
+def _dfs_order_generic(parents) -> np.ndarray:
+    """Depth-first order of a native-order parent array, children in
+    native order: mujoco index -> native index."""
+    children = {i: [] for i in range(-1, len(parents))}
+    for i, p in enumerate(parents):
         children[int(p)].append(i)
     order = []
 
@@ -59,10 +70,10 @@ def _dfs_order():
             visit(c)
 
     visit(0)
-    return order
+    return np.asarray(order, np.int32)
 
 
-SMPLH_2_MUJOCO = np.array(_dfs_order(), np.int32)      # mujoco idx -> native
+SMPLH_2_MUJOCO = _dfs_order_generic(SMPLH_PARENTS)     # mujoco idx -> native
 MUJOCO_2_SMPLH = np.argsort(SMPLH_2_MUJOCO).astype(np.int32)
 SMPLH_MUJOCO_NAMES = [SMPLH_BONE_ORDER_NAMES[i] for i in SMPLH_2_MUJOCO]
 SMPLH_MUJOCO_PARENTS = np.array(
@@ -209,7 +220,7 @@ def smplh_to_qpose(pose_aa, root_offset, trans=None, count_offset=True,
                               device=device)
     T = pose_aa.shape[0]
     if trans is None:
-        trans = torch.zeros((T, 3), device=device)
+        trans = np.zeros((T, 3), np.float32)
         trans[:, 2] = DEFAULT_Z
     trans = torch.as_tensor(np.asarray(trans), dtype=torch.float32,
                             device=device).reshape(T, 3)
@@ -235,3 +246,117 @@ def smplh_diff_weights():
 
     w = np.array([w_of(n) for n in SMPLH_MUJOCO_NAMES], np.float32)
     return w, w[1:]
+
+
+# ---- SMPL-X: 55 articulated bodies, SMPL-H + Jaw + eyes off the Head -----
+
+SMPLX_BONE_ORDER_NAMES = (SMPLH_BONE_ORDER_NAMES[:22]
+                          + ["Jaw", "L_Eye_Smplhf", "R_Eye_Smplhf"]
+                          + SMPLH_BONE_ORDER_NAMES[22:])
+
+# native parents: the SMPL-H body chain; Jaw and eyes hang off the Head
+# (15); finger indices shift by the three inserted face joints
+SMPLX_PARENTS = np.concatenate([
+    SMPLH_PARENTS[:22],
+    np.array([15, 15, 15], np.int32),
+    np.where(SMPLH_PARENTS[22:] >= 22, SMPLH_PARENTS[22:] + 3,
+             SMPLH_PARENTS[22:]),
+]).astype(np.int32)
+
+NUM_SMPLX_BODIES = 55
+
+SMPLX_2_MUJOCO = _dfs_order_generic(SMPLX_PARENTS)
+MUJOCO_2_SMPLX = np.argsort(SMPLX_2_MUJOCO).astype(np.int32)
+SMPLX_MUJOCO_NAMES = [SMPLX_BONE_ORDER_NAMES[i] for i in SMPLX_2_MUJOCO]
+SMPLX_MUJOCO_PARENTS = np.array(
+    [-1] + [int(MUJOCO_2_SMPLX[SMPLX_PARENTS[SMPLX_2_MUJOCO[i]]])
+            for i in range(1, NUM_SMPLX_BODIES)], np.int32)
+
+
+def smplx_topology() -> Topology:
+    return Topology(nbody=NUM_SMPLX_BODIES,
+                    parents=tuple(int(p) for p in SMPLX_MUJOCO_PARENTS),
+                    body_names=tuple(SMPLX_MUJOCO_NAMES))
+
+
+_FACE_OFFSETS = {          # defaults from the Head, body frame (m)
+    "Jaw": np.array([0.0, 0.0, 0.04], np.float32),
+    "L_Eye_Smplhf": np.array([0.03, 0.02, 0.06], np.float32),
+    "R_Eye_Smplhf": np.array([-0.03, 0.02, 0.06], np.float32),
+}
+
+
+def smplx_model(topo24: Topology, base_model: Model,
+                finger_offsets: dict | None = None) -> Model:
+    """The 55-body Model (numpy leaves): the SMPL-H build for every SMPL-H
+    body, and the jaw and eye micro-bodies off the Head (mass 0.05,
+    inertia 5e-6, no contact points, one small self-collision sphere,
+    gains kp 20 / kd 2, torque limit 20, ranges ±π/4)."""
+    m52 = smplh_model(topo24, base_model, finger_offsets)
+    names52 = list(smplh_topology().body_names)
+    topo = smplx_topology()
+    nb = topo.nbody
+    out = {f: np.zeros((nb,) + np.asarray(getattr(m52, f)).shape[1:],
+                       np.float32)
+           for f in ("body_pos", "body_ipos", "body_mass", "body_inertia",
+                     "body_iquat", "contact_point", "contact_mask",
+                     "sc_point", "sc_radius")}
+    jkp, jkd, tq, a_sc, jnt_range = [], [], [], [], []
+    for i, name in enumerate(topo.body_names):
+        if name in names52:
+            j = names52.index(name)
+            for f in out:
+                out[f][i] = np.asarray(getattr(m52, f))[j]
+            if i > 0:
+                s = slice(3 * (j - 1), 3 * j)
+                jkp += list(m52.jkp[s])
+                jkd += list(m52.jkd[s])
+                tq += list(m52.torque_lim[s])
+                a_sc += list(m52.a_scale[s])
+                jnt_range += list(m52.jnt_range[s])
+        else:  # face micro-body
+            out["body_pos"][i] = (
+                np.asarray(finger_offsets[name], np.float32)
+                if finger_offsets and name in finger_offsets
+                else _FACE_OFFSETS[name])
+            out["body_iquat"][i] = [1, 0, 0, 0]
+            out["body_mass"][i] = 0.05
+            out["body_inertia"][i] = 5e-6
+            out["sc_point"][i] = _FACE_OFFSETS[name] * 0.2
+            out["sc_radius"][i] = 0.01
+            jkp += [20.0] * 3
+            jkd += [2.0] * 3
+            tq += [20.0] * 3
+            a_sc += [1.0] * 3
+            jnt_range += [[-np.pi / 4, np.pi / 4]] * 3
+
+    armature = np.zeros(topo.nv, np.float32)
+    armature[6:] = 0.01
+    return dataclasses.replace(
+        m52, **out, armature=armature,
+        jkp=np.asarray(jkp, np.float32), jkd=np.asarray(jkd, np.float32),
+        torque_lim=np.asarray(tq, np.float32),
+        a_scale=np.asarray(a_sc, np.float32),
+        jnt_range=np.asarray(jnt_range, np.float32))
+
+
+def smplx_to_qpose(pose_aa, root_offset, trans=None, count_offset=True,
+                   device="cpu") -> torch.Tensor:
+    """(T, 165) SMPL-X axis-angle (native order) + (T, 3) trans ->
+    (T, 7 + 54 × 3) qpos in MuJoCo body order."""
+    pose_aa = torch.as_tensor(np.asarray(pose_aa), dtype=torch.float32,
+                              device=device)
+    T = pose_aa.shape[0]
+    if trans is None:
+        trans = np.zeros((T, 3), np.float32)
+        trans[:, 2] = DEFAULT_Z
+    trans = torch.as_tensor(np.asarray(trans), dtype=torch.float32,
+                            device=device).reshape(T, 3)
+    quats = quat_from_rotvec(pose_aa.reshape(T, NUM_SMPLX_BODIES, 3))
+    quats = quats[:, torch.as_tensor(SMPLX_2_MUJOCO.astype(np.int64),
+                                     device=device)]
+    eulers = euler_zyx_from_quat(quats[:, 1:])
+    ro = torch.as_tensor(np.asarray(root_offset), dtype=torch.float32,
+                         device=device)
+    pos = trans + ro if count_offset else trans
+    return torch.cat([pos, quats[:, 0], eulers.reshape(T, -1)], 1)
