@@ -32,7 +32,15 @@ form and a PCG-8 step on the 24-body tree, SMPL-H and SMPL-X, and driven
 through the port of tools/kernel_bench.py) -- checks their output, and
 times the kernels at B=2048 (and the big trees' at B=512).
 
-Usage: python3 chip_smoke.py        (needs one CUDA card; no arguments)
+Usage: python3 chip_smoke.py [--parent SRC] (needs one CUDA card).
+With --parent, SRC is another version of
+uhc_tpu_torch/csrc/control_step.cu (say the parent commit's, from `git
+show HEAD~1:uhc_tpu_torch/csrc/control_step.cu`, or a copy of this one
+with a constant changed), built beside this one for the big trees;
+phases time_big and time_k1f_big then time its K1d, K2, K2b and K1f-big
+in turns with this checkout's (parent, this, this, parent), split each
+step as `time_split` does, and say whether their outputs are equal bit
+for bit.
 
 Phases print a line when they start and one with their numbers when they
 end. Output ends with a JSON line of per-kernel numbers, the card's name
@@ -47,6 +55,7 @@ import signal
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 DEADLINE_S = 900
 H100_F32_FLOPS = 67e12      # float32 outside the tensor cores (data sheet)
@@ -610,6 +619,52 @@ def gate_big(name, out, plain32, plain64, moved) -> tuple:
         fails.append(f"{name}: the kernel misses the bounds on {n_k} of "
                      f"{k_out.numel()} envs")
     return errs, fails
+
+
+def on_library(step, lib):
+    """`step` (a ControlStep or ControlStepSplit) launching the kernels of
+    the CUDA library `lib` (another build) instead of its tree's."""
+    step.library = lambda: lib
+    return step
+
+
+def outputs_equal(a, b) -> bool:
+    """Whether two kernels' output tuples are equal bit for bit."""
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
+
+
+def in_turns(pairs: dict, reps: int) -> dict:
+    """Each entry of `pairs`, name -> (this checkout's call, the --parent
+    build's call on the same inputs), timed by cuda_ms over `reps` calls
+    in turns parent, this, this, parent -> {name: {"ms", "parent_ms"
+    (means of two turns), "over_parent", "turns_parent_this_this_parent"}}
+    ."""
+    out = {}
+    for name, (this, parent) in pairs.items():
+        turns = [cuda_ms(fn, reps) for fn in (parent, this, this, parent)]
+        ms, parent_ms = 0.5 * (turns[1] + turns[2]), 0.5 * (turns[0]
+                                                          + turns[3])
+        out[name] = {"ms": ms, "parent_ms": parent_ms,
+                     "over_parent": ms / parent_ms,
+                     "turns_parent_this_this_parent": turns}
+    return out
+
+
+def time_split(k1d_ms, k1d_11_ms, head_ms, tail_ms, substeps) -> dict:
+    """A big-tree control step's time split three ways: the exact inverse
+    pair as K2's head less one of the tail's substeps-1 substeps; the PCG
+    as three times K1d at (2, 2) less K1d at (1, 1) on the same states
+    (that difference is one iteration of each solve a substep, 30 pairs
+    of matrix-vector products, A and X; (2, 2) runs 90: warm start,
+    residual and two iterations); the assembly (phases A-I) as the
+    rest."""
+    inverse = head_ms - tail_ms / (substeps - 1)
+    pcg_30 = k1d_ms - k1d_11_ms
+    return {"inverse_pair_ms": inverse, "pcg_30_pairs_ms": pcg_30,
+            "pcg_ms": 3 * pcg_30,
+            "assembly_ms": k1d_ms - inverse - 3 * pcg_30}
 
 
 def big_rows(fam, src, k2_src, train_counts, k1d_err, head_err,
@@ -1352,7 +1407,8 @@ def k1e_check(topo, env_cfg, lib_model, ins, name):
     return gate(f"K1e {name}", out, plain32, plain64)
 
 
-def run() -> int:
+def run(parent=None) -> int:
+    """Every phase; `parent` is --parent's source, or None."""
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "uhc_tpu_torch")):
         raise RuntimeError(f"no uhc_tpu_torch package next to {__file__}: "
@@ -1385,19 +1441,32 @@ def run() -> int:
     from uhc_tpu_torch.csrc import build
 
     t0 = time.perf_counter()
-    libs = build.build_libraries(BODIES)
+    big_nb = tuple(nb for _, nb in BIG)
+    with ThreadPoolExecutor(1) as pool:
+        # the --parent build's nvcc run beside this checkout's
+        parent_build = (pool.submit(build.build_libraries, big_nb, parent)
+                        if parent else None)
+        libs = build.build_libraries(BODIES)
+        parent_libs = parent_build.result() if parent else None
     lib_cuda = libs[24]
 
-    def ptxas(nb):
+    def ptxas(key):
+        key = ("cuda", key) if isinstance(key, int) else key
         return [ln.strip() for ln in build.build_log.get(
-            ("cuda", nb), {}).get("stderr", "").splitlines()
+            key, {}).get("stderr", "").splitlines()
             if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
 
     done("build", seconds=time.perf_counter() - t0,
          layout=build.layout(lib_cuda), ptxas=ptxas(24),
          big={nb: {"layout": build.layout(libs[nb]), "ptxas": ptxas(nb),
+                   "occupancy": build.occupancy(libs[nb]),
                    "seconds": build.build_log.get(("cuda", nb), {}).get(
-                       "seconds")} for nb in BODIES[1:]})
+                       "seconds")} for nb in BODIES[1:]},
+         parent=None if parent_libs is None else {
+             "source": parent,
+             **{nb: {"layout": build.layout(parent_libs[nb]), "ptxas":
+                     ptxas(build.library_key("cuda", nb, parent))}
+                for nb in big_nb}})
 
     phase("kernel_vs_plain", f"(B={B_CHECK}, plain PD and meta-PD)")
     from uhc_tpu_torch.config.config import Config
@@ -1634,8 +1703,9 @@ def run() -> int:
         raise RuntimeError("; ".join(k1d_fails))
 
     phase("k2_big", f"(B={B_CHECK}, the same draws: K2 head + tail on the "
-                    "big trees vs K1d at (2, 2))")
-    k2_big = {}
+                    "big trees vs K1d at (2, 2); the heads' Xp/Xf held "
+                    "by x_check)")
+    k2_big, k2_big_fails = {}, []
     for (fam, mode), (btopo, benv, bmodel, qpos, qvel, act, tb) in \
             big_draws.items():
         split = K2.ControlStepSplit(btopo, benv, bmodel, 2)
@@ -1654,22 +1724,19 @@ def run() -> int:
                 f"K2 {fam} {mode}: head + tail differ from K1d at (2, 2): "
                 f"|dqpos| {(q1 - q2).abs().max().item()}, |dqvel| "
                 f"{(v1 - v2).abs().max().item()}")
-        ins64 = [t.double() for t in (qpos, qvel, act, tb)]
-        qh64, vh64, X64 = K2.head_reference(btopo, benv,
-                                            double_model(bmodel), *ins64,
-                                            1.0, 2)
-        scale = X64.abs().amax((2, 3), keepdim=True)
+        h32, (qh64, vh64, X64) = head_references(btopo, benv, bmodel,
+                                                 (qpos, qvel, act, tb))
         k2_big[f"{fam}_{mode}"] = {
             "split_equals_k1d": True,
             "head_vs_plain64": [(qh.double() - qh64).abs().max().item(),
                                 (vh.double() - vh64).abs().max().item()],
-            "head_X_vs_plain64": [(X.double() - X64).abs().max().item(),
-                                  ((X.double() - X64).abs() / scale).max()
-                                  .item()]}
+            **x_check(f"K2 {fam} {mode}", X, h32[2], X64, k2_big_fails)}
         k2_err[f"head_{fam}"] = max(k2_err.get(f"head_{fam}", 0.0),
                                     *k2_big[f"{fam}_{mode}"][
                                         "head_vs_plain64"])
-    done("k2_big", **k2_big)
+    done("k2_big", **k2_big, x_rel_tol=X_REL_TOL)
+    if k2_big_fails:
+        raise RuntimeError("; ".join(k2_big_fails))
 
     phase("k1f", f"(B={B_CHECK}, explicit RFC without a gate, with the "
                  "height and the ground gate, per-joint meta-PD, both; one "
@@ -2155,13 +2222,16 @@ def run() -> int:
          k2e_plain_tail_ms=plain_tail_e_ms, k2e_bound=k2e_bound,
          library_rows=k1e.num_models, card=smi)
 
-    phase("time_big", f"(K1d and K2 on SMPL-H and masterfoot, uhc_implicit, "
-                      f"B={B_BIG_TIME}; plain versions at B={B_BIG_TIME[0]})")
+    phase("time_big", f"(K1d at (2, 2) and (1, 1), K2 and K2b on SMPL-H "
+                      f"and masterfoot, uhc_implicit, B={B_BIG_TIME}; in "
+                      "turns with the --parent build where given; plain "
+                      f"versions at B={B_BIG_TIME[0]})")
     gen_b = torch.Generator().manual_seed(14)
     big_time = {}
     for fam, nb in BIG:
         btopo, benv, bmodel, blib = big_tree(fam, dev)
         k1d = CS.ControlStep(btopo, benv, bmodel, (2, 2))
+        k1d11 = CS.ControlStep(btopo, benv, bmodel, (1, 1))
         split = K2.ControlStepSplit(btopo, benv, bmodel, 2)
         k2b = K2.ControlStepSplit(btopo, benv, bmodel, 2, precond_bf16=True)
         per_env_ws = build.layout(k1d.library())["workspace"]
@@ -2170,25 +2240,70 @@ def run() -> int:
             qpos, qvel, tb = draw_big_states(blib, btopo.nv, B, gen_b, dev)
             act = (0.02 * torch.randn((B, k1d.act_dim),
                                       generator=gen_b)).to(dev)
-            k1d(qpos, qvel, act, tb, 1.0)
-            qh, vh, X = split.head(qpos, qvel, act, tb, 1.0)
+            ins = (qpos, qvel, act, tb, 1.0)
+            k1d(*ins)
+            k1d11(*ins)
+            qh, vh, X = split.head(*ins)
             split.tail(qh, vh, act, tb, X, 1.0)
             torch.cuda.synchronize()
             reps = 5 if B >= 2048 else 10
-            t = {"k1d_ms": cuda_ms(lambda: k1d(qpos, qvel, act, tb, 1.0),
-                                   reps),
-                 "head_ms": cuda_ms(lambda: split.head(qpos, qvel, act, tb,
-                                                       1.0), reps),
-                 "tail_ms": cuda_ms(lambda: split.tail(qh, vh, act, tb, X,
-                                                       1.0), reps)}
+            this = {"k1d": lambda: k1d(*ins), "k1d_11": lambda: k1d11(*ins),
+                    "head": lambda: split.head(*ins),
+                    "tail": lambda: split.tail(qh, vh, act, tb, X, 1.0)}
+            if parent_libs is None:
+                t = {f"{k}_ms": cuda_ms(fn, reps) for k, fn in this.items()}
+            else:
+                p1, p11, psplit = (on_library(x, parent_libs[nb]) for x in (
+                    CS.ControlStep(btopo, benv, bmodel, (2, 2)),
+                    CS.ControlStep(btopo, benv, bmodel, (1, 1)),
+                    K2.ControlStepSplit(btopo, benv, bmodel, 2)))
+                ph = psplit.head(*ins)
+                same = {"k1d": outputs_equal(k1d(*ins), p1(*ins)),
+                        "k1d_11": outputs_equal(k1d11(*ins), p11(*ins)),
+                        "head": outputs_equal((qh, vh, X), ph),
+                        "tail": outputs_equal(
+                            split.tail(qh, vh, act, tb, X, 1.0),
+                            psplit.tail(*ph[:2], act, tb, ph[2], 1.0))}
+                turns = in_turns({
+                    "k1d": (this["k1d"], lambda: p1(*ins)),
+                    "k1d_11": (this["k1d_11"], lambda: p11(*ins)),
+                    "head": (this["head"], lambda: psplit.head(*ins)),
+                    "tail": (this["tail"], lambda: psplit.tail(
+                        *ph[:2], act, tb, ph[2], 1.0))}, reps)
+                t = {f"{k}_ms": v["ms"] for k, v in turns.items()}
+                t["parent"] = {"turns": turns, "equal_outputs": same,
+                               "split": time_split(
+                                   *(turns[k]["parent_ms"] for k in (
+                                       "k1d", "k1d_11", "head", "tail")),
+                                   benv.frame_skip)}
+            t["split"] = time_split(t["k1d_ms"], t["k1d_11_ms"],
+                                    t["head_ms"], t["tail_ms"],
+                                    benv.frame_skip)
             # K2b at the same inputs after K2
-            qhb, vhb, Xb = k2b.head(qpos, qvel, act, tb, 1.0)
+            qhb, vhb, Xb = k2b.head(*ins)
             k2b.tail(qhb, vhb, act, tb, Xb, 1.0)
             torch.cuda.synchronize()
-            t["k2b_head_ms"] = cuda_ms(lambda: k2b.head(qpos, qvel, act, tb,
-                                                        1.0), reps)
-            t["k2b_tail_ms"] = cuda_ms(lambda: k2b.tail(qhb, vhb, act, tb,
-                                                        Xb, 1.0), reps)
+            this = {"k2b_head": lambda: k2b.head(*ins),
+                    "k2b_tail": lambda: k2b.tail(qhb, vhb, act, tb, Xb, 1.0)}
+            if parent_libs is None:
+                t.update({f"{k}_ms": cuda_ms(fn, reps)
+                          for k, fn in this.items()})
+            else:
+                pk2b = on_library(K2.ControlStepSplit(
+                    btopo, benv, bmodel, 2, precond_bf16=True),
+                    parent_libs[nb])
+                phb = pk2b.head(*ins)
+                t["parent"]["equal_outputs"].update(
+                    k2b_head=outputs_equal((qhb, vhb, Xb), phb),
+                    k2b_tail=outputs_equal(
+                        k2b.tail(qhb, vhb, act, tb, Xb, 1.0),
+                        pk2b.tail(*phb[:2], act, tb, phb[2], 1.0)))
+                turns = in_turns({
+                    "k2b_head": (this["k2b_head"], lambda: pk2b.head(*ins)),
+                    "k2b_tail": (this["k2b_tail"], lambda: pk2b.tail(
+                        *phb[:2], act, tb, phb[2], 1.0))}, reps)
+                t["parent"]["turns"].update(turns)
+                t.update({f"{k}_ms": v["ms"] for k, v in turns.items()})
             t["k2b_over_k2"] = ((t["k2b_head_ms"] + t["k2b_tail_ms"])
                                 / (t["head_ms"] + t["tail_ms"]))
             trace = []
@@ -2273,8 +2388,9 @@ def run() -> int:
 
     phase("time_k1f_big", f"(K1f explicit and meta_joint on SMPL-H and "
                           f"masterfoot, B={B_BIG_TIME}, beside K1d on the "
-                          "same states in turns K1d, K1f, K1f, K1d; plain "
-                          f"versions at B={B_BIG_TIME[0]})")
+                          "same states in turns K1d, K1f, K1f, K1d; K1f at "
+                          "(1, 1); in turns with the --parent build where "
+                          f"given; plain versions at B={B_BIG_TIME[0]})")
     gen_fb = torch.Generator().manual_seed(18)
     k1f_big_time = {}
     for fam, nb in BIG:
@@ -2284,6 +2400,7 @@ def run() -> int:
         for mode in ("explicit", "meta_joint"):
             env_cfg = on_tree(k1f_modes()[mode], fam)
             k1f = CS.ControlStep(btopo, env_cfg, bmodel, (2, 2))
+            k1f11 = CS.ControlStep(btopo, env_cfg, bmodel, (1, 1))
             row = {"act_dim": k1f.act_dim,
                    "kept_action_columns": CS.kept_action_columns(btopo,
                                                                  env_cfg)}
@@ -2316,6 +2433,37 @@ def run() -> int:
                          btopo, env_cfg, trace, (2, 2)), 4 * io),
                      "operand_floats_per_env": operands // B}
                 t["k1f_over_k1d"] = t["k1f_ms"] / t["k1d_same_states_ms"]
+                ins = (qpos, qvel, actf, tb, 1.0)
+                this = {"k1f": lambda: k1f(*ins),
+                        "k1f_11": lambda: k1f11(*ins)}
+                k1f11(*ins)
+                if parent_libs is None:
+                    t["k1f_11_ms"] = cuda_ms(this["k1f_11"], reps)
+                else:
+                    p22, p11 = (on_library(CS.ControlStep(
+                        btopo, env_cfg, bmodel, it), parent_libs[nb])
+                        for it in ((2, 2), (1, 1)))
+                    pturns = in_turns({
+                        "k1f": (this["k1f"], lambda: p22(*ins)),
+                        "k1f_11": (this["k1f_11"], lambda: p11(*ins))},
+                        reps)
+                    t["k1f_11_ms"] = pturns["k1f_11"]["ms"]
+                    k2t = big_time[fam][f"B{B}"]["parent"]["turns"]
+                    t["parent"] = {
+                        "turns": pturns, "equal_outputs": {
+                            "k1f": outputs_equal(k1f(*ins), p22(*ins)),
+                            "k1f_11": outputs_equal(k1f11(*ins),
+                                                    p11(*ins))},
+                        "split": time_split(
+                            pturns["k1f"]["parent_ms"],
+                            pturns["k1f_11"]["parent_ms"],
+                            k2t["head"]["parent_ms"],
+                            k2t["tail"]["parent_ms"], env_cfg.frame_skip)}
+                # the inverse pair from K2's head and tail in time_big
+                k2 = big_time[fam][f"B{B}"]
+                t["split"] = time_split(t["k1f_ms"], t["k1f_11_ms"],
+                                        k2["head_ms"], k2["tail_ms"],
+                                        env_cfg.frame_skip)
                 if B == B_BIG_TIME[0]:
                     t["plain_ms"] = cuda_ms(
                         lambda: CS.control_step_reference(
@@ -2502,10 +2650,18 @@ def run() -> int:
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="SRC",
+                    help="another control_step.cu to time in turns with "
+                         "this checkout's on the big trees")
+    args = ap.parse_args()
+    parent = os.path.abspath(args.parent) if args.parent else None
     signal.signal(signal.SIGALRM, _on_alarm)
     signal.alarm(DEADLINE_S)
     try:
-        return run()
+        return run(parent)
     except BaseException as exc:  # noqa: BLE001 - every failure exits 1
         traceback.print_exc()
         # the reason goes to stdout too, beside the phase lines

@@ -251,10 +251,10 @@ def _host55():
 
 def test_host_build_at_55_bodies(setup):
     """The control-step source built with -DNB=55 as host C++: its layout
-    (223,776 workspace floats per env, 256 action columns, about 41 KB of
-    shared memory), K2's head + tail on 16 SMPL-X draws held to the plain
-    versions at PCG-2 by chip_smoke's `gate_big`, and equal bit for bit
-    to the same build's K1 at (2, 2)."""
+    (167,328 workspace floats per env, 256 action columns, about 171 KB of
+    shared memory with Xp and Xf as packed triangles), K2's head + tail on
+    16 SMPL-X draws held to the plain versions at PCG-2 by chip_smoke's
+    `gate_big`, and equal bit for bit to the same build's K1 at (2, 2)."""
     import chip_smoke as C
     from uhc_tpu_torch.csrc import build
     from uhc_tpu_torch.physics import control_step_split as K2
@@ -262,8 +262,8 @@ def test_host_build_at_55_bodies(setup):
     lib = _host55()
     lay = build.layout(lib)
     assert lay["nbody"] == 55 and lay["maxact"] == 256
-    assert lay["workspace"] == 4 * 168 ** 2 + 2 * 55 * 6 * 168 == 223776
-    assert 40_000 < 4 * lay["smem_floats"] < 42_000
+    assert lay["workspace"] == 2 * 168 ** 2 + 2 * 55 * 6 * 168 == 167328
+    assert 170_000 < 4 * lay["smem_floats"] < 171_000
     (_, _), (tt, _, m, lib_x) = setup
     n = 16
     gen = torch.Generator().manual_seed(24)

@@ -12,6 +12,9 @@ starts one nvcc per tree size at once and waits for all of them.
 `load_host_library(nb)` compiles the same source as host C++ (each env on
 one thread, no CUDA), which is how the CPU tests run the kernel's
 arithmetic. A failed build raises with the compiler's stderr.
+`build_libraries(nbs, source)` builds another version of the source (a
+file of another commit) beside this package's, so that the two can be
+timed in turns on one card (chip_smoke.py --parent).
 """
 from __future__ import annotations
 
@@ -31,14 +34,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 HOST_FLAGS = ["-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC"]
 
 _loaded: dict = {}
-# (kind, nb) -> {"seconds", "stderr"} of the last build
+# library_key -> {"seconds", "stderr"} of the last build
 build_log: dict = {}
 
 
-def _hash(flags) -> str:
+def _hash(flags, sources) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
-    for s in SOURCES:
-        with open(os.path.join(HERE, s), "rb") as f:
+    for s in sources:
+        with open(s, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
 
@@ -55,8 +58,17 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def _command(kind: str, nb: int):
-    """(output path, compile command) of one library."""
+def library_key(kind: str, nb: int, source=None) -> tuple:
+    """The key of one library in `build_log` (and the loaded libraries):
+    (kind, nb) for this package's source, with another version's source
+    after them."""
+    return (kind, nb) if source is None else (kind, nb,
+                                              os.path.abspath(source))
+
+
+def _command(kind: str, nb: int, source=None):
+    """(output path, compile command) of one library: this package's
+    sources, or `source` in their place."""
     if kind == "cuda":
         compiler, flags = find_nvcc(), NVCC_FLAGS
     else:
@@ -65,19 +77,23 @@ def _command(kind: str, nb: int):
             raise RuntimeError("no host C++ compiler (g++) found")
         flags = HOST_FLAGS
     flags = [*flags, f"-DNB={int(nb)}"]
-    out = os.path.join(BUILD_DIR, f"libuhc_{kind}_nb{nb}_{_hash(flags)}.so")
+    sources = ([os.path.abspath(source)] if source
+               else [os.path.join(HERE, s) for s in SOURCES])
+    out = os.path.join(BUILD_DIR, f"libuhc_{kind}_nb{nb}_"
+                                  f"{_hash(flags, sources)}.so")
     return out, [compiler, *flags, "-o", f"{out}.{os.getpid()}.tmp",
-                 *[os.path.join(HERE, s) for s in SOURCES]]
+                 *sources]
 
 
-def _build_many(kind: str, nbs) -> dict:
-    """Compile the missing libraries of `nbs`, all compilers at once ->
-    {nb: path}. Each compiles to a private name and is renamed when done,
-    so concurrent builds (test workers) never load a half-written one."""
+def _build_many(kind: str, nbs, source=None) -> dict:
+    """Compile the missing libraries of `nbs` (of `source` where given),
+    all compilers at once -> {nb: path}. Each compiles to a private name
+    and is renamed when done, so concurrent builds (test workers) never
+    load a half-written one."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths, running = {}, {}
     for nb in dict.fromkeys(nbs):
-        out, cmd = _command(kind, nb)
+        out, cmd = _command(kind, nb, source)
         paths[nb] = out
         if not os.path.exists(out):
             running[nb] = (cmd, time.perf_counter(), subprocess.Popen(
@@ -90,8 +106,8 @@ def _build_many(kind: str, nbs) -> dict:
             failed.append(f"kernel build failed ({' '.join(cmd)}):\n{err}")
             continue
         os.replace(cmd[cmd.index("-o") + 1], paths[nb])
-        build_log[kind, nb] = {"seconds": time.perf_counter() - t0,
-                               "stderr": err}
+        build_log[library_key(kind, nb, source)] = {
+            "seconds": time.perf_counter() - t0, "stderr": err}
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths
@@ -133,14 +149,17 @@ def _bind(lib, suffix: str, stream: bool):
     return lib
 
 
-def build_libraries(nbs=(24,)) -> dict:
+def build_libraries(nbs=(24,), source=None) -> dict:
     """Build and load the CUDA libraries of every tree size in `nbs` (one
-    nvcc each, all started together) -> {nb: library}."""
-    missing = [nb for nb in nbs if ("cuda", nb) not in _loaded]
+    nvcc each, all started together) -> {nb: library}: of this package's
+    source, or of another version of it, `source`."""
+    missing = [nb for nb in nbs
+               if library_key("cuda", nb, source) not in _loaded]
     if missing:
-        for nb, path in _build_many("cuda", missing).items():
-            _loaded["cuda", nb] = _bind(ctypes.CDLL(path), "", stream=True)
-    return {nb: _loaded["cuda", nb] for nb in nbs}
+        for nb, path in _build_many("cuda", missing, source).items():
+            _loaded[library_key("cuda", nb, source)] = _bind(
+                ctypes.CDLL(path), "", stream=True)
+    return {nb: _loaded[library_key("cuda", nb, source)] for nb in nbs}
 
 
 def load_library(nb: int = 24):
@@ -169,3 +188,26 @@ def layout(lib) -> dict:
     return {"params": buf[0], "itab": buf[1], "smem_floats": buf[2],
             "threads": buf[3], "nbody": buf[4], "maxact": buf[5],
             "workspace": buf[6], "smem_floats_k1f": buf[7]}
+
+
+OCCUPANCY_ENTRIES = ("step", "k1f", "head", "tail", "step_bf16", "head_bf16",
+                     "tail_bf16")
+
+
+def occupancy(lib) -> dict:
+    """What the card makes of each kernel of a CUDA library: {entry:
+    {"registers", "local_bytes" (a thread's stack frame and spills),
+    "smem_bytes" (dynamic),
+    "threads", "blocks_per_sm"}} from cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor. Raises on a CUDA
+    error."""
+    buf = (ctypes.c_int * (5 * len(OCCUPANCY_ENTRIES)))()
+    fn = lib.uhc_control_step_occupancy
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    rc = fn(buf)
+    if rc != 0:
+        raise RuntimeError(f"uhc_control_step_occupancy: CUDA error {rc}")
+    keys = ("registers", "local_bytes", "smem_bytes", "threads",
+            "blocks_per_sm")
+    return {e: dict(zip(keys, buf[5 * n:5 * n + 5]))
+            for n, e in enumerate(OCCUPANCY_ENTRIES)}

@@ -29,11 +29,16 @@
 //  * K1d, the big trees of the same TPU kernel (pallas_lane.py with
 //    pcg_vpu_sub=True: 48-body masterfoot, 52-body SMPL-H, PCG (2, 2)):
 //    the same kernels built with -DNB=48 or -DNB=52. One env's matrices
-//    (0.69 / 0.80 MB) exceed a block's 227 KB of shared memory, so they
-//    live in a per-env workspace in device memory (`ws`, W_TOTAL floats
-//    per env, allocated by the caller) while the state, the per-body
-//    vectors and the PCG vectors stay in shared memory. The head/tail
-//    split runs over the big trees the same way.
+//    (0.69 / 0.80 MB) exceed a block's 227 KB of shared memory. A_pd,
+//    A_fd, J6 and G live in a per-env workspace in device memory (`ws`,
+//    W_TOTAL floats per env, allocated by the caller), and a thread reads
+//    a column of A_pd, A_fd so that a warp's loads are coalesced. The two
+//    preconditioners Xp, Xf stay in shared memory as packed lower
+//    triangles (87 / 102 KB), beside the state, the per-body vectors and
+//    the PCG vectors, and the exact inverse pair is computed there in
+//    panels (`exact_inverses`). The head/tail split runs over the big
+//    trees the same way: the head writes Xp, Xf out in full, the tail
+//    reads them back into the packed triangles.
 //  * K1f, explicit residual force control (VFX) and per-joint meta-PD
 //    (MPJ) of the same TPU kernel (pallas_lane.py:127-146, :878-908 and
 //    the host prep :1217-1246): `control_step_f_kernel`, the same physics
@@ -89,8 +94,8 @@
 //  * at 24 bodies everything of one env stays in shared memory for all 15
 //    substeps: the two preconditioners, A_pd, A_fd and the J6 / G (or K)
 //    matrices, about 190 KB, so nothing but the state touches device
-//    memory (on a big tree the matrices go through L1/L2 to the
-//    workspace);
+//    memory (on a big tree A_pd, A_fd, J6 and G go through L1/L2 to the
+//    workspace, and Xp, Xf stay in shared memory);
 //  * the Jacobian columns of a dof are zero outside the subtree of the
 //    dof's body, and bodies are in depth-first order, so every entry of M,
 //    CD and Jᵀ·wrench sums over a contiguous range of bodies only (a few
@@ -113,10 +118,12 @@
 #include <cuda_runtime.h>
 #define HD __device__ __forceinline__
 #define SYNC() __syncthreads()
+#define SYNCWARP() __syncwarp()
 #else
 #include <vector>
 #define HD static inline
 #define SYNC() ((void)0)
+#define SYNCWARP() ((void)0)
 #endif
 
 // The tree's size is fixed at compile time: build.py compiles one library
@@ -131,11 +138,24 @@
 #define KPTS 16
 #define SC 3
 #define MAXPAIR 64
-#define NTHREADS 256
 #define NTRI (NV * (NV + 1) / 2)
 // K1d: trees of more than 32 bodies keep their matrices in a per-env
 // workspace in device memory (see the workspace layout below).
 #define BIG_TREE (NB > 32)
+// Threads per block (one block per env). A big tree's block holds 137 to
+// 174 KB of shared memory, one block per SM: 512 threads there (16 warps
+// to hide the workspace's latency; ptxas fits every kernel in 128
+// registers, K2b's with 28 to 44 bytes of spills), 256 at 24 bodies.
+#if BIG_TREE
+#define NTHREADS 512
+#else
+#define NTHREADS 256
+#endif
+// big trees: the blocked exact inverse's panel width; a panel's columns
+// (Cholesky, L⁻¹) or rows (Yᵀ Y) go to SM_PANEL, PB floats in each row of
+// PS: a lane's two 16-byte loads of a row then meet no other lane's banks
+#define PB 8
+#define PS 12
 #if BIG_TREE
 #define MAXACT 256
 #else
@@ -188,11 +208,23 @@ enum { RFC_NONE = 0, RFC_IMPLICIT = 1, RFC_EXPLICIT = 2,
 enum { GAINS_FIXED = 0, GAINS_PER_SUBSTEP = 1, GAINS_PER_DOF = 2 };
 
 // ---- matrix workspace of one env (floats) -------------------------------
-// The two preconditioners, A_pd, A_fd and the J6 / G (or K) matrices. At
-// 24 bodies (195 KB) they open the block's shared memory; on a big tree
-// (0.69 MB at 48 bodies, 0.80 MB at 52) they exceed a block's 227 KB and
-// live in device memory, W_TOTAL floats per env, while the state, the
-// per-body vectors and the PCG vectors stay in shared memory.
+// At 24 bodies (195 KB) the two preconditioners, A_pd, A_fd and the J6 /
+// G (or K) matrices open the block's shared memory. On a big tree they
+// exceed a block's 227 KB: A_pd, A_fd, J6 and G (0.51 MB at 48 bodies,
+// 0.60 MB at 52, 0.67 MB at 55) live in device memory, W_TOTAL floats per
+// env, while Xp and Xf stay in shared memory as packed lower triangles
+// (SM_PX, 2 × NTRI floats: 87.0 KB at 48 bodies, 101.8 KB at 52, 113.6 KB
+// at 55) with the inverse's panel (SM_PANEL, 14.1 to 16.1 KB), beside the
+// state, the per-body vectors and the PCG vectors.
+#if BIG_TREE
+enum {
+  W_APD = 0,
+  W_AFD = W_APD + NV * NV,
+  W_J6 = W_AFD + NV * NV,            // (NB*6) × NV
+  W_G = W_J6 + NB * 6 * NV,          // G, then K = W·J6
+  W_TOTAL = W_G + NB * 6 * NV
+};
+#else
 enum {
   W_XP = 0,
   W_XF = W_XP + NV * NV,
@@ -202,10 +234,13 @@ enum {
   W_G = W_J6 + NB * 6 * NV,          // G, then K = W·J6
   W_TOTAL = W_G + NB * 6 * NV
 };
+#endif
 
 // ---- shared memory layout (floats) ----------------------------------------
 enum {
-  SM_QPOS = BIG_TREE ? 0 : W_TOTAL,
+  SM_PX = 0,                         // big tree: Xp, Xf packed (2 × NTRI)
+  SM_PANEL = (2 * NTRI + 3) / 4 * 4, // big tree: 2*NV × PS, 16-byte aligned
+  SM_QPOS = BIG_TREE ? SM_PANEL + 2 * NV * PS : W_TOTAL,
   SM_QVEL = SM_QPOS + NQ,
   SM_ACT = SM_QVEL + NV,
   SM_TB = SM_ACT + MAXACT,
@@ -350,11 +385,41 @@ HD void tri_index(int t, int* i, int* j) {
   *j = t - r * (r + 1) / 2;
 }
 
+// Offset of entry (i, k) of a symmetric NV × NV matrix stored in full.
+// Every writer of A_pd, A_fd (and of Xp, Xf at 24 bodies) stores both
+// triangles equal bit for bit. On a big tree A lies in device memory, and
+// the thread of row i reads column i instead (k·NV + i), so at each k a
+// warp's load is one or two 128-byte lines; each row's sum keeps its k
+// order, so the result is the row-major one bit for bit.
+HD int sym_at(int i, int k) { return BIG_TREE ? k * NV + i : i * NV + k; }
+
 // y = A x over the rows owned by this thread
 HD void matvec(const float* A, const float* x, float* y, int tid, int nth) {
   for (int i = tid; i < NV; i += nth) {
     float s = 0.0f;
-    for (int k = 0; k < NV; ++k) s += A[i * NV + k] * x[k];
+    for (int k = 0; k < NV; ++k) s += A[sym_at(i, k)] * x[k];
+    y[i] = s;
+  }
+}
+
+// first entry of row i of a packed lower triangle
+HD int tri_row(int i) { return i * (i + 1) / 2; }
+
+// y = X v for X stored as its packed lower triangle (a big tree's Xp, Xf
+// in shared memory): entry (i, k) at tri_row(i) + k for k ≤ i, at
+// tri_row(k) + i for k > i. Each row sums in ascending k, as `matvec` over
+// the full matrix does. Within a warp the row part reads are a permutation
+// of the banks (triangular numbers mod 32), the column part contiguous.
+HD void matvec_packed(const float* X, const float* x, float* y, int tid,
+                      int nth) {
+  for (int i = tid; i < NV; i += nth) {
+    const int ti = tri_row(i);
+    float s = 0.0f;
+    int tk = 0;
+    for (int k = 0; k < NV; ++k) {
+      s += X[k <= i ? ti + k : tk + i] * x[k];
+      tk += k + 1;
+    }
     y[i] = s;
   }
 }
@@ -376,7 +441,11 @@ HD void precond(const float* X, const float* v, float* y, float* vr,
     SYNC();
     v = vr;
   }
+#if BIG_TREE
+  matvec_packed(X, v, y, tid, nth);
+#else
   matvec(X, v, y, tid, nth);
+#endif
 }
 
 // PCG with warm start x0 = X b (X ≈ A⁻¹): the solution lands in SM_X. The
@@ -395,7 +464,7 @@ HD void pcg(float* sm, const float* A, const float* X, const float* b,
   SYNC();
   for (int i = tid; i < NV; i += nth) {
     float s = 0.0f;
-    for (int k = 0; k < NV; ++k) s += A[i * NV + k] * x[k];
+    for (int k = 0; k < NV; ++k) s += A[sym_at(i, k)] * x[k];
     r[i] = b[i] - s;
   }
   SYNC();
@@ -429,6 +498,180 @@ HD void pcg(float* sm, const float* A, const float* X, const float* b,
   }
 }
 
+#if BIG_TREE
+// the PB floats of one panel row at p (16-byte aligned)
+HD void load_panel(const float* p, float* v) {
+#ifdef __CUDACC__
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+#else
+  for (int kk = 0; kk < PB; ++kk) v[kk] = p[kk];
+#endif
+}
+
+// Exact inverses of A_pd -> Xp and A_fd -> Xf (substep 0, and I_REFRESH)
+// on a big tree, in place on the packed lower triangles in shared memory
+// (SM_PX), the two matrices in lockstep: the lower triangles of A_pd,
+// A_fd come in from the workspace, then the Cholesky factor L, Y = L⁻¹
+// and X = Yᵀ Y. Every entry receives the operations of the 24-body version
+// below, in the same order, so the result is the same bit for bit; what
+// differs is how the steps are grouped, in panels of PB columns or rows:
+//  * Cholesky: step k scales column k by d_k = sqrt(max(A_kk, 1e-12)) and
+//    subtracts L_ik L_jk from every k < j <= i. Within a panel the steps
+//    run one by one on the panel's columns; then every entry right of the
+//    panel takes the panel's PB terms at once, in k order, from the
+//    panel's columns in SM_PANEL (one barrier for PB steps).
+//  * Y = L⁻¹ column-parallel: step k finishes row k of Y (Y_kc = s_kc /
+//    d_k, s = 1 on the diagonal) and subtracts L_ik Y_kc from the sum
+//    s_ic of every row i > k, c <= k, which sits where L_ic was read for
+//    the last time. Within a panel of rows the steps run one by one on the
+//    panel's rows; then every row below takes the panel's PB terms at
+//    once from the panel's rows of Y in SM_PANEL.
+//  * X_ij = Σ_{k>=i} Y_ki Y_kj: a panel's rows of Y go to SM_PANEL, then
+//    every entry of the rows above adds their terms in k order; the sums
+//    of the panel's own rows start where those rows of Y were.
+// The big updates run a row per warp, lanes along the row (contiguous in
+// the packed layout), PB operands of a lane in two 16-byte loads and its
+// sum in a register. Under BF16 (K2b) every entry is rounded to bfloat16
+// at the end.
+template <bool BF16>
+HD void exact_inverses(float* sm, float* ws, int tid, int nth) {
+  float* T = sm + SM_PX;             // Xp then Xf, NTRI floats each
+  float* diag = sm + SM_DIAG;        // 2*NV Cholesky diagonals
+  float* pan = sm + SM_PANEL;        // 2*NV rows: PB floats in PS
+  const int nl = nth < 32 ? nth : 32, lane = tid % nl, warp = tid / nl;
+  const int nw = nth / nl;
+  for (int t = tid; t < 2 * NV * NV; t += nth) {
+    int m = t / (NV * NV), e = t - m * NV * NV, i = e / NV, j = e - i * NV;
+    if (j <= i) T[m * NTRI + tri_row(i) + j] = ws[(m ? W_AFD : W_APD) + e];
+  }
+  SYNC();
+  // -- Cholesky --
+  for (int k0 = 0; k0 < NV; k0 += PB) {
+    const int k1 = k0 + PB < NV ? k0 + PB : NV;
+    for (int k = k0; k < k1; ++k) {
+      for (int t = tid; t < 2 * (NV - k); t += nth) {   // column k
+        int m = t & 1, i = k + (t >> 1);
+        float* A = T + m * NTRI;
+        float d = sqrtf(fmaxf(A[tri_row(k) + k], 1e-12f));
+        if (i == k) {
+          diag[m * NV + k] = d;
+        } else {
+          float v = A[tri_row(i) + k] / d;
+          A[tri_row(i) + k] = v;
+          if (i >= k1) pan[(m * NV + i) * PS + k - k0] = v;
+        }
+      }
+      SYNC();
+      if (k + 1 == k1) break;
+      for (int t = tid; t < 2 * (NV - k - 1) * PB; t += nth) {
+        // the panel's columns k < j < k1 with column k
+        int j = k + 1 + (t & (PB - 1)), r = t / PB, m = r & 1;
+        int i = k + 1 + (r >> 1);
+        if (j >= k1 || j > i) continue;
+        float* A = T + m * NTRI;
+        A[tri_row(i) + j] -= A[tri_row(i) + k] * A[tri_row(j) + k];
+      }
+      SYNC();
+    }
+    if (k1 == NV) break;
+    for (int r = warp; r < 2 * (NV - k1); r += nw) {  // right of the panel
+      int m = r & 1, i = k1 + (r >> 1);
+      float* row = T + m * NTRI + tri_row(i);
+      float li[PB], lj[PB];
+      load_panel(pan + (m * NV + i) * PS, li);
+      for (int j = k1 + lane; j <= i; j += nl) {
+        load_panel(pan + (m * NV + j) * PS, lj);
+        float a = row[j];
+        for (int kk = 0; kk < PB; ++kk) a -= li[kk] * lj[kk];
+        row[j] = a;
+      }
+    }
+    SYNC();
+  }
+  // -- Y = L⁻¹ --
+  for (int k0 = 0; k0 < NV; k0 += PB) {
+    const int k1 = k0 + PB < NV ? k0 + PB : NV;
+    for (int k = k0; k < k1; ++k) {
+      for (int t = tid; t < 2 * (k + 1); t += nth) {    // row k of Y
+        int m = t & 1, c = t >> 1;
+        float* row = T + m * NTRI + tri_row(k);
+        float y = (c == k ? 1.0f : row[c]) / diag[m * NV + k];
+        row[c] = y;
+        pan[(m * NV + c) * PS + k - k0] = y;
+      }
+      SYNC();
+      if (k + 1 == k1) break;
+      for (int r = warp; r < 2 * (k1 - k - 1); r += nw) {
+        // the panel's rows k < i < k1 with row k
+        int m = r & 1, i = k + 1 + (r >> 1);
+        float* row = T + m * NTRI + tri_row(i);
+        const float* yk = T + m * NTRI + tri_row(k);
+        float li = row[k];
+        SYNCWARP();
+        for (int c = lane; c <= k; c += nl) {
+          if (c < k) {
+            row[c] -= li * yk[c];
+          } else {
+            float s = 0.0f;
+            s -= li * yk[k];
+            row[k] = s;
+          }
+        }
+      }
+      SYNC();
+    }
+    if (k1 == NV) break;
+    for (int r = warp; r < 2 * (NV - k1); r += nw) {    // rows below
+      int m = r & 1, i = k1 + (r >> 1);
+      float* row = T + m * NTRI + tri_row(i);
+      float li[PB], yc[PB];
+      for (int kk = 0; kk < PB; ++kk) li[kk] = row[k0 + kk];
+      SYNCWARP();
+      for (int c = lane; c < k1; c += nl) {
+        load_panel(pan + (m * NV + c) * PS, yc);
+        const int cc = c - k0;       // the first term's k - k0 (< 0: all)
+        float s = c < k0 ? row[c] : 0.0f;
+        for (int kk = 0; kk < PB; ++kk)
+          if (kk >= cc) s -= li[kk] * yc[kk];
+        row[c] = s;
+      }
+    }
+    SYNC();
+  }
+  // -- X = Yᵀ Y --
+  for (int k0 = 0; k0 < NV; k0 += PB) {
+    const int k1 = k0 + PB < NV ? k0 + PB : NV, w = k1 - k0;
+    for (int t = tid; t < 2 * k1 * PB; t += nth) {      // rows k0..k1-1
+      int kk = t & (PB - 1), r = t / PB, m = r & 1, j = r >> 1;
+      pan[(m * NV + j) * PS + kk] =
+          kk < w && j <= k0 + kk ? T[m * NTRI + tri_row(k0 + kk) + j] : 0.0f;
+    }
+    SYNC();
+    for (int r = warp; r < 2 * k1; r += nw) {           // rows i < k1
+      int m = r & 1, i = r >> 1;
+      float* row = T + m * NTRI + tri_row(i);
+      float yi[PB], yj[PB];
+      load_panel(pan + (m * NV + i) * PS, yi);
+      const int ii = i - k0;         // the first term's k - k0 (< 0: all)
+      for (int j = lane; j <= i; j += nl) {
+        load_panel(pan + (m * NV + j) * PS, yj);
+        float a = i < k0 ? row[j] : 0.0f;
+        for (int kk = 0; kk < PB; ++kk)
+          if (kk >= ii && kk < w) a += yi[kk] * yj[kk];
+        row[j] = a;
+      }
+    }
+    SYNC();
+  }
+  if (BF16) {
+    for (int t = tid; t < 2 * NTRI; t += nth) T[t] = round_bf16(T[t]);
+    SYNC();
+  }
+}
+#else
 // Exact inverses of A_pd -> Xp and A_fd -> Xf (substep 0): right-looking
 // Cholesky of both in place in Xp / Xf, lower-triangular inverses Y into
 // the J6 / G workspace, then X = Yᵀ Y, each entry rounded to bfloat16 as
@@ -487,6 +730,18 @@ HD void exact_inverses(float* sm, float* ws, int tid, int nth) {
   }
   SYNC();
 }
+#endif
+
+// The env's preconditioners Xp, Xf: the packed triangles in shared memory
+// on a big tree, full matrices at the front of the workspace (itself
+// shared memory) at 24 bodies; X_SIZE floats each.
+#if BIG_TREE
+#define X_SIZE NTRI
+HD float* precond_store(float* sm, float* ws) { return sm + SM_PX; }
+#else
+#define X_SIZE (NV * NV)
+HD float* precond_store(float* sm, float* ws) { return ws + W_XP; }
+#endif
 
 // Which substeps a launch runs: all (K1), substep 0 (K2 head) or
 // substeps 1.. (K2 tail).
@@ -561,11 +816,20 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
   }
   for (int t = tid; t < NDOF; t += nth)
     sm[SM_TB + t] = tb_in[(size_t)env * NDOF + t];
+  float* Xs = precond_store(sm, ws);
   if (part == PART_TAIL)
-    for (int t = tid; t < 2 * NV * NV; t += nth)
-      ws[W_XP + t] = BF16 ? bf16_float(reinterpret_cast<const uint16_t*>(
-                                X)[(size_t)env * 2 * NV * NV + t])
-                          : X[(size_t)env * 2 * NV * NV + t];
+    for (int t = tid; t < 2 * NV * NV; t += nth) {
+#if BIG_TREE
+      int m = t / (NV * NV), e = t - m * NV * NV, i = e / NV, j = e - i * NV;
+      if (j > i) continue;
+      float* dst = Xs + m * NTRI + tri_row(i) + j;
+#else
+      float* dst = Xs + t;
+#endif
+      *dst = BF16 ? bf16_float(reinterpret_cast<const uint16_t*>(
+                        X)[(size_t)env * 2 * NV * NV + t])
+                  : X[(size_t)env * 2 * NV * NV + t];
+    }
   SYNC();
 
   const int s_begin = part == PART_TAIL ? 1 : 0;
@@ -1048,8 +1312,7 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
     if (s == 0 || s == I[I_REFRESH]) exact_inverses<BF16>(sm, ws, tid, nth);
 
     // -- stable PD: q̈_des, torques, forward dynamics -------------------
-    pcg<BF16>(sm, ws + W_APD, ws + W_XP, sm + SM_PDRHS, I[I_PD_ITERS], tid,
-              nth);
+    pcg<BF16>(sm, ws + W_APD, Xs, sm + SM_PDRHS, I[I_PD_ITERS], tid, nth);
     for (int t = tid; t < NV; t += nth) sm[SM_QACCD + t] = sm[SM_X + t];
     SYNC();
     for (int t = tid; t < NDOF; t += nth) {
@@ -1060,7 +1323,7 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
       sm[SM_RHS + j] += clampf(tau, -lim, lim);
     }
     SYNC();
-    pcg<BF16>(sm, ws + W_AFD, ws + W_XF, sm + SM_RHS, I[I_FD_ITERS], tid,
+    pcg<BF16>(sm, ws + W_AFD, Xs + X_SIZE, sm + SM_RHS, I[I_FD_ITERS], tid,
               nth);
 
     // -- integrate: semi-implicit Euler, quaternion root ----------------
@@ -1094,11 +1357,17 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
 
   if (part == PART_HEAD)
     for (int t = tid; t < 2 * NV * NV; t += nth) {
+#if BIG_TREE
+      int m = t / (NV * NV), e = t - m * NV * NV, i = e / NV, j = e - i * NV;
+      float v = Xs[m * NTRI + (j <= i ? tri_row(i) + j : tri_row(j) + i)];
+#else
+      float v = Xs[t];
+#endif
       if (BF16)
         reinterpret_cast<uint16_t*>(X)[(size_t)env * 2 * NV * NV + t] =
-            bf16_bits(ws[W_XP + t]);
+            bf16_bits(v);
       else
-        X[(size_t)env * 2 * NV * NV + t] = ws[W_XP + t];
+        X[(size_t)env * 2 * NV * NV + t] = v;
     }
   for (int t = tid; t < NQ; t += nth) qpos_out[(size_t)env * NQ + t] = qpos[t];
   for (int t = tid; t < NV; t += nth) qvel_out[(size_t)env * NV + t] = qvel[t];
@@ -1136,7 +1405,7 @@ extern "C" int uhc_control_step_layout(int* out) {
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_kernel(KERNEL_ARGS) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
   control_step_env<false, false>(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS,
                           P, seq_idx, I, qpos_in, qvel_in, act_in, tb_in,
                           qpos_out, qvel_out, act_dim, rfc_rate, PART_FULL,
@@ -1146,7 +1415,7 @@ control_step_kernel(KERNEL_ARGS) {
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_f_kernel(KERNEL_ARGS, const float* __restrict__ vfx,
                       const float* __restrict__ ksc) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
   control_step_env<true, false>(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS,
                          P, seq_idx, I, qpos_in, qvel_in, act_in, tb_in,
                          qpos_out, qvel_out, act_dim, rfc_rate, PART_FULL,
@@ -1155,7 +1424,7 @@ control_step_f_kernel(KERNEL_ARGS, const float* __restrict__ vfx,
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_head_kernel(KERNEL_ARGS, float* __restrict__ X) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
   control_step_env<false, false>(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS,
                           P, seq_idx, I, qpos_in, qvel_in, act_in, tb_in,
                           qpos_out, qvel_out, act_dim, rfc_rate, PART_HEAD,
@@ -1164,7 +1433,7 @@ control_step_head_kernel(KERNEL_ARGS, float* __restrict__ X) {
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_tail_kernel(KERNEL_ARGS, float* __restrict__ X) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
   control_step_env<false, false>(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS,
                           P, seq_idx, I, qpos_in, qvel_in, act_in, tb_in,
                           qpos_out, qvel_out, act_dim, rfc_rate, PART_TAIL,
@@ -1175,7 +1444,7 @@ control_step_tail_kernel(KERNEL_ARGS, float* __restrict__ X) {
 // bfloat16 preconditioner; X is (B, 2, NV, NV) bfloat16
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_bf16_kernel(KERNEL_ARGS) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
   control_step_env<false, true>(blockIdx.x, threadIdx.x, blockDim.x, sm,
                                 ENV_WS, P, seq_idx, I, qpos_in, qvel_in,
                                 act_in, tb_in, qpos_out, qvel_out, act_dim,
@@ -1185,7 +1454,7 @@ control_step_bf16_kernel(KERNEL_ARGS) {
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_head_bf16_kernel(KERNEL_ARGS, float* __restrict__ X) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
   control_step_env<false, true>(blockIdx.x, threadIdx.x, blockDim.x, sm,
                                 ENV_WS, P, seq_idx, I, qpos_in, qvel_in,
                                 act_in, tb_in, qpos_out, qvel_out, act_dim,
@@ -1194,7 +1463,7 @@ control_step_head_bf16_kernel(KERNEL_ARGS, float* __restrict__ X) {
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 control_step_tail_bf16_kernel(KERNEL_ARGS, float* __restrict__ X) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
   control_step_env<false, true>(blockIdx.x, threadIdx.x, blockDim.x, sm,
                                 ENV_WS, P, seq_idx, I, qpos_in, qvel_in,
                                 act_in, tb_in, qpos_out, qvel_out, act_dim,
@@ -1211,6 +1480,43 @@ static int launch(Kernel kernel, int B, void* stream, const float* W,
   if (e != cudaSuccess) return (int)e;
   kernel<<<B, NTHREADS, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// What the card makes of one kernel: registers a thread, local memory
+// bytes a thread (stack frame and spills), dynamic shared bytes, threads
+// and resident blocks per SM at that shared memory -> out[0..4].
+template <typename Kernel>
+static int occupancy(Kernel kernel, int smem_floats, int* out) {
+  const int smem = smem_floats * (int)sizeof(float);
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kernel);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      NTHREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = smem;
+  out[3] = NTHREADS;
+  out[4] = blocks;
+  return 0;
+}
+
+// occupancy() of every entry, 5 ints each, in the order K1 (K1e, K1d),
+// K1f, K2 head, K2 tail, K2b at split=False, K2b head, K2b tail.
+extern "C" int uhc_control_step_occupancy(int* out) {
+  int e = 0;
+  if (!e) e = occupancy(control_step_kernel, SM_TOTAL, out);
+  if (!e) e = occupancy(control_step_f_kernel, SM_TOTAL_F, out + 5);
+  if (!e) e = occupancy(control_step_head_kernel, SM_TOTAL, out + 10);
+  if (!e) e = occupancy(control_step_tail_kernel, SM_TOTAL, out + 15);
+  if (!e) e = occupancy(control_step_bf16_kernel, SM_TOTAL, out + 20);
+  if (!e) e = occupancy(control_step_head_bf16_kernel, SM_TOTAL, out + 25);
+  if (!e) e = occupancy(control_step_tail_bf16_kernel, SM_TOTAL, out + 30);
+  return e;
 }
 
 // Each launches on `stream` and returns the CUDA error code of the launch

@@ -21,10 +21,11 @@ model (`env_models`) and runs the same chain.
 
 K1d, the big trees (pallas_lane.py with pcg_vpu_sub=True): a tree of 33
 to 52 bodies (48-body masterfoot, 52-body SMPL-H) runs the same kernels
-built for its body count (`csrc/build.py`, -DNB), with its matrices in a
-per-env workspace in device memory that the wrapper allocates once for
-the largest batch it has seen; the env runs it at PCG (2, 2). A model
-library on a big tree is not ported.
+built for its body count (`csrc/build.py`, -DNB), with A_pd, A_fd and the
+Jacobians in a per-env workspace in device memory that the wrapper
+allocates once for the largest batch it has seen, and the preconditioners
+Xp, Xf in shared memory; the env runs it at PCG (2, 2). A model library
+on a big tree is not ported.
 
 K1f, explicit RFC (`residual_force_mode` other than "implicit") and
 per-joint meta-PD (`meta_pd_joint`) in pallas_lane.py (`VFX`, `MPJ`,
