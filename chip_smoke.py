@@ -36,11 +36,14 @@ Usage: python3 chip_smoke.py [--parent SRC] (needs one CUDA card).
 With --parent, SRC is another version of
 uhc_tpu_torch/csrc/control_step.cu (say the parent commit's, from `git
 show HEAD~1:uhc_tpu_torch/csrc/control_step.cu`, or a copy of this one
-with a constant changed), built beside this one for the big trees;
-phases time_big and time_k1f_big then time its K1d, K2, K2b and K1f-big
-in turns with this checkout's (parent, this, this, parent), split each
-step as `time_split` does, and say whether their outputs are equal bit
-for bit.
+with a constant changed), built beside this one for 24 bodies and the big
+trees; phases time, time_per_env, time_k1f and time_k1g then time its K1
+(at (1, 2), (2, 2) and (1, 1)), K2 head and tail, K2b (head, tail,
+split=False), K1e, K1f (explicit, meta_joint) and K1g, and time_big and
+time_k1f_big its K1d, K2, K2b and K1f-big, in turns with this checkout's
+(parent, this, this, parent); they split each step as `time_split` does
+and fail where the outputs are not equal bit for bit. A source older
+than J6 and G stored by subtree is called through `OlderEntries`.
 
 Phases print a line when they start and one with their numbers when they
 end. Output ends with a JSON line of per-kernel numbers, the card's name
@@ -49,6 +52,7 @@ and power limit as nvidia-smi reports them, and
 card, a missing repository or the deadline exits non-zero and prints no
 result.
 """
+import ctypes
 import json
 import os
 import signal
@@ -621,11 +625,71 @@ def gate_big(name, out, plain32, plain64, moved) -> tuple:
     return errs, fails
 
 
+# the launching entry points of a control-step library
+ENTRIES = ("uhc_control_step", "uhc_control_step_f", "uhc_control_step_head",
+           "uhc_control_step_tail", "uhc_control_step_bf16",
+           "uhc_control_step_head_bf16", "uhc_control_step_tail_bf16")
+
+
+# the int table's config entries after its J6 / G layout (control_step.cu
+# I_SELFCOL .. I_REFRESH)
+ITAB_CONFIG = 8
+
+
+class OlderEntries:
+    """A library built from a control_step.cu older than J6 and G stored
+    by subtree, called as this checkout's wrappers call theirs: its entry
+    points take no J6 / G floats before the stream (each is declared anew
+    without them, beside the declaration `build` gave the library)."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        self._entries = {}
+
+    def __getattr__(self, name):
+        if name not in ENTRIES:
+            return getattr(self._lib, name)
+        if name not in self._entries:
+            fn = self._lib[name]        # a function object of its own
+            argtypes = getattr(self._lib, name).argtypes
+            fn.argtypes = argtypes[:-2] + argtypes[-1:]
+            fn.restype = ctypes.c_int
+            self._entries[name] = (
+                lambda *args, fn=fn: fn(*args[:-2], args[-1]))
+        return self._entries[name]
+
+
 def on_library(step, lib):
     """`step` (a ControlStep or ControlStepSplit) launching the kernels of
-    the CUDA library `lib` (another build) instead of its tree's."""
+    the CUDA library `lib` (another build) instead of its tree's. A build
+    of an older source, whose int table lacks the J6 / G layout before its
+    config entries, gets the table without it and the calls of
+    `OlderEntries`."""
+    import numpy as np
+
+    from uhc_tpu_torch.csrc import build
+
+    n = build.layout(lib)["itab"]
+    if n < step.itab.size:
+        it = step.itab
+        step.itab = np.concatenate([it[:n - ITAB_CONFIG],
+                                    it[-ITAB_CONFIG:]])
+        lib = OlderEntries(lib)
     step.library = lambda: lib
     return step
+
+
+def against_parent(calls: dict, reps: int) -> dict:
+    """`calls`: name -> (this checkout's call, the --parent build's call on
+    the same inputs), each returning a tuple of tensors -> {"turns":
+    `in_turns`, "equal_outputs": {name: bit for bit}}; raises where an
+    output is not equal."""
+    same = {k: outputs_equal(this(), parent())
+            for k, (this, parent) in calls.items()}
+    if not all(same.values()):
+        raise RuntimeError(f"--parent: outputs not equal bit for bit: "
+                           f"{same}")
+    return {"turns": in_turns(calls, reps), "equal_outputs": same}
 
 
 def outputs_equal(a, b) -> bool:
@@ -1444,8 +1508,8 @@ def run(parent=None) -> int:
     big_nb = tuple(nb for _, nb in BIG)
     with ThreadPoolExecutor(1) as pool:
         # the --parent build's nvcc run beside this checkout's
-        parent_build = (pool.submit(build.build_libraries, big_nb, parent)
-                        if parent else None)
+        parent_build = (pool.submit(build.build_libraries, (24, *big_nb),
+                                    parent) if parent else None)
         libs = build.build_libraries(BODIES)
         parent_libs = parent_build.result() if parent else None
     lib_cuda = libs[24]
@@ -1456,8 +1520,18 @@ def run(parent=None) -> int:
             key, {}).get("stderr", "").splitlines()
             if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
 
+    # the 24-body layout on the SMPL tree: J6 and G by subtree, two blocks
+    # of every kernel per SM
+    from uhc_tpu_torch.physics.control_step import jacobian_tables
+    from uhc_tpu_torch.physics.model import Topology
+    from uhc_tpu_torch.smpl.constants import MUJOCO_PARENTS
+
+    jg_smpl = int(jacobian_tables(Topology(
+        24, tuple(MUJOCO_PARENTS.tolist()), ("",) * 24))[0][-1])
+    occ24 = build.occupancy(lib_cuda, jg_smpl)
     done("build", seconds=time.perf_counter() - t0,
          layout=build.layout(lib_cuda), ptxas=ptxas(24),
+         jg_floats=jg_smpl, occupancy=occ24,
          big={nb: {"layout": build.layout(libs[nb]), "ptxas": ptxas(nb),
                    "occupancy": build.occupancy(libs[nb]),
                    "seconds": build.build_log.get(("cuda", nb), {}).get(
@@ -1466,7 +1540,12 @@ def run(parent=None) -> int:
              "source": parent,
              **{nb: {"layout": build.layout(parent_libs[nb]), "ptxas":
                      ptxas(build.library_key("cuda", nb, parent))}
-                for nb in big_nb}})
+                for nb in (24, *big_nb)}})
+    one_block = {e: o["blocks_per_sm"] for e, o in occ24.items()
+                 if o["blocks_per_sm"] < 2}
+    if one_block:
+        raise RuntimeError(f"24 bodies: fewer than 2 blocks per SM on the "
+                           f"SMPL tree: {one_block}")
 
     phase("kernel_vs_plain", f"(B={B_CHECK}, plain PD and meta-PD)")
     from uhc_tpu_torch.config.config import Config
@@ -2130,6 +2209,46 @@ def run(parent=None) -> int:
                               4 * state_io / H100_BYTES_PER_S),
         "bound_by": ("operations" if fl22 / H100_F32_FLOPS
                      >= 4 * state_io / H100_BYTES_PER_S else "bytes")}
+    # K1 at (2, 2) and (1, 1) on the same states: the step's split into
+    # the inverse pair, the PCG and the assembly (`time_split`); with
+    # --parent every entry of this phase in turns with that build's
+    ins = (qpos, qvel, act, tb, 1.0)
+    k1_22 = CS.ControlStep(topo, cfg.env, model, (2, 2))
+    k1_11 = CS.ControlStep(topo, cfg.env, model, (1, 1))
+    k1_22(*ins)
+    k1_11(*ins)
+    torch.cuda.synchronize()
+    split_ms = {k: cuda_ms(fn, 10) for k, fn in (
+        ("k1_22", lambda: k1_22(*ins)), ("k1_11", lambda: k1_11(*ins)))}
+    split24 = time_split(split_ms["k1_22"], split_ms["k1_11"], head_ms,
+                         tail_ms, cfg.env.frame_skip)
+    parent24 = None
+    if parent_libs is not None:
+        pk = {k: on_library(x, parent_libs[24]) for k, x in (
+            ("k1", CS.ControlStep(topo, cfg.env, model, (1, 2))),
+            ("k1_22", CS.ControlStep(topo, cfg.env, model, (2, 2))),
+            ("k1_11", CS.ControlStep(topo, cfg.env, model, (1, 1))),
+            ("k2", K2.ControlStepSplit(topo, cfg.env, model, 2)),
+            ("k2b", K2.ControlStepSplit(topo, cfg.env, model, 2,
+                                        precond_bf16=True)),
+            ("k2b_one", CS.ControlStep(topo, cfg.env, model, (2, 2),
+                                       precond_bf16=True)))}
+        parent24 = against_parent({
+            "k1": (lambda: step(*ins), lambda: pk["k1"](*ins)),
+            "k1_22": (lambda: k1_22(*ins), lambda: pk["k1_22"](*ins)),
+            "k1_11": (lambda: k1_11(*ins), lambda: pk["k1_11"](*ins)),
+            "head": (lambda: split.head(*ins), lambda: pk["k2"].head(*ins)),
+            "tail": (lambda: split.tail(qh, vh, act, tb, X, 1.0),
+                     lambda: pk["k2"].tail(qh, vh, act, tb, X, 1.0)),
+            "k2b_head": (lambda: k2b.head(*ins),
+                         lambda: pk["k2b"].head(*ins)),
+            "k2b_tail": (lambda: k2b.tail(qhb, vhb, act, tb, Xb, 1.0),
+                         lambda: pk["k2b"].tail(qhb, vhb, act, tb, Xb, 1.0)),
+            "k2b_one": (lambda: k1b(*ins), lambda: pk["k2b_one"](*ins))},
+            10)
+        pt = {k: v["parent_ms"] for k, v in parent24["turns"].items()}
+        parent24["split"] = time_split(pt["k1_22"], pt["k1_11"], pt["head"],
+                                       pt["tail"], cfg.env.frame_skip)
     done("time", kernel_ms=kernel_ms, plain_ms=plain_ms,
          substeps_per_s=B_TIME * cfg.env.frame_skip / (kernel_ms / 1e3),
          flops_per_step=flops, bound_ms=bound_ms, bound_by=bound_by,
@@ -2137,7 +2256,9 @@ def run(parent=None) -> int:
          env_step_ms=1e3 * env_s / n_env, timed_launches=timed_launches,
          k2_head_ms=head_ms, k2_tail_ms=tail_ms,
          k2_plain_head_ms=plain_head_ms, k2_plain_tail_ms=plain_tail_ms,
-         k2_bound=k2_bound, k2b=k2b_t, card=smi)
+         k2_bound=k2_bound, k2b=k2b_t, k1_22_ms=split_ms["k1_22"],
+         k1_11_ms=split_ms["k1_11"], split=split24, parent=parent24,
+         card=smi)
 
     # K1e over the shaped library beside K1 (the shared stand-in) on the
     # same states, uhc_implicit_shape's meta-PD control step, timed in
@@ -2209,6 +2330,13 @@ def run(parent=None) -> int:
                     4 * (io_e + Xe.numel()))
         for part, act, st in (("head", trace_e2[:1], 0),
                               ("tail", trace_e2[1:], 1))}
+    parent_e = None
+    if parent_libs is not None:
+        pk1e = on_library(CS.ControlStep(topo, shape_env, smodel, (1, 2)),
+                          parent_libs[24])
+        parent_e = against_parent({"k1e": (
+            lambda: k1e(qe, ve, acte, tbe, 1.0, seqe),
+            lambda: pk1e(qe, ve, acte, tbe, 1.0, seqe))}, 10)
     done("time_per_env", k1e_ms=k1e_ms, k1_same_states_ms=k1_same_ms,
          turns_k1_k1e_k1e_k1=turns, k1e_over_k1=k1e_ms / k1_same_ms,
          turns_k1_k1e_equal_rows=turns_eq,
@@ -2220,7 +2348,7 @@ def run(parent=None) -> int:
          k2e_head_ms=head_e_ms, k2e_tail_ms=tail_e_ms,
          k2e_plain_head_ms=plain_head_e_ms,
          k2e_plain_tail_ms=plain_tail_e_ms, k2e_bound=k2e_bound,
-         library_rows=k1e.num_models, card=smi)
+         library_rows=k1e.num_models, parent=parent_e, card=smi)
 
     phase("time_big", f"(K1d at (2, 2) and (1, 1), K2 and K2b on SMPL-H "
                       f"and masterfoot, uhc_implicit, B={B_BIG_TIME}; in "
@@ -2257,25 +2385,18 @@ def run(parent=None) -> int:
                     CS.ControlStep(btopo, benv, bmodel, (2, 2)),
                     CS.ControlStep(btopo, benv, bmodel, (1, 1)),
                     K2.ControlStepSplit(btopo, benv, bmodel, 2)))
-                ph = psplit.head(*ins)
-                same = {"k1d": outputs_equal(k1d(*ins), p1(*ins)),
-                        "k1d_11": outputs_equal(k1d11(*ins), p11(*ins)),
-                        "head": outputs_equal((qh, vh, X), ph),
-                        "tail": outputs_equal(
-                            split.tail(qh, vh, act, tb, X, 1.0),
-                            psplit.tail(*ph[:2], act, tb, ph[2], 1.0))}
-                turns = in_turns({
+                t = {"parent": against_parent({
                     "k1d": (this["k1d"], lambda: p1(*ins)),
                     "k1d_11": (this["k1d_11"], lambda: p11(*ins)),
                     "head": (this["head"], lambda: psplit.head(*ins)),
                     "tail": (this["tail"], lambda: psplit.tail(
-                        *ph[:2], act, tb, ph[2], 1.0))}, reps)
-                t = {f"{k}_ms": v["ms"] for k, v in turns.items()}
-                t["parent"] = {"turns": turns, "equal_outputs": same,
-                               "split": time_split(
-                                   *(turns[k]["parent_ms"] for k in (
-                                       "k1d", "k1d_11", "head", "tail")),
-                                   benv.frame_skip)}
+                        qh, vh, act, tb, X, 1.0))}, reps)}
+                turns = t["parent"]["turns"]
+                t.update({f"{k}_ms": v["ms"] for k, v in turns.items()})
+                t["parent"]["split"] = time_split(
+                    *(turns[k]["parent_ms"]
+                      for k in ("k1d", "k1d_11", "head", "tail")),
+                    benv.frame_skip)
             t["split"] = time_split(t["k1d_ms"], t["k1d_11_ms"],
                                     t["head_ms"], t["tail_ms"],
                                     benv.frame_skip)
@@ -2292,18 +2413,13 @@ def run(parent=None) -> int:
                 pk2b = on_library(K2.ControlStepSplit(
                     btopo, benv, bmodel, 2, precond_bf16=True),
                     parent_libs[nb])
-                phb = pk2b.head(*ins)
-                t["parent"]["equal_outputs"].update(
-                    k2b_head=outputs_equal((qhb, vhb, Xb), phb),
-                    k2b_tail=outputs_equal(
-                        k2b.tail(qhb, vhb, act, tb, Xb, 1.0),
-                        pk2b.tail(*phb[:2], act, tb, phb[2], 1.0)))
-                turns = in_turns({
+                cmp = against_parent({
                     "k2b_head": (this["k2b_head"], lambda: pk2b.head(*ins)),
                     "k2b_tail": (this["k2b_tail"], lambda: pk2b.tail(
-                        *phb[:2], act, tb, phb[2], 1.0))}, reps)
-                t["parent"]["turns"].update(turns)
-                t.update({f"{k}_ms": v["ms"] for k, v in turns.items()})
+                        qhb, vhb, act, tb, Xb, 1.0))}, reps)
+                for k in ("turns", "equal_outputs"):
+                    t["parent"][k].update(cmp[k])
+                t.update({f"{k}_ms": v["ms"] for k, v in cmp["turns"].items()})
             t["k2b_over_k2"] = ((t["k2b_head_ms"] + t["k2b_tail_ms"])
                                 / (t["head_ms"] + t["tail_ms"]))
             trace = []
@@ -2384,6 +2500,12 @@ def run(parent=None) -> int:
         k1f_time[mode]["k1f_over_k1"] = (k1f_time[mode]["k1f_ms"]
                                          / k1f_time[mode]["k1_same_states_ms"])
         k1f_time[mode]["train"] = TRAIN_RATES.get(f"train_{mode}")
+        if parent_libs is not None:
+            pk1f = on_library(CS.ControlStep(topo, env_cfg, model, (1, 2)),
+                              parent_libs[24])
+            k1f_time[mode]["parent"] = against_parent({"k1f": (
+                lambda: k1f(qpos, qvel, actf, tb, 1.0),
+                lambda: pk1f(qpos, qvel, actf, tb, 1.0))}, 10)
     done("time_k1f", **k1f_time, card=smi)
 
     phase("time_k1f_big", f"(K1f explicit and meta_joint on SMPL-H and "
@@ -2443,22 +2565,18 @@ def run(parent=None) -> int:
                     p22, p11 = (on_library(CS.ControlStep(
                         btopo, env_cfg, bmodel, it), parent_libs[nb])
                         for it in ((2, 2), (1, 1)))
-                    pturns = in_turns({
+                    t["parent"] = against_parent({
                         "k1f": (this["k1f"], lambda: p22(*ins)),
                         "k1f_11": (this["k1f_11"], lambda: p11(*ins))},
                         reps)
+                    pturns = t["parent"]["turns"]
                     t["k1f_11_ms"] = pturns["k1f_11"]["ms"]
                     k2t = big_time[fam][f"B{B}"]["parent"]["turns"]
-                    t["parent"] = {
-                        "turns": pturns, "equal_outputs": {
-                            "k1f": outputs_equal(k1f(*ins), p22(*ins)),
-                            "k1f_11": outputs_equal(k1f11(*ins),
-                                                    p11(*ins))},
-                        "split": time_split(
-                            pturns["k1f"]["parent_ms"],
-                            pturns["k1f_11"]["parent_ms"],
-                            k2t["head"]["parent_ms"],
-                            k2t["tail"]["parent_ms"], env_cfg.frame_skip)}
+                    t["parent"]["split"] = time_split(
+                        pturns["k1f"]["parent_ms"],
+                        pturns["k1f_11"]["parent_ms"],
+                        k2t["head"]["parent_ms"], k2t["tail"]["parent_ms"],
+                        env_cfg.frame_skip)
                 # the inverse pair from K2's head and tail in time_big
                 k2 = big_time[fam][f"B{B}"]
                 t["split"] = time_split(t["k1f_ms"], t["k1f_11_ms"],
@@ -2515,6 +2633,13 @@ def run(parent=None) -> int:
                                              refresh_at=REFRESH_AT), 4 * io)}
     k1g_time["k1g_over_k1_11"] = (k1g_time["k1g_ms"]
                                   / k1g_time["k1_11_same_states_ms"])
+    if parent_libs is not None:
+        pk1g = on_library(CS.ControlStep(topo, cfg.env, model, (1, 1),
+                                         refresh_at=REFRESH_AT),
+                          parent_libs[24])
+        k1g_time["parent"] = against_parent({"k1g": (
+            lambda: k1g(qpos, qvel, act, tb, 1.0),
+            lambda: pk1g(qpos, qvel, act, tb, 1.0))}, 10)
     done("time_k1g", **k1g_time, card=smi)
 
     phase("time_smplx", f"(K2 head and tail on SMPL-X, B={B_BIG_TIME}; "

@@ -6,8 +6,9 @@ they are held against the float64 plain inverses by chip_smoke's
 `x_check`; every output of the host builds (K1d, K1f, K2 head with its
 Xp/Xf and tail, K2b, K1g) keeps the digests of the source as it was before
 the inverses moved to shared memory; and each build's layout fits a
-block's shared memory, the 24-body layout unchanged. States are clip
-frames of the gait clips on each tree (chip_smoke's draws, seeded)."""
+block's shared memory, two blocks an SM at 24 bodies on the SMPL tree.
+States are clip frames of the gait clips on each tree (chip_smoke's
+draws, seeded)."""
 import dataclasses
 import hashlib
 import shutil
@@ -21,12 +22,13 @@ from test_torch_helpers import few_threads
 pytestmark = pytest.mark.usefixtures(few_threads.__name__)
 
 FAMILIES = {"masterfoot": 48, "smplh": 52, "smplx": 55}
-# a block's shared memory on the H100 (227 KB)
+# a block's shared memory on the H100 (227 KB); an SM's (228 KB), and
+# what the SM reserves for each resident block
 SMEM_BYTES = 232_448
-# build.layout of the 24-body build before the big-tree inverses moved
-PARENT_LAYOUT_24 = {"params": 2551, "itab": 235, "smem_floats": 48946,
-                    "threads": 256, "nbody": 24, "maxact": 128,
-                    "workspace": 0, "smem_floats_k1f": 49312}
+SM_BYTES, BLOCK_RESERVED = 233_472, 1_024
+# (body, dof) pairs of the SMPL tree with the dof above the body: the
+# columns of J6 and G by subtree, 6 rows each
+SMPL_PAIRS = 429
 N_DIGEST = 4
 # sha256 (first 16 hex digits) of the host build's outputs as the source
 # was before the big-tree inverses moved to shared memory: K1d at (2, 2),
@@ -219,12 +221,29 @@ def test_layout_fits_a_block(nb):
     """Each host build's layout: at 48, 52 and 55 bodies the K1 and K1f
     shared memory, now with Xp and Xf as packed triangles, under a block's
     232,448 bytes, and the device workspace without them (A_pd, A_fd, J6,
-    G); at 24 bodies the layout as before."""
+    G); at 24 bodies on the SMPL tree, with Xp and Xf packed and J6 and G
+    stored by subtree (2 × 6 × 429 floats), K1 and K1f each twice in an
+    SM's 233,472 bytes with the 1,024 the SM reserves a block."""
     from uhc_tpu_torch.csrc import build
 
-    lay = build.layout(_host(nb))
+    lib = _host(nb)
+    lay = build.layout(lib)
     if nb == 24:
-        assert lay == PARENT_LAYOUT_24
+        from uhc_tpu_torch.physics.control_step import jacobian_tables
+        from uhc_tpu_torch.physics.model import Topology
+        from uhc_tpu_torch.smpl.constants import MUJOCO_PARENTS
+
+        topo = Topology(24, tuple(MUJOCO_PARENTS.tolist()), ("",) * 24)
+        jg = int(jacobian_tables(topo)[0][-1])
+        assert jg == 6 * SMPL_PAIRS
+        sm = build.smem_floats(lib, jg)
+        assert (lay["workspace"], lay["threads"]) == (0, 512)
+        assert sm["step"] - lay["smem_floats"] == 2 * jg
+        assert 0 <= sm["k1f"] - lay["smem_floats_k1f"] - 2 * jg < 4
+        # A_pd and A_fd in full, Xp and Xf packed
+        assert lay["smem_floats"] > 2 * 75 * 75 + 75 * 76
+        for k in ("step", "k1f"):
+            assert 2 * (4 * sm[k] + BLOCK_RESERVED) <= SM_BYTES, (k, sm)
         return
     nv = 6 + 3 * (nb - 1)
     assert lay["nbody"] == nb

@@ -128,7 +128,7 @@ def test_pack_tables_layout(setup):
     cfg = env_cfgs()["meta_pd"]
     P, I = CS.pack_tables(topo, cfg, m, (1, 2))
     assert P.dtype == np.float32 and I.dtype == np.int32
-    assert P.size == 2551 and I.size == 235
+    assert P.size == 2551 and I.size == 1428
     # schedule, flags and the refresh substep (none) end the int table
     assert I[-8:].tolist() == [1, 1, 1, 1, 1, 2, 15, -1]
     # levels cover every non-root body once

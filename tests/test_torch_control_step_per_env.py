@@ -248,7 +248,7 @@ def test_pack_tables_over_library(setup):
     s = setup
     cfg = env_cfgs()["meta_pd"]
     P, I = CS.pack_tables(s["tt"], cfg, s["ml"])
-    assert P.shape == (S_LIB, 2551) and I.shape == (235,)
+    assert P.shape == (S_LIB, 2551) and I.shape == (1428,)
     for r in (0, 3, 7):
         Pr, Ir = CS.pack_tables(s["tt"], cfg, model_gather(s["ml"], r))
         np.testing.assert_array_equal(P[r], Pr)

@@ -284,7 +284,7 @@ def test_k1f_tables_and_operands(setup):
     for mode, (rfc, gains) in flags.items():
         cfg = s["cfgs"][mode]
         P, I = CS.pack_tables(s["tt"], cfg, s["m"], (1, 2))
-        assert I.size == 235 and I[-7].item() == rfc and \
+        assert I.size == 1428 and I[-7].item() == rfc and \
             I[-5].item() == gains, mode
         step = CS.ControlStep(s["tt"], cfg, s["m"], (1, 2))
         assert step.k1f == (mode != "uhc_implicit")

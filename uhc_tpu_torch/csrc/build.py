@@ -120,27 +120,26 @@ def _bind(lib, suffix: str, stream: bool):
     uhc_control_step_head / _tail (K2) and their _bf16 twins (K2b) take
     10 (the last is Xp/Xf, float32 or bfloat16), then B, act_dim,
     rfc_rate. On CUDA each of them takes the matrix workspace (null at 24
-    bodies) before Xp/Xf and the stream last; the host build keeps its
-    own workspace. uhc_control_step_f (K1f) takes K1's 9 pointers, on
-    CUDA the workspace, the explicit wrench and the per-dof gain scales
-    (either null), then B, act_dim, rfc_rate and, on CUDA, the stream.
-    The host build also has uhc_bf16_bits_host (x, out, n): K2b's rounding
-    alone."""
+    bodies) before Xp/Xf, and after rfc_rate the floats of each of J6 and
+    G by subtree (the int table's I_JROW[6·nb], which size a 24-body
+    block's shared memory) and the stream; the host build keeps its own
+    workspace, sized from the int table. uhc_control_step_f (K1f) takes
+    K1's 9 pointers, on CUDA the workspace, the explicit wrench and the
+    per-dof gain scales (either null), then B, act_dim, rfc_rate and, on
+    CUDA, the J6 / G floats and the stream. The host build also has
+    uhc_bf16_bits_host (x, out, n): K2b's rounding alone."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ints = [i32, i32, f32] + ([i32, ptr] if stream else [])
     for entry, nptr in (("uhc_control_step", 9),
                         ("uhc_control_step_head", 10),
                         ("uhc_control_step_tail", 10),
                         ("uhc_control_step_bf16", 9),
                         ("uhc_control_step_head_bf16", 10),
-                        ("uhc_control_step_tail_bf16", 10)):
+                        ("uhc_control_step_tail_bf16", 10),
+                        ("uhc_control_step_f", 11)):
         fn = getattr(lib, entry + suffix)
-        fn.argtypes = ([ptr] * (nptr + (1 if stream else 0))
-                       + [i32, i32, f32] + ([ptr] if stream else []))
+        fn.argtypes = [ptr] * (nptr + (1 if stream else 0)) + ints
         fn.restype = i32
-    fn = getattr(lib, "uhc_control_step_f" + suffix)
-    fn.argtypes = ([ptr] * (11 + (1 if stream else 0)) + [i32, i32, f32]
-                   + ([ptr] if stream else []))
-    fn.restype = i32
     if not stream:
         lib.uhc_bf16_bits_host.argtypes = [ptr, ptr, i32]
         lib.uhc_bf16_bits_host.restype = i32
@@ -180,9 +179,10 @@ def load_host_library(nb: int = 24):
 
 def layout(lib) -> dict:
     """Sizes the C side expects: params floats, table ints, shared-memory
-    floats, threads per block, bodies, action columns it holds, the
-    device workspace floats per env (0 where the matrices sit in shared
-    memory), and K1f's shared-memory floats."""
+    floats (at 24 bodies those before J6 and G, see `smem_floats`),
+    threads per block, bodies, action columns it holds, the device
+    workspace floats per env (0 where the matrices sit in shared memory),
+    and K1f's shared-memory floats (as the other)."""
     buf = (ctypes.c_int * 8)()
     lib.uhc_control_step_layout(buf)
     return {"params": buf[0], "itab": buf[1], "smem_floats": buf[2],
@@ -190,12 +190,24 @@ def layout(lib) -> dict:
             "workspace": buf[6], "smem_floats_k1f": buf[7]}
 
 
+def smem_floats(lib, jg: int) -> dict:
+    """A block's shared-memory floats with `jg` floats in each of J6 and G
+    by subtree (the int table's I_JROW[6·nb]; a big tree's do not depend
+    on it): {"step": K1's and every other kernel's, "k1f": K1f's}."""
+    buf = (ctypes.c_int * 2)()
+    fn = lib.uhc_control_step_smem
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    fn(int(jg), buf)
+    return {"step": buf[0], "k1f": buf[1]}
+
+
 OCCUPANCY_ENTRIES = ("step", "k1f", "head", "tail", "step_bf16", "head_bf16",
                      "tail_bf16")
 
 
-def occupancy(lib) -> dict:
-    """What the card makes of each kernel of a CUDA library: {entry:
+def occupancy(lib, jg: int = 0) -> dict:
+    """What the card makes of each kernel of a CUDA library, with `jg`
+    floats in each of J6 and G (24 bodies; `smem_floats`): {entry:
     {"registers", "local_bytes" (a thread's stack frame and spills),
     "smem_bytes" (dynamic),
     "threads", "blocks_per_sm"}} from cudaFuncGetAttributes and
@@ -203,8 +215,8 @@ def occupancy(lib) -> dict:
     error."""
     buf = (ctypes.c_int * (5 * len(OCCUPANCY_ENTRIES)))()
     fn = lib.uhc_control_step_occupancy
-    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
-    rc = fn(buf)
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    rc = fn(int(jg), buf)
     if rc != 0:
         raise RuntimeError(f"uhc_control_step_occupancy: CUDA error {rc}")
     keys = ("registers", "local_bytes", "smem_bytes", "threads",

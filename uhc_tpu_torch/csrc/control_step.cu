@@ -34,11 +34,7 @@
 //    W_TOTAL floats per env, allocated by the caller), and a thread reads
 //    a column of A_pd, A_fd so that a warp's loads are coalesced. The two
 //    preconditioners Xp, Xf stay in shared memory as packed lower
-//    triangles (87 / 102 KB), beside the state, the per-body vectors and
-//    the PCG vectors, and the exact inverse pair is computed there in
-//    panels (`exact_inverses`). The head/tail split runs over the big
-//    trees the same way: the head writes Xp, Xf out in full, the tail
-//    reads them back into the packed triangles.
+//    triangles (87 / 102 KB), as on every tree.
 //  * K1f, explicit residual force control (VFX) and per-joint meta-PD
 //    (MPJ) of the same TPU kernel (pallas_lane.py:127-146, :878-908 and
 //    the host prep :1217-1246): `control_step_f_kernel`, the same physics
@@ -85,22 +81,30 @@
 // same (pd_iters, fd_iters) schedule.
 //
 // What bounds it on the H100: float32 arithmetic outside the tensor cores
-// (67 TFLOP/s). Per env and substep the dense algorithm assembles
-// M = GᵀG and CD = J6ᵀ·W·J6 from (144×75) matrices, about 1.6 MFLOP each,
-// and substep 0 adds two 75×75 Cholesky inverses; the state it reads and
-// writes is under 2 KB per env, so bytes never bound it.
+// (67 TFLOP/s). Per env and substep the algorithm assembles M = GᵀG and
+// CD = J6ᵀ·W·J6 from the (6·NB × NV) Jacobians, and substep 0 adds two
+// NV × NV Cholesky inverses; the state it reads and writes is under 2 KB
+// per env, so bytes never bound it.
 //
 // What the design does about it:
+//  * every tree keeps Xp and Xf in shared memory as packed lower triangles
+//    and computes the exact inverse pair there in place, in panels
+//    (`exact_inverses`); the head/tail split writes them out in full and
+//    reads them back into the triangles;
 //  * at 24 bodies everything of one env stays in shared memory for all 15
-//    substeps: the two preconditioners, A_pd, A_fd and the J6 / G (or K)
-//    matrices, about 190 KB, so nothing but the state touches device
-//    memory (on a big tree A_pd, A_fd, J6 and G go through L1/L2 to the
-//    workspace, and Xp, Xf stay in shared memory);
+//    substeps: Xp, Xf (22.8 KB), A_pd, A_fd in full (45.0 KB), the state
+//    (19.4 KB) and J6, G stored by subtree (body b's 6 rows hold only the
+//    6 + 3·depth(b) dofs of its ancestors: 20.6 KB on the SMPL tree), 107.8
+//    KB a block (K1f 109.2), so two blocks share an SM and nothing but the
+//    state touches device memory; a tree of another depth asks for its own
+//    J6 / G size at launch. On a big tree A_pd, A_fd, J6 and G go through
+//    L1/L2 to the workspace in full rows;
 //  * the Jacobian columns of a dof are zero outside the subtree of the
 //    dof's body, and bodies are in depth-first order, so every entry of M,
 //    CD and Jᵀ·wrench sums over a contiguous range of bodies only (a few
-//    percent of the dense work for a limb), and CD skips bodies without an
-//    active ground contact;
+//    percent of the dense work for a limb), J6, G and K = W·J6 are built
+//    for the (body, ancestor dof) pairs only, and CD skips bodies without
+//    an active ground contact;
 //  * threads work in parallel over bodies (FK and velocities one tree
 //    level at a time), contact points, pairs and matrix entries; the
 //    Cholesky factorization runs both systems in lockstep.
@@ -142,18 +146,24 @@
 // K1d: trees of more than 32 bodies keep their matrices in a per-env
 // workspace in device memory (see the workspace layout below).
 #define BIG_TREE (NB > 32)
-// Threads per block (one block per env). A big tree's block holds 137 to
-// 174 KB of shared memory, one block per SM: 512 threads there (16 warps
-// to hide the workspace's latency; ptxas fits every kernel in 128
-// registers, K2b's with 28 to 44 bytes of spills), 256 at 24 bodies.
-#if BIG_TREE
+// Threads per block (one block per env) and resident blocks per SM: 512
+// threads on every tree. A big tree's block holds 137 to 174 KB of shared
+// memory, one block per SM (16 warps to hide the workspace's latency;
+// ptxas fits every kernel in 128 registers, K2b's with 28 to 44 bytes of
+// spills). At 24 bodies a block holds 108 to 110 KB on the SMPL tree: two
+// blocks per SM, 64 warps, so ptxas fits a thread in 64 registers with a
+// few spills; in turns on an H100 that ran K1 faster than 256 threads (107
+// registers, no spills) or 384 (PERF.md).
 #define NTHREADS 512
+#if BIG_TREE
+#define MINBLOCKS 1
 #else
-#define NTHREADS 256
+#define MINBLOCKS 2
 #endif
-// big trees: the blocked exact inverse's panel width; a panel's columns
-// (Cholesky, L⁻¹) or rows (Yᵀ Y) go to SM_PANEL, PB floats in each row of
-// PS: a lane's two 16-byte loads of a row then meet no other lane's banks
+// the blocked exact inverse's panel width; a panel's columns (Cholesky,
+// L⁻¹) or rows (Yᵀ Y) go to the panel (2·NV rows), PB floats in each row
+// of PS: a lane's two 16-byte loads of a row then meet no other lane's
+// banks
 #define PB 8
 #define PS 12
 #if BIG_TREE
@@ -187,6 +197,12 @@ enum {
 };
 
 // ---- topology and config: one int buffer ---------------------------------
+// J6 and G by subtree (24 bodies): body b's 6 rows hold the dofs of its
+// ancestors (b included), 6 + 3·depth(b) columns in dof order, so a dof
+// has one column in the rows of every body below it. The (body, dof)
+// pairs with the dof above the body are what phases E and H build, on
+// every tree. JP_MAX: the pairs of a chain, the most a tree has.
+#define JP_MAX (6 * NB + 3 * NB * (NB - 1) / 2)
 enum {
   I_PARENT = 0,                    // NB
   I_SUBEND = I_PARENT + NB,        // NB: subtree of b = bodies [b, end)
@@ -195,7 +211,12 @@ enum {
   I_NLEV = I_LEVSTART + NB + 1,
   I_NPAIR = I_NLEV + 1,
   I_PAIRS = I_NPAIR + 1,           // MAXPAIR*2
-  I_SELFCOL = I_PAIRS + MAXPAIR * 2,
+  I_JROW = I_PAIRS + MAXPAIR * 2,  // 6*NB+1: offset of row 6b+k; then the
+                                   // floats of each of J6, G
+  I_JCOL = I_JROW + 6 * NB + 1,    // NV: the column of dof j
+  I_NJP = I_JCOL + NV,             // pairs
+  I_JPAIR = I_NJP + 1,             // JP_MAX: b * NV + j, by body, column
+  I_SELFCOL = I_JPAIR + JP_MAX,
   I_RFC, I_ACTION_V, I_META_PD, I_PD_ITERS, I_FD_ITERS, I_FRAME_SKIP,
   I_REFRESH,                       // K1g: the substep of the second exact
                                    // inverse pair, -1 for none
@@ -208,14 +229,12 @@ enum { RFC_NONE = 0, RFC_IMPLICIT = 1, RFC_EXPLICIT = 2,
 enum { GAINS_FIXED = 0, GAINS_PER_SUBSTEP = 1, GAINS_PER_DOF = 2 };
 
 // ---- matrix workspace of one env (floats) -------------------------------
-// At 24 bodies (195 KB) the two preconditioners, A_pd, A_fd and the J6 /
-// G (or K) matrices open the block's shared memory. On a big tree they
-// exceed a block's 227 KB: A_pd, A_fd, J6 and G (0.51 MB at 48 bodies,
-// 0.60 MB at 52, 0.67 MB at 55) live in device memory, W_TOTAL floats per
-// env, while Xp and Xf stay in shared memory as packed lower triangles
-// (SM_PX, 2 × NTRI floats: 87.0 KB at 48 bodies, 101.8 KB at 52, 113.6 KB
-// at 55) with the inverse's panel (SM_PANEL, 14.1 to 16.1 KB), beside the
-// state, the per-body vectors and the PCG vectors.
+// A_pd and A_fd in full (both triangles equal bit for bit), J6 and G. On
+// a big tree they exceed a block's 227 KB: they live in device memory,
+// W_TOTAL floats per env (0.51 MB at 48 bodies, 0.60 MB at 52, 0.67 MB at
+// 55), J6 and G in full NV-wide rows. At 24 bodies A_pd and A_fd follow Xp
+// and Xf in shared memory (the workspace is shared memory itself), and J6
+// and G come last, by subtree (SM_JG).
 #if BIG_TREE
 enum {
   W_APD = 0,
@@ -226,19 +245,22 @@ enum {
 };
 #else
 enum {
-  W_XP = 0,
-  W_XF = W_XP + NV * NV,
-  W_APD = W_XF + NV * NV,
+  W_APD = (2 * NTRI + 3) / 4 * 4,
   W_AFD = W_APD + NV * NV,
-  W_J6 = W_AFD + NV * NV,            // (NB*6) × NV
-  W_G = W_J6 + NB * 6 * NV,          // G, then K = W·J6
-  W_TOTAL = W_G + NB * 6 * NV
+  W_TOTAL = W_AFD + NV * NV
 };
 #endif
 
 // ---- shared memory layout (floats) ----------------------------------------
+// Xp and Xf packed (SM_PX, 2 × NTRI floats: 22.8 KB at 24 bodies, 87.0 KB
+// at 48, 101.8 KB at 52, 113.6 KB at 55); on a big tree the inverse's
+// panel (SM_PANEL, 14.1 to 16.1 KB), at 24 bodies A_pd and A_fd; the state,
+// the per-body vectors and the PCG vectors; K1f's two operands; at 24
+// bodies J6 and G by subtree (SM_JG, I_JROW[6·NB] floats each), on which
+// the inverse's panel lies: nothing reads J6 or G from phase I to the next
+// substep's phase E, which rebuilds them.
 enum {
-  SM_PX = 0,                         // big tree: Xp, Xf packed (2 × NTRI)
+  SM_PX = 0,                         // Xp, Xf packed (2 × NTRI)
   SM_PANEL = (2 * NTRI + 3) / 4 * 4, // big tree: 2*NV × PS, 16-byte aligned
   SM_QPOS = BIG_TREE ? SM_PANEL + 2 * NV * PS : W_TOTAL,
   SM_QVEL = SM_QPOS + NQ,
@@ -285,8 +307,27 @@ enum {
   // K1f only, past the end of every other kernel's shared memory
   SM_VFX = SM_TOTAL,                 // 9*NB body-frame [cp|f|τ] wrenches
   SM_KSC = SM_VFX + 9 * NB,          // 2*NV per-dof kp, kd scales
-  SM_TOTAL_F = SM_KSC + 2 * NV
+  SM_TOTAL_F = SM_KSC + 2 * NV,
+  // 24 bodies: J6 then G (the panel's floats at least), 16-byte aligned
+  SM_JG = (SM_TOTAL + 3) / 4 * 4,
+  SM_JG_F = (SM_TOTAL_F + 3) / 4 * 4
 };
+
+// The fewest floats of each of J6, G by subtree: every body at depth 1.
+// The inverse's panel (2·NV·PS floats) fits on them.
+#define JG_MIN (6 * (6 * NB + 3 * (NB - 1)))
+static_assert(BIG_TREE || JG_MIN >= NV * PS, "the panel fits on J6, G");
+
+// Floats of a block's shared memory: K1f's (ext) or another kernel's, with
+// `jg` floats in each of J6 and G at 24 bodies (the int table's
+// I_JROW[6·NB]); a big tree's do not depend on it.
+static inline int smem_floats(bool ext, int jg) {
+#if BIG_TREE
+  return ext ? SM_TOTAL_F : SM_TOTAL;
+#else
+  return (ext ? SM_JG_F : SM_JG) + 2 * jg;
+#endif
+}
 
 // ---- small vector helpers --------------------------------------------------
 HD void qmul(const float* a, const float* b, float* o) {
@@ -385,13 +426,22 @@ HD void tri_index(int t, int* i, int* j) {
   *j = t - r * (r + 1) / 2;
 }
 
-// Offset of entry (i, k) of a symmetric NV × NV matrix stored in full.
-// Every writer of A_pd, A_fd (and of Xp, Xf at 24 bodies) stores both
-// triangles equal bit for bit. On a big tree A lies in device memory, and
-// the thread of row i reads column i instead (k·NV + i), so at each k a
-// warp's load is one or two 128-byte lines; each row's sum keeps its k
-// order, so the result is the row-major one bit for bit.
+// Offset of entry (i, k) of A_pd or A_fd, stored in full: every writer
+// stores both triangles equal bit for bit. At 24 bodies A lies in shared
+// memory and the thread of row i reads along its row (a warp's 32 rows at
+// one k lie NV = 75 floats apart, 32 distinct banks). On a big tree A
+// lies in device memory, and the thread of row i reads column i instead
+// (k·NV + i), so at each k a warp's load is one or two 128-byte lines;
+// each row's sum keeps its k order, so the result is the same bit for bit.
 HD int sym_at(int i, int k) { return BIG_TREE ? k * NV + i : i * NV + k; }
+
+// Offset of row r = 6b + k of J6 or G, and the column of dof j in it: by
+// subtree from the int table at 24 bodies; full NV-wide rows in a big
+// tree's workspace.
+HD int jg_row(const int* I, int r) {
+  return BIG_TREE ? r * NV : I[I_JROW + r];
+}
+HD int jg_col(const int* I, int j) { return BIG_TREE ? j : I[I_JCOL + j]; }
 
 // y = A x over the rows owned by this thread
 HD void matvec(const float* A, const float* x, float* y, int tid, int nth) {
@@ -405,8 +455,8 @@ HD void matvec(const float* A, const float* x, float* y, int tid, int nth) {
 // first entry of row i of a packed lower triangle
 HD int tri_row(int i) { return i * (i + 1) / 2; }
 
-// y = X v for X stored as its packed lower triangle (a big tree's Xp, Xf
-// in shared memory): entry (i, k) at tri_row(i) + k for k ≤ i, at
+// y = X v for X stored as its packed lower triangle (Xp, Xf in shared
+// memory): entry (i, k) at tri_row(i) + k for k ≤ i, at
 // tri_row(k) + i for k > i. Each row sums in ascending k, as `matvec` over
 // the full matrix does. Within a warp the row part reads are a permutation
 // of the banks (triangular numbers mod 32), the column part contiguous.
@@ -430,9 +480,10 @@ HD float dot75(const float* a, const float* b) {
   return s;
 }
 
-// y = X v, the preconditioner product. BF16 (K2b): X holds bfloat16
-// values and v is rounded to bfloat16 into `vr` first, so every product is
-// exact in float32 and the sum accumulates in float32.
+// y = X v, the preconditioner product over the packed triangle X. BF16
+// (K2b): X holds bfloat16 values and v is rounded to bfloat16 into `vr`
+// first, so every product is exact in float32 and the sum accumulates in
+// float32.
 template <bool BF16>
 HD void precond(const float* X, const float* v, float* y, float* vr,
                 int tid, int nth) {
@@ -441,11 +492,7 @@ HD void precond(const float* X, const float* v, float* y, float* vr,
     SYNC();
     v = vr;
   }
-#if BIG_TREE
   matvec_packed(X, v, y, tid, nth);
-#else
-  matvec(X, v, y, tid, nth);
-#endif
 }
 
 // PCG with warm start x0 = X b (X ≈ A⁻¹): the solution lands in SM_X. The
@@ -498,7 +545,6 @@ HD void pcg(float* sm, const float* A, const float* X, const float* b,
   }
 }
 
-#if BIG_TREE
 // the PB floats of one panel row at p (16-byte aligned)
 HD void load_panel(const float* p, float* v) {
 #ifdef __CUDACC__
@@ -512,24 +558,26 @@ HD void load_panel(const float* p, float* v) {
 }
 
 // Exact inverses of A_pd -> Xp and A_fd -> Xf (substep 0, and I_REFRESH)
-// on a big tree, in place on the packed lower triangles in shared memory
-// (SM_PX), the two matrices in lockstep: the lower triangles of A_pd,
-// A_fd come in from the workspace, then the Cholesky factor L, Y = L⁻¹
-// and X = Yᵀ Y. Every entry receives the operations of the 24-body version
-// below, in the same order, so the result is the same bit for bit; what
-// differs is how the steps are grouped, in panels of PB columns or rows:
+// in place on the packed lower triangles in shared memory (SM_PX), the two
+// matrices in lockstep: the lower triangles of A_pd, A_fd come in from the
+// workspace, then the Cholesky factor L, Y = L⁻¹ and X = Yᵀ Y. Every entry
+// receives the operations of the unblocked algorithm (right-looking
+// Cholesky, a forward substitution per column of Y, then X_ij = Σ_k Y_ki
+// Y_kj in ascending k), in the same order, so the result is the same bit
+// for bit; what differs is how the steps are grouped, in panels of PB
+// columns or rows, through the panel `pan` (2·NV rows of PS floats):
 //  * Cholesky: step k scales column k by d_k = sqrt(max(A_kk, 1e-12)) and
 //    subtracts L_ik L_jk from every k < j <= i. Within a panel the steps
 //    run one by one on the panel's columns; then every entry right of the
 //    panel takes the panel's PB terms at once, in k order, from the
-//    panel's columns in SM_PANEL (one barrier for PB steps).
+//    panel's columns (one barrier for PB steps).
 //  * Y = L⁻¹ column-parallel: step k finishes row k of Y (Y_kc = s_kc /
 //    d_k, s = 1 on the diagonal) and subtracts L_ik Y_kc from the sum
 //    s_ic of every row i > k, c <= k, which sits where L_ic was read for
 //    the last time. Within a panel of rows the steps run one by one on the
 //    panel's rows; then every row below takes the panel's PB terms at
-//    once from the panel's rows of Y in SM_PANEL.
-//  * X_ij = Σ_{k>=i} Y_ki Y_kj: a panel's rows of Y go to SM_PANEL, then
+//    once from the panel's rows of Y in the panel.
+//  * X_ij = Σ_{k>=i} Y_ki Y_kj: a panel's rows of Y go to the panel, then
 //    every entry of the rows above adds their terms in k order; the sums
 //    of the panel's own rows start where those rows of Y were.
 // The big updates run a row per warp, lanes along the row (contiguous in
@@ -537,10 +585,10 @@ HD void load_panel(const float* p, float* v) {
 // sum in a register. Under BF16 (K2b) every entry is rounded to bfloat16
 // at the end.
 template <bool BF16>
-HD void exact_inverses(float* sm, float* ws, int tid, int nth) {
+HD void exact_inverses(float* sm, const float* ws, float* pan, int tid,
+                       int nth) {
   float* T = sm + SM_PX;             // Xp then Xf, NTRI floats each
   float* diag = sm + SM_DIAG;        // 2*NV Cholesky diagonals
-  float* pan = sm + SM_PANEL;        // 2*NV rows: PB floats in PS
   const int nl = nth < 32 ? nth : 32, lane = tid % nl, warp = tid / nl;
   const int nw = nth / nl;
   for (int t = tid; t < 2 * NV * NV; t += nth) {
@@ -671,77 +719,6 @@ HD void exact_inverses(float* sm, float* ws, int tid, int nth) {
     SYNC();
   }
 }
-#else
-// Exact inverses of A_pd -> Xp and A_fd -> Xf (substep 0): right-looking
-// Cholesky of both in place in Xp / Xf, lower-triangular inverses Y into
-// the J6 / G workspace, then X = Yᵀ Y, each entry rounded to bfloat16 as
-// it is written under BF16 (K2b).
-template <bool BF16>
-HD void exact_inverses(float* sm, float* ws, int tid, int nth) {
-  float* diag = sm + SM_DIAG;
-  for (int t = tid; t < 2 * NV * NV; t += nth) {
-    int m = t / (NV * NV), e = t % (NV * NV);
-    ws[(m ? W_XF : W_XP) + e] = ws[(m ? W_AFD : W_APD) + e];
-  }
-  SYNC();
-  for (int k = 0; k < NV; ++k) {
-    int n = NV - k;
-    for (int t = tid; t < 2 * n; t += nth) {
-      int m = t / n, i = k + t % n;
-      float* A = ws + (m ? W_XF : W_XP);
-      float d = sqrtf(fmaxf(A[k * NV + k], 1e-12f));
-      if (i == k) diag[m * NV + k] = d;
-      else A[i * NV + k] = A[i * NV + k] / d;
-    }
-    SYNC();
-    int nt = (n - 1) * n / 2;     // pairs k < j <= i < NV
-    for (int t = tid; t < 2 * nt; t += nth) {
-      int m = t / nt, ii, jj;
-      tri_index(t % nt, &ii, &jj);
-      int i = k + 1 + ii, j = k + 1 + jj;
-      float* A = ws + (m ? W_XF : W_XP);
-      A[i * NV + j] -= A[i * NV + k] * A[j * NV + k];
-    }
-    SYNC();
-  }
-  // Y = L⁻¹, column by column (forward substitution against e_c)
-  for (int t = tid; t < 2 * NV; t += nth) {
-    int m = t / NV, c = t % NV;
-    const float* L = ws + (m ? W_XF : W_XP);
-    float* Y = ws + (m ? W_G : W_J6);
-    const float* dg = diag + m * NV;
-    for (int i = c; i < NV; ++i) {
-      float s = (i == c) ? 1.0f : 0.0f;
-      for (int k = c; k < i; ++k) s -= L[i * NV + k] * Y[k * NV + c];
-      Y[i * NV + c] = s / dg[i];
-    }
-  }
-  SYNC();
-  for (int t = tid; t < 2 * NTRI; t += nth) {
-    int m = t / NTRI, i, j;
-    tri_index(t % NTRI, &i, &j);
-    const float* Y = ws + (m ? W_G : W_J6);
-    float* X = ws + (m ? W_XF : W_XP);
-    float s = 0.0f;
-    for (int k = i; k < NV; ++k) s += Y[k * NV + i] * Y[k * NV + j];
-    if (BF16) s = round_bf16(s);
-    X[i * NV + j] = s;
-    X[j * NV + i] = s;
-  }
-  SYNC();
-}
-#endif
-
-// The env's preconditioners Xp, Xf: the packed triangles in shared memory
-// on a big tree, full matrices at the front of the workspace (itself
-// shared memory) at 24 bodies; X_SIZE floats each.
-#if BIG_TREE
-#define X_SIZE NTRI
-HD float* precond_store(float* sm, float* ws) { return sm + SM_PX; }
-#else
-#define X_SIZE (NV * NV)
-HD float* precond_store(float* sm, float* ws) { return ws + W_XP; }
-#endif
 
 // Which substeps a launch runs: all (K1), substep 0 (K2 head) or
 // substeps 1.. (K2 tail).
@@ -751,8 +728,8 @@ enum { PART_FULL = 0, PART_HEAD = 1, PART_TAIL = 2 };
 // Xf); the tail loads them from X: float32, or the 16 bits of each
 // bfloat16 under BF16 (K2b). The env's model is row seq_idx[env] of the
 // library Plib (row 0 without seq_idx). `ws` is the env's matrix
-// workspace: `sm` itself at 24 bodies, its slice of device memory on a
-// big tree. EXT (K1f) reads the explicit wrench `vfx_in` (B, 9·NB) and
+// workspace: `sm` itself at 24 bodies (A_pd, A_fd; J6 and G at SM_JG or
+// SM_JG_F), its slice of device memory on a big tree. EXT (K1f) reads the explicit wrench `vfx_in` (B, 9·NB) and
 // the per-dof gain scales `ksc_in` (B, 2, NV) where the int table asks
 // for them; without EXT both are null and unread.
 template <bool EXT, bool BF16>
@@ -791,8 +768,15 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
   float* vel = sm + SM_VEL;
   float* alpha = sm + SM_ALPHA;
   float* abias = sm + SM_ABIAS;
+#if BIG_TREE
   float* J6 = ws + W_J6;
   float* G = ws + W_G;
+  float* pan = sm + SM_PANEL;        // the inverse's panel
+#else
+  float* J6 = sm + (EXT ? SM_JG_F : SM_JG);
+  float* G = J6 + I[I_JROW + 6 * NB];
+  float* pan = J6;
+#endif
 
   for (int t = tid; t < NQ; t += nth) qpos[t] = qpos_in[(size_t)env * NQ + t];
   for (int t = tid; t < NV; t += nth) qvel[t] = qvel_in[(size_t)env * NV + t];
@@ -816,17 +800,12 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
   }
   for (int t = tid; t < NDOF; t += nth)
     sm[SM_TB + t] = tb_in[(size_t)env * NDOF + t];
-  float* Xs = precond_store(sm, ws);
+  float* Xs = sm + SM_PX;            // Xp then Xf, NTRI floats each
   if (part == PART_TAIL)
     for (int t = tid; t < 2 * NV * NV; t += nth) {
-#if BIG_TREE
       int m = t / (NV * NV), e = t - m * NV * NV, i = e / NV, j = e - i * NV;
       if (j > i) continue;
-      float* dst = Xs + m * NTRI + tri_row(i) + j;
-#else
-      float* dst = Xs + t;
-#endif
-      *dst = BF16 ? bf16_float(reinterpret_cast<const uint16_t*>(
+      Xs[m * NTRI + tri_row(i) + j] = BF16 ? bf16_float(reinterpret_cast<const uint16_t*>(
                         X)[(size_t)env * 2 * NV * NV + t])
                   : X[(size_t)env * 2 * NV * NV + t];
     }
@@ -1004,8 +983,10 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
     }
 
     // -- E: bias wrenches, ground contacts, self-collision pairs, J6, G --
+    // (J6 and G at the (body, dof) pairs only: nothing reads the rest)
     const int npair = I[I_NPAIR];
-    for (int t = tid; t < 2 * NB + npair + NB * 6 * NV; t += nth) {
+    const int njp = I[I_NJP];
+    for (int t = tid; t < 2 * NB + npair + 6 * njp; t += nth) {
       if (t < NB) {
         int b = t;
         const float* w = omega + 3 * b;
@@ -1144,33 +1125,33 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
           sm[SM_PTJ + 3 * pr + k] = Tj[k];
         }
       } else {
+        // row k of body b at dof j, j above b
         int e = t - 2 * NB - npair;
-        int row = e / NV, j = e % NV;
-        int b = row / 6, k = row % 6;
+        int k = e / njp, bjp = I[I_JPAIR + e - k * njp];
+        int b = bjp / NV, j = bjp - b * NV;
         int bj = dof_body(j);
         float jv = 0.f, gv = 0.f;
-        if (bj <= b && b < I[I_SUBEND + bj]) {
-          const float* a = axes + 3 * j;
-          if (k < 3) {
-            if (j < 3) {
-              jv = a[k];
-            } else {
-              float r[3], c[3];
-              for (int q = 0; q < 3; ++q) r[q] = xipos[3 * b + q] - xpos[3 * bj + q];
-              cross3(a, r, c);
-              jv = c[k];
-            }
-            gv = sqrtf(P[P_MASS + b]) * jv;
-          } else if (j >= 3) {
-            int c = k - 3;
-            const float* R = sm + SM_RTOT + 9 * b;
-            jv = a[c];
-            gv = sqrtf(P[P_INERTIA + 3 * b + c])
-                 * (R[c] * a[0] + R[3 + c] * a[1] + R[6 + c] * a[2]);
+        const float* a = axes + 3 * j;
+        if (k < 3) {
+          if (j < 3) {
+            jv = a[k];
+          } else {
+            float r[3], c[3];
+            for (int q = 0; q < 3; ++q) r[q] = xipos[3 * b + q] - xpos[3 * bj + q];
+            cross3(a, r, c);
+            jv = c[k];
           }
+          gv = sqrtf(P[P_MASS + b]) * jv;
+        } else if (j >= 3) {
+          int c = k - 3;
+          const float* R = sm + SM_RTOT + 9 * b;
+          jv = a[c];
+          gv = sqrtf(P[P_INERTIA + 3 * b + c])
+               * (R[c] * a[0] + R[3 + c] * a[1] + R[6 + c] * a[2]);
         }
-        J6[row * NV + j] = jv;
-        G[row * NV + j] = gv;
+        const int o = jg_row(I, 6 * b + k) + jg_col(I, j);
+        J6[o] = jv;
+        G[o] = gv;
       }
     }
     SYNC();
@@ -1248,10 +1229,10 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
     // -- G: generalized forces per dof; M into A_pd and A_fd -------------
     for (int t = tid; t < NV + NTRI; t += nth) {
       if (t < NV) {
-        int j = t, bj = dof_body(j);
+        int j = t, bj = dof_body(j), cj = jg_col(I, j);
         float c = 0.f, fx = 0.f;
         for (int row = 6 * bj; row < 6 * I[I_SUBEND + bj]; ++row) {
-          float jv = J6[row * NV + j];
+          float jv = J6[jg_row(I, row) + cj];
           c += jv * sm[SM_QB + row];
           fx += jv * sm[SM_QE + row];
         }
@@ -1263,10 +1244,13 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
         int i, j;
         tri_index(t - NV, &i, &j);
         int d = related(dof_body(i), dof_body(j), I);
+        const int ci = jg_col(I, i), cj = jg_col(I, j);
         float m = 0.f;
         if (d >= 0)
-          for (int row = 6 * d; row < 6 * I[I_SUBEND + d]; ++row)
-            m += G[row * NV + i] * G[row * NV + j];
+          for (int row = 6 * d; row < 6 * I[I_SUBEND + d]; ++row) {
+            const int o = jg_row(I, row);
+            m += G[o + ci] * G[o + cj];
+          }
         if (i == j) m += P[P_ARMATURE + i];
         float apd = (i == j) ? m + sm[SM_KDF + i] * dt : m;
         ws[W_APD + i * NV + j] = apd;
@@ -1277,14 +1261,15 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
     }
     SYNC();
 
-    // -- H: K = W·J6 for bodies in contact (into the G workspace) -------
-    for (int t = tid; t < NB * 6 * NV; t += nth) {
-      int row = t / NV, j = t % NV, b = row / 6, c = row % 6;
+    // -- H: K = W·J6 for bodies in contact (into G), at the pairs -------
+    for (int t = tid; t < 6 * njp; t += nth) {
+      int c = t / njp, bjp = I[I_JPAIR + t - c * njp];
+      int b = bjp / NV, cj = jg_col(I, bjp - b * NV);
       if (!(sm[SM_ACTIVE + b] > 0.f)) continue;
       const float* W = sm + SM_W + 36 * b + 6 * c;
       float s2 = 0.f;
-      for (int k = 0; k < 6; ++k) s2 += W[k] * J6[(6 * b + k) * NV + j];
-      G[row * NV + j] = s2;
+      for (int k = 0; k < 6; ++k) s2 += W[k] * J6[jg_row(I, 6 * b + k) + cj];
+      G[jg_row(I, 6 * b + c) + cj] = s2;
     }
     SYNC();
 
@@ -1293,12 +1278,15 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
       int i, j;
       tri_index(t, &i, &j);
       int d = related(dof_body(i), dof_body(j), I);
+      const int ci = jg_col(I, i), cj = jg_col(I, j);
       float cd = 0.f;
       if (d >= 0)
         for (int b = d; b < I[I_SUBEND + d]; ++b) {
           if (!(sm[SM_ACTIVE + b] > 0.f)) continue;
-          for (int k = 0; k < 6; ++k)
-            cd += J6[(6 * b + k) * NV + i] * G[(6 * b + k) * NV + j];
+          for (int k = 0; k < 6; ++k) {
+            const int o = jg_row(I, 6 * b + k);
+            cd += J6[o + ci] * G[o + cj];
+          }
         }
       if (i == j) cd += sm[SM_LIMD + i];
       float v = ws[W_AFD + i * NV + j] + dt * cd;
@@ -1307,9 +1295,11 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
     }
     SYNC();
 
-    // the inverses overwrite J6 and G, which nothing reads again before
-    // the next substep's phase E rebuilds them: so also at I_REFRESH
-    if (s == 0 || s == I[I_REFRESH]) exact_inverses<BF16>(sm, ws, tid, nth);
+    // at 24 bodies the inverses' panel overwrites J6 and G, which nothing
+    // reads again before the next substep's phase E rebuilds them: so also
+    // at I_REFRESH
+    if (s == 0 || s == I[I_REFRESH])
+      exact_inverses<BF16>(sm, ws, pan, tid, nth);
 
     // -- stable PD: q̈_des, torques, forward dynamics -------------------
     pcg<BF16>(sm, ws + W_APD, Xs, sm + SM_PDRHS, I[I_PD_ITERS], tid, nth);
@@ -1323,7 +1313,7 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
       sm[SM_RHS + j] += clampf(tau, -lim, lim);
     }
     SYNC();
-    pcg<BF16>(sm, ws + W_AFD, Xs + X_SIZE, sm + SM_RHS, I[I_FD_ITERS], tid,
+    pcg<BF16>(sm, ws + W_AFD, Xs + NTRI, sm + SM_RHS, I[I_FD_ITERS], tid,
               nth);
 
     // -- integrate: semi-implicit Euler, quaternion root ----------------
@@ -1357,12 +1347,8 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
 
   if (part == PART_HEAD)
     for (int t = tid; t < 2 * NV * NV; t += nth) {
-#if BIG_TREE
       int m = t / (NV * NV), e = t - m * NV * NV, i = e / NV, j = e - i * NV;
       float v = Xs[m * NTRI + (j <= i ? tri_row(i) + j : tri_row(j) + i)];
-#else
-      float v = Xs[t];
-#endif
       if (BF16)
         reinterpret_cast<uint16_t*>(X)[(size_t)env * 2 * NV * NV + t] =
             bf16_bits(v);
@@ -1375,15 +1361,23 @@ HD void control_step_env(int env, int tid, int nth, float* sm, float* ws,
 
 // ---- entry points (plain C interface for ctypes) --------------------------
 
+// A block's shared memory, in floats, with `jg` floats in each of J6, G:
+// K1's (and every other kernel's) -> out[0], K1f's -> out[1].
+extern "C" int uhc_control_step_smem(int jg, int* out) {
+  out[0] = smem_floats(false, jg);
+  out[1] = smem_floats(true, jg);
+  return 0;
+}
+
 extern "C" int uhc_control_step_layout(int* out) {
   out[0] = P_TOTAL;
   out[1] = I_TOTAL;
-  out[2] = SM_TOTAL;
-  out[3] = NTHREADS;
+  out[2] = SM_TOTAL;                   // shared memory (at 24 bodies
+  out[3] = NTHREADS;                   // before J6 and G: smem_floats)
   out[4] = NB;
   out[5] = MAXACT;
   out[6] = BIG_TREE ? W_TOTAL : 0;   // device workspace floats per env
-  out[7] = SM_TOTAL_F;                 // K1f's shared memory
+  out[7] = SM_TOTAL_F;                 // K1f's, as out[2]
   return 0;
 }
 
@@ -1403,7 +1397,7 @@ extern "C" int uhc_control_step_layout(int* out) {
 #define ENV_WS sm
 #endif
 
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(NTHREADS, MINBLOCKS)
 control_step_kernel(KERNEL_ARGS) {
   extern __shared__ __align__(16) float sm[];
   control_step_env<false, false>(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS,
@@ -1412,7 +1406,7 @@ control_step_kernel(KERNEL_ARGS) {
                           nullptr, nullptr, nullptr);
 }
 
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(NTHREADS, MINBLOCKS)
 control_step_f_kernel(KERNEL_ARGS, const float* __restrict__ vfx,
                       const float* __restrict__ ksc) {
   extern __shared__ __align__(16) float sm[];
@@ -1422,7 +1416,7 @@ control_step_f_kernel(KERNEL_ARGS, const float* __restrict__ vfx,
                          nullptr, vfx, ksc);
 }
 
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(NTHREADS, MINBLOCKS)
 control_step_head_kernel(KERNEL_ARGS, float* __restrict__ X) {
   extern __shared__ __align__(16) float sm[];
   control_step_env<false, false>(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS,
@@ -1431,7 +1425,7 @@ control_step_head_kernel(KERNEL_ARGS, float* __restrict__ X) {
                           X, nullptr, nullptr);
 }
 
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(NTHREADS, MINBLOCKS)
 control_step_tail_kernel(KERNEL_ARGS, float* __restrict__ X) {
   extern __shared__ __align__(16) float sm[];
   control_step_env<false, false>(blockIdx.x, threadIdx.x, blockDim.x, sm, ENV_WS,
@@ -1442,7 +1436,7 @@ control_step_tail_kernel(KERNEL_ARGS, float* __restrict__ X) {
 
 // K2b: K1 at a symmetric schedule (split=False), head and tail with the
 // bfloat16 preconditioner; X is (B, 2, NV, NV) bfloat16
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(NTHREADS, MINBLOCKS)
 control_step_bf16_kernel(KERNEL_ARGS) {
   extern __shared__ __align__(16) float sm[];
   control_step_env<false, true>(blockIdx.x, threadIdx.x, blockDim.x, sm,
@@ -1452,7 +1446,7 @@ control_step_bf16_kernel(KERNEL_ARGS) {
                                 nullptr);
 }
 
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(NTHREADS, MINBLOCKS)
 control_step_head_bf16_kernel(KERNEL_ARGS, float* __restrict__ X) {
   extern __shared__ __align__(16) float sm[];
   control_step_env<false, true>(blockIdx.x, threadIdx.x, blockDim.x, sm,
@@ -1461,7 +1455,7 @@ control_step_head_bf16_kernel(KERNEL_ARGS, float* __restrict__ X) {
                                 rfc_rate, PART_HEAD, X, nullptr, nullptr);
 }
 
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(NTHREADS, MINBLOCKS)
 control_step_tail_bf16_kernel(KERNEL_ARGS, float* __restrict__ X) {
   extern __shared__ __align__(16) float sm[];
   control_step_env<false, true>(blockIdx.x, threadIdx.x, blockDim.x, sm,
@@ -1470,13 +1464,29 @@ control_step_tail_bf16_kernel(KERNEL_ARGS, float* __restrict__ X) {
                                 rfc_rate, PART_TAIL, X, nullptr, nullptr);
 }
 
-template <typename Kernel, typename... Args>
-static int launch(Kernel kernel, int B, void* stream, const float* W,
-                  int smem_floats, Args... args) {
-  if (BIG_TREE && W == nullptr) return (int)cudaErrorInvalidValue;
-  const int smem = smem_floats * (int)sizeof(float);
+// Shared memory and resident blocks: the block's floats (smem_floats),
+// and the carveout that gives shared memory all it can, so that two
+// 24-body blocks fit an SM.
+template <typename Kernel>
+static cudaError_t set_smem(Kernel kernel, int smem) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  return e;
+}
+
+// `jg`: the floats of each of J6, G by subtree (24 bodies); a big tree
+// needs its workspace W instead.
+template <typename Kernel, typename... Args>
+static int launch(Kernel kernel, bool ext, int B, void* stream,
+                  const float* W, int jg, Args... args) {
+  if (BIG_TREE ? W == nullptr : jg < JG_MIN)
+    return (int)cudaErrorInvalidValue;
+  const int smem = smem_floats(ext, jg) * (int)sizeof(float);
+  cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<B, NTHREADS, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
@@ -1489,8 +1499,7 @@ template <typename Kernel>
 static int occupancy(Kernel kernel, int smem_floats, int* out) {
   const int smem = smem_floats * (int)sizeof(float);
   cudaFuncAttributes a;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = set_smem(kernel, smem);
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kernel);
   int blocks = 0;
   if (e == cudaSuccess)
@@ -1506,16 +1515,18 @@ static int occupancy(Kernel kernel, int smem_floats, int* out) {
 }
 
 // occupancy() of every entry, 5 ints each, in the order K1 (K1e, K1d),
-// K1f, K2 head, K2 tail, K2b at split=False, K2b head, K2b tail.
-extern "C" int uhc_control_step_occupancy(int* out) {
+// K1f, K2 head, K2 tail, K2b at split=False, K2b head, K2b tail, with
+// `jg` floats in each of J6, G (24 bodies).
+extern "C" int uhc_control_step_occupancy(int jg, int* out) {
+  const int sm = smem_floats(false, jg), smf = smem_floats(true, jg);
   int e = 0;
-  if (!e) e = occupancy(control_step_kernel, SM_TOTAL, out);
-  if (!e) e = occupancy(control_step_f_kernel, SM_TOTAL_F, out + 5);
-  if (!e) e = occupancy(control_step_head_kernel, SM_TOTAL, out + 10);
-  if (!e) e = occupancy(control_step_tail_kernel, SM_TOTAL, out + 15);
-  if (!e) e = occupancy(control_step_bf16_kernel, SM_TOTAL, out + 20);
-  if (!e) e = occupancy(control_step_head_bf16_kernel, SM_TOTAL, out + 25);
-  if (!e) e = occupancy(control_step_tail_bf16_kernel, SM_TOTAL, out + 30);
+  if (!e) e = occupancy(control_step_kernel, sm, out);
+  if (!e) e = occupancy(control_step_f_kernel, smf, out + 5);
+  if (!e) e = occupancy(control_step_head_kernel, sm, out + 10);
+  if (!e) e = occupancy(control_step_tail_kernel, sm, out + 15);
+  if (!e) e = occupancy(control_step_bf16_kernel, sm, out + 20);
+  if (!e) e = occupancy(control_step_head_bf16_kernel, sm, out + 25);
+  if (!e) e = occupancy(control_step_tail_bf16_kernel, sm, out + 30);
   return e;
 }
 
@@ -1524,14 +1535,16 @@ extern "C" int uhc_control_step_occupancy(int* out) {
 // of it or null (row 0 for every env). W is the matrix workspace, B ×
 // W_TOTAL float32 on a big tree (null at 24 bodies). X is (B, 2, NV, NV)
 // float32 (bfloat16 for the _bf16 entries, K2b): written by the head, read
-// by the tail.
+// by the tail. jg is the int table's I_JROW[6·NB], the floats of each of
+// J6 and G by subtree, which size a 24-body block's shared memory.
 extern "C" int uhc_control_step(const float* P, const int* seq_idx,
                                 const int* I, const float* qpos,
                                 const float* qvel, const float* act,
                                 const float* tb, float* qpos_out,
                                 float* qvel_out, float* W, int B,
-                                int act_dim, float rfc_rate, void* stream) {
-  return launch(control_step_kernel, B, stream, W, SM_TOTAL, P, seq_idx, I,
+                                int act_dim, float rfc_rate, int jg,
+                                void* stream) {
+  return launch(control_step_kernel, false, B, stream, W, jg, P, seq_idx, I,
                 qpos, qvel, act, tb, qpos_out, qvel_out, W, act_dim,
                 rfc_rate);
 }
@@ -1544,8 +1557,9 @@ extern "C" int uhc_control_step_f(const float* P, const int* seq_idx,
                                   const float* tb, float* qpos_out,
                                   float* qvel_out, float* W,
                                   const float* vfx, const float* ksc, int B,
-                                  int act_dim, float rfc_rate, void* stream) {
-  return launch(control_step_f_kernel, B, stream, W, SM_TOTAL_F, P, seq_idx,
+                                  int act_dim, float rfc_rate, int jg,
+                                  void* stream) {
+  return launch(control_step_f_kernel, true, B, stream, W, jg, P, seq_idx,
                 I, qpos, qvel, act, tb, qpos_out, qvel_out, W, act_dim,
                 rfc_rate, vfx, ksc);
 }
@@ -1556,8 +1570,8 @@ extern "C" int uhc_control_step_head(const float* P, const int* seq_idx,
                                      const float* tb, float* qpos_out,
                                      float* qvel_out, float* W, float* X,
                                      int B, int act_dim, float rfc_rate,
-                                     void* stream) {
-  return launch(control_step_head_kernel, B, stream, W, SM_TOTAL, P,
+                                     int jg, void* stream) {
+  return launch(control_step_head_kernel, false, B, stream, W, jg, P,
                 seq_idx, I, qpos, qvel, act, tb, qpos_out, qvel_out, W,
                 act_dim, rfc_rate, X);
 }
@@ -1568,8 +1582,8 @@ extern "C" int uhc_control_step_tail(const float* P, const int* seq_idx,
                                      const float* tb, float* qpos_out,
                                      float* qvel_out, float* W, float* X,
                                      int B, int act_dim, float rfc_rate,
-                                     void* stream) {
-  return launch(control_step_tail_kernel, B, stream, W, SM_TOTAL, P,
+                                     int jg, void* stream) {
+  return launch(control_step_tail_kernel, false, B, stream, W, jg, P,
                 seq_idx, I, qpos, qvel, act, tb, qpos_out, qvel_out, W,
                 act_dim, rfc_rate, X);
 }
@@ -1580,8 +1594,8 @@ extern "C" int uhc_control_step_bf16(const float* P, const int* seq_idx,
                                      const float* tb, float* qpos_out,
                                      float* qvel_out, float* W, int B,
                                      int act_dim, float rfc_rate,
-                                     void* stream) {
-  return launch(control_step_bf16_kernel, B, stream, W, SM_TOTAL, P,
+                                     int jg, void* stream) {
+  return launch(control_step_bf16_kernel, false, B, stream, W, jg, P,
                 seq_idx, I, qpos, qvel, act, tb, qpos_out, qvel_out, W,
                 act_dim, rfc_rate);
 }
@@ -1590,8 +1604,8 @@ extern "C" int uhc_control_step_head_bf16(
     const float* P, const int* seq_idx, const int* I, const float* qpos,
     const float* qvel, const float* act, const float* tb, float* qpos_out,
     float* qvel_out, float* W, void* X, int B, int act_dim, float rfc_rate,
-    void* stream) {
-  return launch(control_step_head_bf16_kernel, B, stream, W, SM_TOTAL, P,
+    int jg, void* stream) {
+  return launch(control_step_head_bf16_kernel, false, B, stream, W, jg, P,
                 seq_idx, I, qpos, qvel, act, tb, qpos_out, qvel_out, W,
                 act_dim, rfc_rate, (float*)X);
 }
@@ -1600,21 +1614,22 @@ extern "C" int uhc_control_step_tail_bf16(
     const float* P, const int* seq_idx, const int* I, const float* qpos,
     const float* qvel, const float* act, const float* tb, float* qpos_out,
     float* qvel_out, float* W, void* X, int B, int act_dim, float rfc_rate,
-    void* stream) {
-  return launch(control_step_tail_bf16_kernel, B, stream, W, SM_TOTAL, P,
+    int jg, void* stream) {
+  return launch(control_step_tail_bf16_kernel, false, B, stream, W, jg, P,
                 seq_idx, I, qpos, qvel, act, tb, qpos_out, qvel_out, W,
                 act_dim, rfc_rate, (float*)X);
 }
 #else
 // Host build: every env on one thread, in order, with one workspace that
-// each env reuses (shared memory itself at 24 bodies).
+// each env reuses (shared memory itself at 24 bodies, sized by the int
+// table's J6 / G).
 template <bool EXT, bool BF16 = false>
 static int run_host(const float* P, const int* seq_idx, const int* I,
                     const float* qpos, const float* qvel, const float* act,
                     const float* tb, float* qpos_out, float* qvel_out, int B,
                     int act_dim, float rfc_rate, int part, float* X,
                     const float* vfx, const float* ksc) {
-  std::vector<float> sm(EXT ? SM_TOTAL_F : SM_TOTAL);
+  std::vector<float> sm(smem_floats(EXT, I[I_JROW + 6 * NB]));
   std::vector<float> wbuf(BIG_TREE ? W_TOTAL : 0);
   float* ws = BIG_TREE ? wbuf.data() : sm.data();
   for (int env = 0; env < B; ++env)

@@ -10,6 +10,9 @@ CUDA tensors it launches the kernel (or raises); on CPU tensors it runs
 the plain PyTorch version `control_step_reference`, the eager chain of
 physics/engine.py + solver.py with the same schedule: exact inverses at
 substep 0, then warm-started PCG with (pd_iters, fd_iters) iterations.
+On 24 bodies an env's matrices sit in the block's shared memory, J6 and G
+stored by subtree as the int table lays them out (`jacobian_tables`); a
+launch sizes its shared memory from their floats (`jg_floats`).
 
 K1e, the per-env variant (pallas_lane.py `per_env`): given a model library
 (leaves with a leading (S,) dim where sequences differ, see
@@ -108,6 +111,37 @@ def library_size(m: dict):
     return sizes.pop() if sizes else None
 
 
+def jacobian_tables(topo: Topology):
+    """J6 and G stored by subtree (control_step.cu I_JROW, I_JCOL, I_JPAIR):
+    body b's 6 rows hold the dofs of its ancestors, b included, in dof
+    order (6 + 3·depth(b) columns), so a dof has one column in the rows of
+    every body below it -> (row offsets (6·nb + 1,), the last the floats
+    of each matrix; each dof's column (nv,); the (body, dof) pairs, dof
+    above body, as b·nv + j by body then column)."""
+    nb, nv = topo.nbody, topo.nv
+    topo.subtree_end()                  # raises unless depth-first
+    depth = np.zeros(nb, np.int64)
+    chain = [[0]]                       # each body's ancestors, root first
+    for b in range(1, nb):
+        p = topo.parents[b]
+        depth[b] = depth[p] + 1
+        chain.append(chain[p] + [b])
+    rows = np.repeat(6 + 3 * depth, 6)
+    jrow = np.concatenate([[0], np.cumsum(rows)])
+    dof = np.arange(nv)
+    db = topo.dof_body()
+    jcol = np.where(dof < 6, dof, 6 + 3 * (depth[db] - 1) + (dof - 6) % 3)
+    pairs = [b * nv + j for b in range(nb) for a in chain[b]
+             for j in (range(6) if a == 0 else range(3 * a + 3, 3 * a + 6))]
+    return jrow, jcol, np.asarray(pairs, np.int64)
+
+
+def max_jacobian_pairs(nb: int) -> int:
+    """The (body, dof) pairs of a chain of `nb` bodies, the most a tree
+    has: the length of the int table's I_JPAIR (control_step.cu JP_MAX)."""
+    return 6 * nb + 3 * nb * (nb - 1) // 2
+
+
 def pack_tables(topo: Topology, cfg, model, pcg_iters=(1, 2),
                 refresh_at=None):
     """Model + topology + config -> (float32 params, int32 table) in the
@@ -161,12 +195,15 @@ def pack_tables(topo: Topology, cfg, model, pcg_iters=(1, 2),
     rfc = (0 if not cfg.residual_force else 1 if not S.explicit_rfc(cfg)
            else {None: 2, "height": 3, "ground": 4}[S.vf_gate_mode(cfg)])
     gains = 1 if cfg.meta_pd else 2 if cfg.meta_pd_joint else 0
+    jrow, jcol, jpair = jacobian_tables(topo)
     itab = np.concatenate([
         np.asarray(topo.parents), topo.subtree_end(),
         np.pad(levbody, (0, NB - len(levbody))),
         np.pad(levstart, (0, NB + 1 - len(levstart))),
         [len(levels), len(pairs)],
         np.pad(pairs.reshape(-1), (0, 2 * MAXPAIR - pairs.size)),
+        jrow, jcol, [len(jpair)],
+        np.pad(jpair, (0, max_jacobian_pairs(NB) - len(jpair))),
         [int(cfg.self_collision), rfc, cfg.action_v, gains, pd_iters,
          fd_iters, cfg.frame_skip, -1 if refresh_at is None else refresh_at],
     ]).astype(np.int32)
@@ -250,6 +287,9 @@ class ControlStep:
         self.refresh_at, self.precond_bf16 = refresh_at, precond_bf16
         self.params, self.itab = pack_tables(topo, cfg, model, pcg_iters,
                                              refresh_at)
+        # the floats of each of J6, G by subtree: a 24-body launch's shared
+        # memory grows with them
+        self.jg_floats = int(jacobian_tables(topo)[0][-1])
         # rows of the model library (K1e), None for a shared model (K1)
         self.num_models = (self.params.shape[0] if self.params.ndim == 2
                            else None)
@@ -395,7 +435,7 @@ class ControlStep:
             self.ws_ptr(B, qpos.device),
             0 if vfx is None else vfx.data_ptr(),
             0 if gains is None else gains.data_ptr(), B, self.act_dim,
-            float(rfc_rate), stream)
+            float(rfc_rate), self.jg_floats, stream)
 
     def __call__(self, qpos, qvel, actions, target_base, rfc_rate=1.0,
                  seq_idx=None):
@@ -426,7 +466,7 @@ class ControlStep:
                 qpos.data_ptr(), qvel.data_ptr(), actions.data_ptr(),
                 target_base.data_ptr(), qpos_out.data_ptr(),
                 qvel_out.data_ptr(), self.ws_ptr(B, qpos.device), B,
-                self.act_dim, float(rfc_rate), stream)
+                self.act_dim, float(rfc_rate), self.jg_floats, stream)
         if rc != 0:
             raise RuntimeError(f"control_step kernel launch failed: CUDA "
                                f"error {rc}")
@@ -443,7 +483,8 @@ def control_step_flops(topo: Topology, cfg, active, pcg_iters=(1, 2),
     per substep, the (B, nb) bool ground-contact sets (as recorded by
     `solver.do_simulation(..., trace=...)`), starting at substep `start`
     (1 counts K2's tail alone). Counts the subtree-limited M, J6ᵀ·wrench
-    and CD sums (CD and K = W·J6 only over bodies in contact), the
+    and CD sums (CD and K = W·J6 only over bodies in contact, K at each
+    body's ancestor dofs), the
     Cholesky inverses of substep 0 (and of substep `refresh_at`, K1g) and
     the PCG matvecs; with explicit RFC (K1f) each body's wrench every
     substep: three quaternion rotations (30 each), the gate (6), the
@@ -475,6 +516,8 @@ def control_step_flops(topo: Topology, cfg, active, pcg_iters=(1, 2),
     d0 = np.maximum(deep, 0)
     pairs_with = np.array([(valid & (d0 <= b) & (b < end[d0])).sum()
                            for b in range(topo.nbody)], np.float64)
+    # the dofs above each body: K = W·J6's columns
+    above = np.diff(jacobian_tables(topo)[0])[::6]
     vfx = (topo.nbody * (3 * 30 + (6 if S.vf_gate_mode(cfg) else 0) + 18
                          + 6) if S.explicit_rfc(cfg) else 0.0)
     total = 0.0
@@ -483,5 +526,5 @@ def control_step_flops(topo: Topology, cfg, active, pcg_iters=(1, 2),
         B = act.shape[0]
         total += B * (m_flops + proj + pcg + vfx
                       + (inv if s + start in (0, refresh_at) else 0.0))
-        total += (act * (2.0 * 6 * pairs_with + 2.0 * 36 * NV)).sum()
+        total += (act * (2.0 * 6 * pairs_with + 2.0 * 36 * above)).sum()
     return total

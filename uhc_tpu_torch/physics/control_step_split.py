@@ -105,7 +105,7 @@ class ControlStepSplit(ControlStep):
             qpos.data_ptr(), qvel.data_ptr(), actions.data_ptr(),
             target_base.data_ptr(), q_out.data_ptr(), v_out.data_ptr(),
             self.ws_ptr(B, qpos.device), X.data_ptr(), B, self.act_dim,
-            float(rfc_rate), stream)
+            float(rfc_rate), self.jg_floats, stream)
         if rc != 0:
             raise RuntimeError(f"{entry} kernel launch failed: CUDA error "
                                f"{rc}")
