@@ -29,8 +29,20 @@ held against its plain versions and its K1 build, and the env's rollout
 of 512 envs × 32 steps through it), and K2b, the head/tail split with the
 bfloat16 preconditioner (held against its plain versions, its one-launch
 form and a PCG-8 step on the 24-body tree, SMPL-H and SMPL-X, and driven
-through the port of tools/kernel_bench.py) -- checks their output, and
-times the kernels at B=2048 (and the big trees' at B=512).
+through the port of tools/kernel_bench.py), the fit-and-eval protocol on
+the repository's uhc_implicit_dyn19 run (cli/eval with --results-dir
+--epoch 4000 --singles-dir over the 19 clips of gait_clips_ext.pkl, each
+clip under its own policy where it has one, one K1 launch a control step,
+the dump re-scored by cli/eval_imitation, and cli/fit on one clip
+warm-started from iter_4000.p at 512 envs × 48 steps, once with its
+windowed criterion and once with its full-sequence eval), PPO with a
+trainable log-std (fix_std=False) and one TRPO update on its batch, the
+obs families v0, v3, v4, v5 and v6 with the rewards
+world_rfc_implicit_v1_mul, _v2, local_rfc_implicit, world_rfc_implicit_v3
+and local_rfc_explicit (through K1, K1f under the explicit config), and
+the transformer actor on obs v4's tokens -- checks their output, and
+times the kernels at B=2048 (and the big trees' at B=512). Whatever the
+phases write goes to temporary directories.
 
 Usage: python3 chip_smoke.py [--parent SRC] (needs one CUDA card).
 With --parent, SRC is another version of
@@ -1471,6 +1483,284 @@ def k1e_check(topo, env_cfg, lib_model, ins, name):
     return gate(f"K1e {name}", out, plain32, plain64)
 
 
+# the fit-and-eval protocol on the repository's uhc_implicit_dyn19 run:
+# its iter_4000.p, the three per-sequence policies cli/fit wrote for it
+# and the 19 clips it trained on
+DYN19 = "results/uhc_implicit_dyn19"
+DYN19_EPOCH = 4000
+GAIT_EXT = "sample_data/gait_clips_ext.pkl"
+FIT_KEY = "0-SYN_walk_turn_sharp"
+# obs family, reward, config of phase obs_families (local_rfc_explicit
+# under the explicit config, through K1f)
+OBS_FAMILIES = ((0, "world_rfc_implicit_v1_mul", "uhc_implicit"),
+                (3, "world_rfc_implicit_v2", "uhc_implicit"),
+                (4, "local_rfc_implicit", "uhc_implicit"),
+                (5, "world_rfc_implicit_v3", "uhc_implicit"),
+                (6, "local_rfc_explicit", "explicit"))
+
+
+def eval_singles(dev, out_dir) -> dict:
+    """Phase eval_singles: cli/eval's run_eval on the 19 clips with
+    iter_4000.p and the per-sequence policies, one batched forward of the
+    19 policies and one K1 launch a control step; the trajectories dumped
+    to out_dir. Returns its numbers and the dump's path."""
+    import numpy as np
+    import torch
+
+    from uhc_tpu_torch.cli.eval import dump_trajectories, run_eval
+
+    reset_counts()
+    res = run_eval(GAIT_EXT, device=dev, epoch=DYN19_EPOCH,
+                   results_dir=DYN19, singles_dir=f"{DYN19}/_singles")
+    got = counts()
+    T, S = res["control_steps"], len(res["keys"])
+    if got != expect(T, "k1"):
+        raise RuntimeError(f"eval_singles launched {got} for {T} control "
+                           f"steps")
+    if len(res["fitted"]) != 3 or S != 19:
+        raise RuntimeError(f"eval_singles: {len(res['fitted'])} of {S} "
+                           f"clips fitted: {res['fitted']}")
+    if tuple(res["traj"]["pred_qpos"].shape) != (S, T, 76) or not bool(
+            torch.isfinite(res["traj"]["pred_qpos"]).all()) or not all(
+            np.isfinite(v) for v in res["summary"].values()):
+        raise RuntimeError(f"eval_singles: trajectory or summary not "
+                           f"finite: {res['summary']}")
+    dump = os.path.join(out_dir, "dump.pkl")
+    n = dump_trajectories(res, dump)
+    # the stacked forward of the 19 policies against one policy's on the
+    # same 19 rows
+    from uhc_tpu_torch.data import joblib_compat
+    from uhc_tpu_torch.learn import nets
+
+    base = nets.policy_from_numpy(joblib_compat.load(
+        f"{DYN19}/models/iter_{DYN19_EPOCH:04d}.p")["policy_params"],
+        "relu", dev)
+    x = torch.randn((S, res["rs"].mean.shape[-1]),
+                    generator=torch.Generator().manual_seed(7)).to(dev)
+    with torch.no_grad():
+        res["policy"](x), base(x)
+        policy_ms = {"stacked": cuda_ms(lambda: res["policy"](x), 20),
+                     "one_policy": cuda_ms(lambda: base(x), 20)}
+    return {"launches": got["k1"], "control_steps": T, "seqs": S,
+            "fitted": res["fitted"], "ms_per_step": res["ms_per_step"],
+            "policy_forward_ms": policy_ms, "summary": res["summary"],
+            "dumped": n, "dump": dump}
+
+
+def fit_phase(dev, out_dir) -> dict:
+    """Phase fit: cli/fit on FIT_KEY, warm-started from a copy of
+    iter_4000.p in out_dir, at most 2 epochs of 512 envs × 48 steps with
+    the protocol's criterion, then once more from the same copy for one
+    epoch with --succ-threshold 0 --eval-every 1, so that the
+    full-sequence eval over the 19 clips runs; K1 launches one per control
+    step of the epochs and of each full-sequence eval; the snapshot
+    reloads."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from uhc_tpu_torch.cli import fit
+    from uhc_tpu_torch.data import joblib_compat
+    from uhc_tpu_torch.learn import nets
+
+    os.makedirs(os.path.join(out_dir, "models"))
+    shutil.copy(f"{DYN19}/models/iter_{DYN19_EPOCH:04d}.p",
+                os.path.join(out_dir, "models"))
+
+    def run(*extra):
+        reset_counts()
+        res = fit.main(["--key", FIT_KEY, "--motion-file", GAIT_EXT,
+                        "--epoch", str(DYN19_EPOCH), "--num-envs", "512",
+                        "--horizon", "48", "--results-dir", out_dir,
+                        "--device", str(dev), *extra])
+        got = counts()
+        agent, hist = res["agent"], res["history"]
+        eval_steps = int(agent.expert_lib["len"].max()) - 1
+        steps = len(hist) * agent.horizon + len(res["evals"]) * eval_steps
+        if got != expect(steps, "k1") or not hist:
+            raise RuntimeError(f"fit {extra}: launches {got} for "
+                               f"{len(hist)} epochs and {len(res['evals'])} "
+                               f"evals")
+        for st in hist:
+            if not all(np.all(np.isfinite(v)) for v in st.values()):
+                raise RuntimeError(f"fit: stats not finite: {st}")
+        return res, got["k1"], eval_steps
+
+    res, launches, eval_steps = run("--max-epochs", "2")
+    agent, hist = res["agent"], res["history"]
+    d = joblib_compat.load(res["path"])
+    policy = nets.policy_from_numpy(d["policy_params"], "relu", dev)
+    x = torch.randn((64, agent.obs_dim),
+                    generator=torch.Generator().manual_seed(6)).to(dev)
+    with torch.no_grad():
+        if not torch.equal(policy(x), agent.policy(x)):
+            raise RuntimeError("fit: the snapshot gives another policy")
+    del agent
+    full, full_launches, _ = run("--max-epochs", "1", "--succ-threshold",
+                                 "0", "--eval-every", "1")
+    m = full["last_eval"]
+    if full["evals"] != [DYN19_EPOCH] or not all(
+            np.isfinite(m[k]) for k in ("succ", "mpjpe", "root_dist")):
+        raise RuntimeError(f"fit: full-sequence eval {full['evals']}: {m}")
+    return {"launches": launches + full_launches, "epochs": len(hist),
+            "evals": res["evals"], "eval_steps": eval_steps,
+            "epoch_s": [st["T_total"] for st in hist],
+            "rollout_env_steps_per_s": [st["rollout_steps_per_sec"]
+                                        for st in hist],
+            "ppo_update_ms": [1e3 * st["T_update"] for st in hist],
+            "success_rate": [st["success_rate"] for st in hist],
+            "reward_mean": [st["reward_mean"] for st in hist],
+            "snapshot": os.path.relpath(res["path"], out_dir),
+            "full_sequence_eval": {
+                "launches": full_launches, "epochs": full["evals"],
+                "s": full["history"][0]["T_total"],
+                **{k: float(m[k]) for k in ("succ", "mpjpe", "root_dist")}}}
+
+
+def train_fix_std(dev) -> tuple:
+    """Phase train_fix_std: one epoch of uhc_implicit at 1024 × 48 with a
+    trainable log-std through K1 (run_train's checks), keeping that
+    epoch's PPO batch; returns (launch counts, log-std move, the agent,
+    the batch)."""
+    import dataclasses
+
+    from uhc_tpu_torch.config.config import Config
+    from uhc_tpu_torch.learn import agent as AG
+
+    cfg = dataclasses.replace(Config.uhc_implicit(), fix_std=False)
+    kept = {}
+
+    def make(out):
+        kept["agent"] = AG.CopycatAgent(cfg, "sample_data/gait_clips.pkl",
+                                        num_envs=1024, horizon=48,
+                                        results_dir=out, device=dev)
+        kept["log_std0"] = kept["agent"].log_std.detach().clone()
+        return kept["agent"]
+
+    ppo = AG.ppo_update
+
+    def keep_batch(*args, **kw):
+        kept["batch"] = args[5]
+        return ppo(*args, **kw)
+
+    AG.ppo_update = keep_batch
+    try:
+        got = run_train(None, 1, "train_fix_std", dev, routed=("k1",),
+                        agent_fn=make)
+    finally:
+        AG.ppo_update = ppo
+    agent = kept["agent"]
+    move = (agent.log_std.detach() - kept["log_std0"]).abs()
+    if agent.log_std_opt is None or not float(move.max()) > 0:
+        raise RuntimeError("train_fix_std: the log-std did not train")
+    return got, {"max": float(move.max()), "mean": float(move.mean())}, \
+        agent, kept["batch"]
+
+
+def trpo_phase(agent, batch) -> dict:
+    """Phase trpo: one TRPO update of the train_fix_std agent's policy and
+    value net on that epoch's batch (49,152 rows), timed; launches no
+    kernel."""
+    import torch
+
+    from uhc_tpu_torch.learn.trpo import make_trpo_update
+
+    update = make_trpo_update(agent.policy, agent.value)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = update(agent.log_std, batch)
+    accepted = bool(st["trpo_accepted"])
+    ms = 1e3 * (time.perf_counter() - t0)
+    got = counts()
+    if any(got.values()):
+        raise RuntimeError(f"trpo launched {got}")
+    kl = float(st["kl"])
+    if not (0.0 <= kl <= 1.01e-2) or not all(
+            bool(torch.isfinite(v).all()) for v in st.values()):
+        raise RuntimeError(f"trpo: {st}")
+    return {"accepted": accepted, "kl": kl, "ms": ms,
+            "surr_loss": float(st["surr_loss"]),
+            "value_loss": float(st["value_loss"]),
+            "rows": int(batch["states"].shape[0])}
+
+
+def obs_families(dev) -> tuple:
+    """Phase obs_families: one epoch at 1024 × 48 for each obs family and
+    reward of OBS_FAMILIES (K1, K1f under the explicit config), then the
+    transformer actor's forward and backward on the v4 agent's normalized
+    observations. Returns (counts by family, numbers)."""
+    import dataclasses
+
+    import torch
+
+    from uhc_tpu_torch.config.config import EXPLICIT, Config
+    from uhc_tpu_torch.envs import humanoid_im as H
+    from uhc_tpu_torch.learn import nets, running_norm as RN
+    from uhc_tpu_torch.learn.agent import CopycatAgent
+
+    got, numbers, agents = {}, {}, {}
+    for obs_v, reward, name in OBS_FAMILIES:
+        base = (Config.from_dict(name, EXPLICIT) if name == "explicit"
+                else Config.uhc_implicit())
+        cfg = dataclasses.replace(base, env=dataclasses.replace(
+            base.env, obs_v=obs_v, reward_id=reward))
+        fam = f"v{obs_v}"
+
+        def make(out, cfg=cfg, fam=fam):
+            agents[fam] = CopycatAgent(cfg, "sample_data/gait_clips.pkl",
+                                       num_envs=1024, horizon=48,
+                                       results_dir=out, device=dev)
+            return agents[fam]
+
+        phase(f"obs_families_{fam}", f"(obs v{obs_v}, {reward}, {name}: "
+                                     f"1 epoch of 1024 × 48)")
+        got[fam] = run_train(None, 1, f"obs_families_{fam}", dev,
+                             routed=("k1f",) if name == "explicit"
+                             else ("k1",), agent_fn=make)
+        rates = TRAIN_RATES[f"obs_families_{fam}"]
+        numbers[fam] = {"reward": reward, "cfg": name,
+                        "obs_dim": agents[fam].obs_dim,
+                        "rollout_env_steps_per_s":
+                            rates["rollout_env_steps_per_s"][0],
+                        "ppo_update_ms": rates["ppo_update_ms"][0]}
+    # the transformer actor on the v4 tokens: 28 global features, 23 rows
+    # of 26
+    agent = agents["v4"]
+    obs = RN.normalize(agent.rs, H.get_obs(
+        agent.topo, agent.sim_model, agent.env_cfg, agent.env_states,
+        agent.expert_lib))
+    nt = agent.topo.nbody - 1
+    pol = nets.make_policy(Config(actor_type="transformer"), obs.shape[1],
+                           agent.action_dim,
+                           torch.Generator().manual_seed(0), dev,
+                           n_tokens=nt, token_dim=26)
+    act = torch.randn(obs.shape[0], agent.action_dim, device=dev,
+                      generator=torch.Generator(dev).manual_seed(1)) * 0.1
+    log_std = torch.full((agent.action_dim,), -2.3, device=dev)
+
+    def fwd_bwd():
+        pol.zero_grad(set_to_none=True)
+        loss = -nets.gaussian_log_prob(pol(obs), log_std, act).mean()
+        loss.backward()
+        return loss
+
+    reset_counts()
+    loss = fwd_bwd()
+    ms = cuda_ms(fwd_bwd, 5)
+    if any(counts().values()) or not bool(torch.isfinite(loss)) or not all(
+            p.grad is not None and bool(torch.isfinite(p.grad).all())
+            for p in pol.parameters()):
+        raise RuntimeError("obs_families: transformer forward / backward "
+                           "not finite")
+    numbers["transformer"] = {
+        "rows": int(obs.shape[0]), "obs_dim": int(obs.shape[1]),
+        "tokens": nt, "params": sum(p.numel() for p in pol.parameters()),
+        "loss": float(loss.detach()), "fwd_bwd_ms": ms}
+    return got, numbers
+
+
 def run(parent=None) -> int:
     """Every phase; `parent` is --parent's source, or None."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2040,6 +2330,50 @@ def run(parent=None) -> int:
             None, epochs, train_phase, dev, routed=("k1f_masterfoot",),
             agent_fn=lambda out, name=name, cfg_dict=cfg_dict:
             masterfoot_agent(out, Config.from_dict(name, cfg_dict)))
+
+    # the fit-and-eval protocol, the trainable log-std, TRPO, the obs and
+    # reward families and the transformer actor
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as proto_dir:
+        phase("eval_singles", f"(cli/eval --results-dir {DYN19} --epoch "
+                              f"{DYN19_EPOCH} --singles-dir: the 19 clips of "
+                              f"{GAIT_EXT}, full length, K1)")
+        singles = eval_singles(dev, proto_dir)
+        done("eval_singles", **{k: v for k, v in singles.items()
+                                if k != "dump"})
+        phase("eval_imitation", "(cli/eval_imitation on eval_singles' dump)")
+        from uhc_tpu_torch.cli import eval_imitation
+
+        rescored = eval_imitation.main(["--results", singles["dump"]])
+        if rescored["summary"] != singles["summary"]:
+            raise RuntimeError(f"eval_imitation: {rescored['summary']} != "
+                               f"the eval's {singles['summary']}")
+        done("eval_imitation", summary_equal=True,
+             num_seqs=rescored["summary"]["num_seqs"])
+        phase("fit", f"(cli/fit --key {FIT_KEY}, warm start from a copy of "
+                     f"iter_{DYN19_EPOCH:04d}.p, at most 2 epochs of 512 × "
+                     "48, then 1 epoch and the full-sequence eval, K1)")
+        fit_numbers = fit_phase(dev, os.path.join(proto_dir, "fit"))
+        done("fit", **fit_numbers)
+    phase("train_fix_std", "(uhc_implicit with fix_std=False, 1 epoch of "
+                           "1024 × 48 through K1)")
+    fix_std_counts, log_std_move, fix_std_agent, fix_std_batch = \
+        train_fix_std(dev)
+    done("train_fix_std_log_std", moved=log_std_move)
+    phase("trpo", "(one TRPO update on train_fix_std's batch)")
+    trpo_numbers = trpo_phase(fix_std_agent, fix_std_batch)
+    del fix_std_agent, fix_std_batch
+    done("trpo", **trpo_numbers)
+    phase("obs_families", "(obs v0, v3, v4, v5, v6 with the new rewards, 1 "
+                          "epoch each at 1024 × 48; the transformer actor "
+                          "on the v4 tokens)")
+    family_counts, family_numbers = obs_families(dev)
+    done("obs_families", **family_numbers, card=smi)
+    protocol_k1 = (singles["launches"] + fit_numbers["launches"]
+                   + fix_std_counts["k1"]
+                   + sum(c["k1"] for c in family_counts.values()))
+    protocol_k1f = sum(c["k1f"] for c in family_counts.values())
 
     phase("rollout_smplx", "(make_env_step_batched on the 55-body SMPL-X "
                            "through learn/rollout.py, "
@@ -2685,7 +3019,8 @@ def run(parent=None) -> int:
     print(json.dumps({"kernels": [
         {"name": "control_step", "route": "cuda", "source": src,
          "replaces": "uhc_tpu/physics/pallas_lane.py:83",
-         "launches": launches + train_counts["train_lane"]["k1"],
+         "launches": (launches + train_counts["train_lane"]["k1"]
+                      + protocol_k1),
          "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None},
         {"name": "control_step_head", "route": "cuda", "source": src,
@@ -2736,7 +3071,7 @@ def run(parent=None) -> int:
          "bound_by": k1f_time[mode]["bound"]["bound_by"], "library_ms": None}
         for mode, term, launches_f in (
             ("explicit", "explicit", explicit_counts["k1f"]
-             + train_counts["train_explicit"]["k1f"]),
+             + train_counts["train_explicit"]["k1f"] + protocol_k1f),
             ("meta_joint", "meta_joint",
              train_counts["train_meta_joint"]["k1f"]))] + [
         {"name": f"control_step_{mode}_{fam}", "route": "cuda",

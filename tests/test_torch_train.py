@@ -140,6 +140,35 @@ def test_ppo_update_matches_jax():
     losses within 1e-5 relative; params within 2·lr per Adam step (a step
     moves a parameter by about lr in the sign of its gradient, which a
     near-zero gradient can flip)."""
+    _ppo_update_case(fix_std=True)
+
+
+def test_ppo_update_matches_jax_trainable_std():
+    """The same update with fix_std=False: the log-std trains with its own
+    Adam at the policy's rate and the clip takes one norm over the
+    policy's and the log-std's gradients. The log-std is held within
+    1e-2·lr per Adam step, and moved: its gradient sums over every row, so
+    it is far from zero and both sides take the same steps (they agree
+    bit for bit here); a step of the wrong sign lands 2·lr away. The
+    losses get 1e-5 absolute on top of 1e-5 relative: the policy loss is
+    a mean of terms of size |adv| ≈ 10 that cancel to 0.34, and with the
+    std moving too the params' 1e-7 rounding gaps reach it at 1.1e-5
+    relative."""
+    _ppo_update_case(fix_std=False, loss_atol=1e-5)
+
+
+def test_ppo_update_matches_jax_trainable_std_sgd():
+    """The trainable-std update under plain SGD for the policy and the
+    log-std. An Adam step is about lr in the sign of its gradient whatever
+    the gradient's scale, so under Adam the clip's scale hardly shows in
+    the log-std; an SGD step is lr·g, so a log-std left out of the joint
+    clip moves by its unclipped gradient (2.2e-3 away from JAX here,
+    against the bound of 1e-2·lr per step, 1.5e-6). The policy params are
+    held at the same bound; the losses and the value net as above."""
+    _ppo_update_case(fix_std=False, loss_atol=1e-5, sgd=True)
+
+
+def _ppo_update_case(fix_std, loss_atol=0.0, sgd=False):
     import optax
 
     from uhc_tpu.learn import nets as JN
@@ -163,34 +192,49 @@ def test_ppo_update_matches_jax():
                           for p in pol.parameters())) > 40.0
     pol.zero_grad(set_to_none=True)
 
-    popt, vopt = optax.adam(lr_p), optax.adam(lr_v)
+    popt, vopt = (optax.sgd if sgd else optax.adam)(lr_p), optax.adam(lr_v)
+    lopt = None if fix_std else (optax.sgd if sgd else optax.adam)(lr_p)
     update = make_ppo_update(
         lambda p, x: JN.policy_mcp_mean(p, x, "relu"),
         lambda p, x: JN.value_apply(p, x, "relu"), popt, vopt, 0.2, epochs,
-        N, fix_std=True)
-    jstate, _, jstats = update(
-        PPOState(pp, vp, popt.init(pp), vopt.init(vp)), jnp.asarray(log_std),
-        {k: jnp.asarray(v) for k, v in batch.items()},
+        N, fix_std=fix_std, log_std_optimizer=lopt)
+    jstate, jlog_std, jstats = update(
+        PPOState(pp, vp, popt.init(pp), vopt.init(vp),
+                 None if fix_std else lopt.init(jnp.asarray(log_std))),
+        jnp.asarray(log_std), {k: jnp.asarray(v) for k, v in batch.items()},
         jax.random.PRNGKey(0))
 
-    stats = ppo_update(pol, val, torch.optim.Adam(pol.parameters(), lr=lr_p),
+    t_log_std = _t(log_std)
+    log_std_opt = None
+    if not fix_std:
+        t_log_std.requires_grad_()
+        log_std_opt = (torch.optim.SGD if sgd else torch.optim.Adam)(
+            [t_log_std], lr=lr_p)
+    popt_t = (torch.optim.SGD if sgd else torch.optim.Adam)(
+        pol.parameters(), lr=lr_p)
+    stats = ppo_update(pol, val, popt_t,
                        torch.optim.Adam(val.parameters(), lr=lr_v),
-                       _t(log_std), tb, torch.Generator().manual_seed(0),
-                       0.2, epochs, N)
+                       t_log_std, tb, torch.Generator().manual_seed(0),
+                       0.2, epochs, N, log_std_opt=log_std_opt)
     for k in ("value_loss", "policy_loss"):
-        close(jstats[k], stats[k], 0.0, 1e-5)
+        close(jstats[k], stats[k], loss_atol, 1e-5)
     assert stats["value_loss"] < stats["value_loss_before"]
     for tree_j, tree_t, lr in ((jstate.policy_params,
                                 nets.policy_to_numpy(pol), lr_p),
                                (jstate.value_params,
                                 nets.value_to_numpy(val), lr_v)):
+        # an SGD step has no sign flip: its gap is rounding of lr·g
+        tol = (1e-2 if sgd and lr == lr_p else 2) * lr * epochs
         for a, b in zip(jax.tree.leaves(tree_j), jax.tree.leaves(tree_t)):
-            close(a, b, 2 * lr * epochs)
+            close(a, b, tol)
         # and the update moved them
         assert any(np.abs(np.asarray(a) - np.asarray(b)).max() > 0
                    for a, b in zip(jax.tree.leaves(tree_t),
                                    jax.tree.leaves(pp if lr == lr_p
                                                    else vp)))
+    close(jlog_std, t_log_std, 1e-2 * lr_p * epochs)
+    moved = np.abs(t_log_std.detach().numpy() - log_std).max()
+    assert moved == 0.0 if fix_std else moved > 0.5 * lr_p
 
 
 def test_ppo_minibatches_partition_the_permutation():

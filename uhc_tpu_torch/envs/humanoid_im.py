@@ -17,9 +17,10 @@ domain-randomized training, `data.dataset.build_shaped_library` /
 on its own sequence's model, gathered by its seq_idx (`env_models`), and
 the kernels take the library with seq_idx (K1e).
 
-Ported: obs v1 and v2 with the shape observation, the world_rfc_implicit
-and world_rfc_explicit rewards, implicit and explicit RFC, plain,
-meta-PD and per-joint meta-PD, body-diff termination.
+Ported: obs v0 to v6 (v1, v2, v4 to v6 with the shape observation; not
+the ball family's v2_quat), every reward family of
+`rewards.reward_function`, implicit and explicit RFC, plain, meta-PD and
+per-joint meta-PD, body-diff termination.
 """
 from __future__ import annotations
 
@@ -30,9 +31,11 @@ from typing import Any, Dict
 import torch
 
 from uhc_tpu_torch.config.config import EnvConfig
-from uhc_tpu_torch.maths import (de_heading, heading_angle, heading_quat,
-                                 quat_from_euler_zyx, quat_inv, quat_mul,
-                                 transform_vec, wrap_to_pi)
+from uhc_tpu_torch.maths import (de_heading, de_heading_new, heading_angle,
+                                 heading_angle_new, heading_quat,
+                                 heading_quat_new, quat_from_euler_zyx,
+                                 quat_inv, quat_mul, transform_vec,
+                                 wrap_to_pi)
 from uhc_tpu_torch.physics import engine as E
 from uhc_tpu_torch.physics import solver as S
 from uhc_tpu_torch.physics.model import (Model, Topology, env_models,
@@ -143,18 +146,20 @@ def get_body_quat(qpos: torch.Tensor) -> torch.Tensor:
 
 
 def obs_v12(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
-            expert_lib, shape_obs=None, tgt=None) -> torch.Tensor:
+            expert_lib, shape_obs=None, tgt=None,
+            delta_t: int = 0) -> torch.Tensor:
     """get_full_obs_v1 (cfg.obs_v 1) and _v2 (obs_v 2: v1 without the COM
     blocks; uhc_tpu/envs/humanoid_im.py:247-310), feature-order exact: the
     reference's double linear-velocity transform, its target_root_quat[:3]
     read as rel_pos, and component-major position blocks. `model` is
-    shared or per env."""
+    shared or per env. The target is the expert `delta_t` frames past the
+    next one."""
     qpos, qvel = state.qpos, state.qvel
     B = qpos.shape[0]
     base_rot = qpos.new_tensor(cfg.base_rot)
     if tgt is None:
         tgt = expert_at(expert_lib, state.seq_idx,
-                        state.start_ind + state.cur_t + 1)
+                        state.start_ind + state.cur_t + 1 + delta_t)
     kin = E.fk(topo, model, qpos)
     c = cfg.obs_coord
     obs = []
@@ -171,10 +176,8 @@ def obs_v12(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
 
     qpos_dh = torch.cat([qpos[:, :3], de_heading(curr_root_quat),
                          qpos[:, 7:]], 1)
-    diff_qpos = torch.cat([
-        target_qpos[:, :2], target_qpos[:, 2:3] - qpos_dh[:, 2:3],
-        quat_mul(target_root_quat, quat_inv(curr_root_quat)),
-        target_qpos[:, 7:] - qpos_dh[:, 7:]], 1)
+    diff_qpos = _diff_qpos(target_qpos, qpos_dh, target_root_quat,
+                           curr_root_quat)
     obs += [target_qpos[:, 2:], qpos_dh[:, 2:], diff_qpos[:, 2:]]
 
     qvel = torch.cat([transform_vec(qvel[:, :3], curr_root_quat, c),
@@ -195,7 +198,7 @@ def obs_v12(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
         blocks += [kin["xipos"] - qpos_dh[:, None, :3],
                    target_com - kin["xipos"]]
     for v in blocks:
-        obs.append(transform_vec(v, crq, c).transpose(1, 2).reshape(B, -1))
+        obs.append(_component_major(transform_vec(v, crq, c)))
     cur_quat = kin["xquat"]
     obs.append(quat_mul(quat_inv(hq)[:, None], cur_quat).reshape(B, -1))
     obs.append(quat_mul(quat_inv(cur_quat), target_quat).reshape(B, -1))
@@ -204,11 +207,204 @@ def obs_v12(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
     return torch.cat(obs, 1)
 
 
+def _diff_qpos(target_qpos, qpos_dh, target_root_quat, curr_root_quat):
+    """target qpos less the de-headed qpos (height and joints), the root
+    rotation between the two, target xy kept."""
+    return torch.cat([
+        target_qpos[:, :2], target_qpos[:, 2:3] - qpos_dh[:, 2:3],
+        quat_mul(target_root_quat, quat_inv(curr_root_quat)),
+        target_qpos[:, 7:] - qpos_dh[:, 7:]], 1)
+
+
+def _component_major(v: torch.Tensor) -> torch.Tensor:
+    """(B, n, 3) -> (B, 3n), x of every row first: the reference's
+    transform_vec_batch returns (3, n) and ravels it."""
+    return v.transpose(1, 2).reshape(v.shape[0], -1)
+
+
+def obs_v0(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
+           expert_lib, tgt=None) -> torch.Tensor:
+    """get_full_obs (uhc_tpu/envs/humanoid_im.py:455-478): [heading?]
+    qpos[2:] (de-headed with root_deheading), qvel, the expert's joint
+    pose at the current frame, [phase?]."""
+    qpos, qvel = state.qpos, state.qvel
+    if tgt is None:
+        tgt = expert_at(expert_lib, state.seq_idx,
+                        state.start_ind + state.cur_t)
+    qvel = torch.cat([transform_vec(qvel[:, :3], qpos[:, 3:7],
+                                    cfg.obs_coord), qvel[:, 3:]], 1)
+    obs = []
+    if cfg.obs_heading:
+        obs.append(heading_angle(qpos[:, 3:7])[:, None])
+    if cfg.root_deheading:
+        qpos = torch.cat([qpos[:, :3], de_heading(qpos[:, 3:7]),
+                          qpos[:, 7:]], 1)
+    obs.append(qpos[:, 2:])
+    obs.append(qvel if cfg.obs_vel == "full" else qvel[:, :6])
+    obs.append(tgt["qpos"][:, 7:])
+    if cfg.obs_phase:
+        obs.append((state.cur_t.to(qpos.dtype)
+                    / tgt["len"].to(qpos.dtype))[:, None])
+    return torch.cat(obs, 1)
+
+
+def obs_v4(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
+           expert_lib, shape_obs=None, tgt=None) -> torch.Tensor:
+    """get_full_obs_v4 (uhc_tpu/envs/humanoid_im.py:549-604): a global
+    block then the (nb-1, 26) local rows of the non-root bodies, flat:
+    [target pose | cur pose | diff pose | joint qvel | r_jpos | diff_jpos
+    | heading-relative quat | relative quat] (the transformer actor's
+    tokens)."""
+    qpos, qvel = state.qpos, state.qvel
+    B = qpos.shape[0]
+    base_rot = qpos.new_tensor(cfg.base_rot)
+    if tgt is None:
+        tgt = expert_at(expert_lib, state.seq_idx,
+                        state.start_ind + state.cur_t + 1)
+    kin = E.fk(topo, model, qpos)
+    c = cfg.obs_coord
+    qvel = torch.cat([transform_vec(qvel[:, :3], qpos[:, 3:7], c),
+                      qvel[:, 3:]], 1)
+    curr_root_quat = quat_mul(qpos[:, 3:7], quat_inv(base_rot))
+    hq = heading_quat(curr_root_quat)
+    target_qpos = tgt["qpos"]
+    target_quat = tgt["wbquat"].reshape(B, -1, 4)
+    target_jpos = tgt["wbpos"].reshape(B, -1, 3)
+    target_root_quat = quat_mul(target_qpos[:, 3:7], quat_inv(base_rot))
+    qpos_dh = torch.cat([qpos[:, :3], de_heading(curr_root_quat),
+                         qpos[:, 7:]], 1)
+    diff_qpos = _diff_qpos(target_qpos, qpos_dh, target_root_quat,
+                           curr_root_quat)
+
+    def rows(x):
+        return x[:, 7:].reshape(B, -1, 3)
+
+    g = [hq, target_qpos[:, 2:7], qpos_dh[:, 2:7], diff_qpos[:, 2:7]]
+    loc = [rows(target_qpos), rows(qpos_dh), rows(diff_qpos)]
+    qvel = torch.cat([transform_vec(qvel[:, :3], curr_root_quat, c),
+                      qvel[:, 3:]], 1)
+    g.append(qvel[:, :6])
+    if cfg.obs_vel != "root":
+        loc.append(qvel[:, 6:].reshape(B, -1, 3))
+    g.append(wrap_to_pi(heading_angle(target_root_quat)
+                        - heading_angle(curr_root_quat))[:, None])
+    # v4 reads the target's qpos[:3] here (the reference's corrected
+    # rel_pos)
+    g.append(transform_vec(target_qpos[:, :3] - qpos_dh[:, :3],
+                           curr_root_quat, c)[:, :2])
+    crq = curr_root_quat[:, None]
+    curr_jpos = kin["xpos"]
+    loc.append(transform_vec(curr_jpos - qpos_dh[:, None, :3], crq,
+                             c)[:, 1:])
+    loc.append(transform_vec(target_jpos - curr_jpos, crq, c)[:, 1:])
+    cur_quat = kin["xquat"]
+    loc.append(quat_mul(quat_inv(hq)[:, None], cur_quat)[:, 1:])
+    loc.append(quat_mul(quat_inv(cur_quat), target_quat)[:, 1:])
+    if cfg.has_shape and shape_obs is not None:
+        g.append(shape_obs)
+    return torch.cat(g + [torch.cat(loc, 2).reshape(B, -1)], 1)
+
+
+def obs_v5(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
+           expert_lib, shape_obs=None, tgt=None) -> torch.Tensor:
+    """get_full_obs_v5 (uhc_tpu/envs/humanoid_im.py:605-652), v2 with the
+    atan2 heading: no heading quaternion block, one linear-velocity
+    transform, the target's qpos[:3] in rel_pos."""
+    qpos, qvel = state.qpos, state.qvel
+    B = qpos.shape[0]
+    base_rot = qpos.new_tensor(cfg.base_rot)
+    if tgt is None:
+        tgt = expert_at(expert_lib, state.seq_idx,
+                        state.start_ind + state.cur_t + 1)
+    kin = E.fk(topo, model, qpos)
+    c = cfg.obs_coord
+    target_qpos = tgt["qpos"]
+    target_quat = tgt["wbquat"].reshape(B, -1, 4)
+    target_jpos = tgt["wbpos"].reshape(B, -1, 3)
+    curr_root_quat = quat_mul(qpos[:, 3:7], quat_inv(base_rot))
+    target_root_quat = quat_mul(target_qpos[:, 3:7], quat_inv(base_rot))
+    hq = heading_quat_new(curr_root_quat)
+    qpos_dh = torch.cat([qpos[:, :3], de_heading_new(curr_root_quat),
+                         qpos[:, 7:]], 1)
+    diff_qpos = _diff_qpos(target_qpos, qpos_dh, target_root_quat,
+                           curr_root_quat)
+    obs = [target_qpos[:, 2:], qpos_dh[:, 2:], diff_qpos[:, 2:]]
+    qvel = torch.cat([transform_vec(qvel[:, :3], curr_root_quat, c),
+                      qvel[:, 3:]], 1)
+    obs.append(qvel if cfg.obs_vel == "full" else qvel[:, :6])
+    obs.append(wrap_to_pi(heading_angle_new(target_root_quat)
+                          - heading_angle_new(curr_root_quat))[:, None])
+    obs.append(transform_vec(target_qpos[:, :3] - qpos_dh[:, :3],
+                             curr_root_quat, c)[:, :2])
+    crq = curr_root_quat[:, None]
+    curr_jpos = kin["xpos"]
+    for v in (curr_jpos - qpos_dh[:, None, :3], target_jpos - curr_jpos):
+        obs.append(_component_major(transform_vec(v, crq, c)))
+    cur_quat = kin["xquat"]
+    obs.append(quat_mul(quat_inv(hq)[:, None], cur_quat).reshape(B, -1))
+    obs.append(quat_mul(quat_inv(cur_quat), target_quat).reshape(B, -1))
+    if cfg.has_shape and cfg.has_shape_obs and shape_obs is not None:
+        obs.append(shape_obs)
+    return torch.cat(obs, 1)
+
+
+def obs_v6(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
+           expert_lib, shape_obs=None, tgt=None) -> torch.Tensor:
+    """get_full_obs_v6 (uhc_tpu/envs/humanoid_im.py:653-694): the root's
+    relative position, heading and rotation, qvel, heading-frame joint
+    positions and local joint quaternions. The reference drops a
+    component row of the (3, nb) joint-position block, not the root body
+    (2·nb features): kept."""
+    qpos, qvel = state.qpos, state.qvel
+    B = qpos.shape[0]
+    base_rot = qpos.new_tensor(cfg.base_rot)
+    if tgt is None:
+        tgt = expert_at(expert_lib, state.seq_idx,
+                        state.start_ind + state.cur_t + 1)
+    kin = E.fk(topo, model, qpos)
+    curr_root_quat = quat_mul(qpos[:, 3:7], quat_inv(base_rot))
+    hq = heading_quat_new(curr_root_quat)
+    target_qpos = tgt["qpos"]
+    target_jpos = tgt["wbpos"].reshape(B, -1, 3)
+    target_root_quat = quat_mul(target_qpos[:, 3:7], quat_inv(base_rot))
+    obs = [transform_vec(target_qpos[:, :3] - qpos[:, :3], hq),
+           wrap_to_pi(heading_angle_new(target_root_quat)
+                      - heading_angle_new(curr_root_quat))[:, None],
+           quat_mul(target_root_quat, quat_inv(curr_root_quat))]
+    qvel = torch.cat([transform_vec(qvel[:, :3], hq), qvel[:, 3:]], 1)
+    obs.append(qvel if cfg.obs_vel == "full" else qvel[:, :6])
+    curr_jpos = kin["xpos"]
+    r_jpos = transform_vec(curr_jpos - qpos[:, None, :3], hq[:, None])
+    obs.append(r_jpos.transpose(1, 2)[:, 1:].reshape(B, -1))
+    obs.append(_component_major(transform_vec(
+        (target_jpos - curr_jpos)[:, 1:], hq[:, None])))
+    target_bquat = tgt["bquat"].reshape(B, -1, 4)[:, 1:]
+    cur_bquat = get_body_quat(qpos).reshape(B, -1, 4)[:, 1:]
+    obs.append(cur_bquat.reshape(B, -1))
+    obs.append(quat_mul(quat_inv(cur_bquat), target_bquat).reshape(B, -1))
+    if cfg.has_shape and cfg.has_shape_obs and shape_obs is not None:
+        obs.append(shape_obs)
+    return torch.cat(obs, 1)
+
+
+def obs_v3(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
+           expert_lib, shape_obs=None) -> torch.Tensor:
+    """Obs v2 stacked over `fut_frames` future frames `obs_skip` apart
+    (uhc_tpu/envs/humanoid_im.py:680-685), each target clamped to the
+    clip's last frame."""
+    v2 = dataclasses.replace(cfg, obs_v=2)
+    return torch.cat([
+        obs_v12(topo, model, v2, state, expert_lib, shape_obs, delta_t=i)
+        for i in range(0, cfg.fut_frames * cfg.obs_skip, cfg.obs_skip)], 1)
+
+
 def observe(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
             expert_lib, tgt=None) -> torch.Tensor:
-    """Observation dispatch over a shared or per-env model. A
-    shape-conditioned config appends each env's shape observation from
-    the library; a library built without one is an error."""
+    """Observation dispatch over a shared or per-env model
+    (uhc_tpu/envs/humanoid_im.py:697-742). A shape-conditioned config
+    appends each env's shape observation from the library; a library
+    built without one is an error. The ball family's v2_quat is not
+    ported."""
     shape_obs = None
     if cfg.has_shape:
         if "shape_obs" not in expert_lib:
@@ -217,10 +413,19 @@ def observe(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
                 "'shape_obs': build it with data.dataset."
                 "build_shaped_library, not build_expert_library")
         shape_obs = expert_lib["shape_obs"][state.seq_idx]
-    if cfg.obs_v not in (1, 2) or cfg.robot_ball:
-        raise NotImplementedError(f"obs_v={cfg.obs_v} (ball joints "
-                                  f"{cfg.robot_ball}) is not ported yet")
-    return obs_v12(topo, model, cfg, state, expert_lib, shape_obs, tgt)
+    if cfg.robot_ball:
+        raise NotImplementedError("obs v2_quat (ball joints) is not ported "
+                                  "yet")
+    if cfg.obs_v in (1, 2):
+        return obs_v12(topo, model, cfg, state, expert_lib, shape_obs, tgt)
+    if cfg.obs_v == 0:
+        return obs_v0(topo, model, cfg, state, expert_lib, tgt)
+    if cfg.obs_v == 3:
+        return obs_v3(topo, model, cfg, state, expert_lib, shape_obs)
+    fn = {4: obs_v4, 5: obs_v5, 6: obs_v6}.get(cfg.obs_v)
+    if fn is None:
+        raise NotImplementedError(f"obs_v={cfg.obs_v}")
+    return fn(topo, model, cfg, state, expert_lib, shape_obs, tgt)
 
 
 def get_obs(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
@@ -240,17 +445,36 @@ def shape_obs_dim(topo: Topology, cfg: EnvConfig) -> int:
 
 
 def obs_dim(topo: Topology, cfg: EnvConfig) -> int:
+    """Width of `get_obs` (uhc_tpu/envs/humanoid_im.py:719-750)."""
     nb, nq, nv = topo.nbody, topo.nq, topo.nv
     vel = nv if cfg.obs_vel == "full" else 6
-    shape = (shape_obs_dim(topo, cfg)
-             if cfg.has_shape and cfg.has_shape_obs else 0)
+    shape_all = shape_obs_dim(topo, cfg) if cfg.has_shape else 0
+    shape = shape_all if cfg.has_shape_obs else 0
+    if cfg.robot_ball:
+        raise NotImplementedError("obs v2_quat (ball joints) is not ported "
+                                  "yet")
+    if cfg.obs_v == 0:
+        return ((1 if cfg.obs_heading else 0) + (nq - 2) + vel + topo.ndof
+                + (1 if cfg.obs_phase else 0))
     if cfg.obs_v == 1:
         return (4 + 3 * (nq - 2) + vel + 1 + 2 + 3 * nb * 4 + 4 * nb * 2
                 + shape)
-    if cfg.obs_v == 2 and not cfg.robot_ball:
+    if cfg.obs_v == 2:
         return (4 + 3 * (nq - 2) + vel + 1 + 2 + 3 * nb * 2 + 4 * nb * 2
                 + shape)
-    raise NotImplementedError(f"obs_v={cfg.obs_v} is not ported yet")
+    if cfg.obs_v == 3:
+        return cfg.fut_frames * obs_dim(topo, dataclasses.replace(cfg,
+                                                                   obs_v=2))
+    if cfg.obs_v == 4:
+        # global 4 + 3·5 + 6 + 3 (+ shape: v4 reads has_shape alone) and
+        # (nb-1) local rows of 3·3 + 3 + 3·2 + 4·2
+        return 28 + shape_all + (nb - 1) * 26
+    if cfg.obs_v == 5:
+        return 3 * (nq - 2) + vel + 1 + 2 + 3 * nb * 2 + 4 * nb * 2 + shape
+    if cfg.obs_v == 6:
+        return (3 + 1 + 4 + vel + 2 * nb + 3 * (nb - 1) + 4 * (nb - 1) * 2
+                + shape)
+    raise NotImplementedError(f"obs_v={cfg.obs_v}")
 
 
 # ---------------------------------------------------------------------------

@@ -20,10 +20,14 @@ env's seq_idx (K1e).
 One epoch (agent_copycat.py:326 optimize_policy): the adaptive schedules,
 a rollout of B humanoids × T control steps on the device (physics, obs,
 reward, auto-reset), GAE, the PPO update, and the hard-mining telemetry
-back to the host sampler. On CUDA the physics runs through a control-step
-kernel (K1, or K2 under UHC_TPU_LANE=0); on the CPU, which the caller asks
-for with device="cpu", through the plain PCG-5 chain, as the JAX agent
-does off the TPU.
+back to the host sampler. The exploration std follows the schedule
+(`fix_std`, the release configs) or, with fix_std false, is a trained
+parameter with its own Adam. The policy is the config's `actor_type`: MCP,
+or else the Gaussian (`nets.make_policy`; its transformer needs a token
+layout the agent does not give, as in the JAX agent). On CUDA the physics
+runs through a control-step kernel (K1, or K2 under UHC_TPU_LANE=0); on
+the CPU, which the caller asks for with device="cpu", through the plain
+PCG-5 chain, as the JAX agent does off the TPU.
 
 The reset pose for reactive initialization is the first frame of the
 first clip at rest (the reference's standing_neutral.pkl is not in the
@@ -71,14 +75,10 @@ class CopycatAgent:
                  dr_friction_scale: float = 1.5,
                  dr_contact_scale: float = 2.0, dr_mass_scale: float = 1.15,
                  dr_seed: int = 0):
-        if cfg.actor_type not in ("mcp", "gauss") or not cfg.fix_std:
-            raise NotImplementedError("the port trains the MCP or Gaussian "
-                                      "policy with a scheduled (fixed) std")
         self.cfg, self.env_cfg = cfg, cfg.env
         self.num_envs, self.horizon = num_envs, horizon
         self.device = dev = resolve_device(device)
-        self.results_dir = results_dir or os.path.join(
-            "results", cfg.cfg_id + "_torch")
+        self.results_dir = results_dir or default_results_dir(cfg)
         os.makedirs(os.path.join(self.results_dir, "models"), exist_ok=True)
 
         self.topo, model_np = load_fixture_humanoid()
@@ -130,10 +130,19 @@ class CopycatAgent:
         self._eval_fn = None
 
     def _make_optimizers(self):
+        """Fresh Adam states for the policy and the value net and, with a
+        trainable std (fix_std=False), for the log-std at the policy's
+        learning rate (the reference's action_log_std is a policy
+        parameter)."""
         self.policy_opt = torch.optim.Adam(self.policy.parameters(),
                                            lr=self.cfg.policy_lr)
         self.value_opt = torch.optim.Adam(self.value.parameters(),
                                           lr=self.cfg.value_lr)
+        self.log_std_opt = None
+        if not self.cfg.fix_std:
+            self.log_std = self.log_std.detach().clone().requires_grad_()
+            self.log_std_opt = torch.optim.Adam([self.log_std],
+                                                lr=self.cfg.policy_lr)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -146,7 +155,8 @@ class CopycatAgent:
         cfg, dev = self.cfg, self.device
         t0 = time.perf_counter()
         noise_rate, log_std_sched, _lr = cfg.adaptive_params(epoch)
-        self.log_std = torch.full_like(self.log_std, log_std_sched)
+        if cfg.fix_std:
+            self.log_std = torch.full_like(self.log_std, log_std_sched)
         rfc_rate = (max(0.0, 1.0 - epoch / 10000.0)
                     if self.env_cfg.rfc_decay else 1.0)
         seq_logits = torch.as_tensor(self.sampler.logits(), device=dev)
@@ -175,7 +185,7 @@ class CopycatAgent:
         ppo_stats = ppo_update(self.policy, self.value, self.policy_opt,
                                self.value_opt, self.log_std, batch, self.gen,
                                cfg.clip_epsilon, cfg.num_optim_epoch,
-                               self.minibatch)
+                               self.minibatch, log_std_opt=self.log_std_opt)
         self._sync()
         t2 = time.perf_counter()
 
@@ -260,14 +270,14 @@ class CopycatAgent:
 
     # -- checkpointing (pickle, like the reference iter_%04d.p) ---------------
     def checkpoint_path(self, epoch: int) -> str:
-        return os.path.join(self.results_dir, "models", f"iter_{epoch:04d}.p")
+        return checkpoint_path(self.results_dir, epoch)
 
     def save_checkpoint(self, epoch: int, name: str | None = None,
                         extra: dict | None = None):
         state = {
             "policy_params": nets.policy_to_numpy(self.policy),
             "value_params": nets.value_to_numpy(self.value),
-            "log_std": self.log_std.cpu().numpy(),
+            "log_std": self.log_std.detach().cpu().numpy(),
             "running_stats": RN.to_numpy(self.rs),
             "sampler": self.sampler.state_dict(),
             "epoch": epoch,
@@ -283,9 +293,10 @@ class CopycatAgent:
         self.load_checkpoint_file(self.checkpoint_path(epoch))
 
     def load_checkpoint_file(self, path: str, warm_start: bool = False):
-        """Restore networks and running stats from a checkpoint of either
-        package (fresh optimizer state). warm_start=True leaves the epoch
-        counter and the sampler fresh (cross-run warm start)."""
+        """Restore networks, log-std and running stats from a checkpoint of
+        either package (fresh optimizer states, the log-std's too).
+        warm_start=True leaves the epoch counter and the sampler fresh
+        (cross-run warm start)."""
         state = joblib_compat.load(path)
         dev = self.device
         self.log_std = torch.as_tensor(np.asarray(state["log_std"],
@@ -300,6 +311,17 @@ class CopycatAgent:
             return
         self.sampler.load_state_dict(state["sampler"])
         self.epoch = state["epoch"]
+
+
+def default_results_dir(cfg: Config) -> str:
+    """Where a config's run keeps its outputs unless told otherwise."""
+    return os.path.join("results", cfg.cfg_id + "_torch")
+
+
+def checkpoint_path(results_dir: str, epoch: int) -> str:
+    """The checkpoint of `epoch` in a results directory of either
+    package: models/iter_NNNN.p."""
+    return os.path.join(results_dir, "models", f"iter_{epoch:04d}.p")
 
 
 def robot_family(topo, model, env_cfg):

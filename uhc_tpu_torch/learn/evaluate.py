@@ -27,11 +27,17 @@ from uhc_tpu_torch.physics.model import Model, Topology, env_models
 
 def make_eval_fn(topo: Topology, cfg: EnvConfig, policy_mean_fn,
                  max_steps: int, clip_obs: float = 5.0,
-                 fused_model: Model = None):
+                 fused_model: Model = None, per_seq_params: bool = False):
     """Returns eval_all(model, expert_lib, aux, rs) -> (traj, fail_safe,
     percent), `traj` holding (S, T, ...) pred_qpos / pred_jpos / active.
     `policy_mean_fn(normalized_obs) -> actions`. With `fused_model` the
-    physics runs through the control-step kernel."""
+    physics runs through the control-step kernel.
+
+    per_seq_params (the per-sequence fit protocol): sequence s runs under
+    its own policy and its own running statistics. `rs` then holds one
+    row per sequence (`running_norm.stack`) and `policy_mean_fn` maps row
+    s of the (S, D) batch through policy s in one forward
+    (`nets.stack_policies`)."""
     if cfg.t_max >= max_steps and cfg.env_episode_len >= max_steps:
         eval_cfg = cfg
     else:
@@ -47,6 +53,9 @@ def make_eval_fn(topo: Topology, cfg: EnvConfig, policy_mean_fn,
         seq_idx = torch.arange(S, device=dev)
         models = env_models(model, seq_idx)
         lengths = expert_lib["len"]
+        if per_seq_params and tuple(rs.mean.shape[:-1]) != (S,):
+            raise ValueError(f"per-sequence statistics of shape "
+                             f"{tuple(rs.mean.shape)} for {S} sequences")
         states = H.env_reset(topo, model, eval_cfg, seq_idx, expert_lib,
                              aux["neutral_qpos"], aux["neutral_qvel"],
                              start_ind=0, train=False)

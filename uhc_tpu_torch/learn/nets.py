@@ -1,6 +1,7 @@
 """Policy and value networks (PyTorch twin of uhc_tpu.learn.nets: the MLP
 trunk, the Gaussian policy mean, the multiplicative compositional (MCP)
-policy mean and the value head).
+policy mean, the transformer policy mean over per-body tokens, the value
+head and the diagonal Gaussian's log-density and KL).
 
 Weights use the JAX package's (in, out) layout so a checkpoint's parameter
 tree carries across unchanged: `policy_from_numpy` / `value_from_numpy`
@@ -9,6 +10,7 @@ take the nested dicts and lists of numpy arrays of a checkpoint pickle,
 """
 from __future__ import annotations
 
+import copy
 from typing import Sequence
 
 import numpy as np
@@ -99,8 +101,88 @@ class Value(nn.Module):
         return self.net(x)[..., 0]
 
 
+def _pos_encoding(n: int, d: int) -> torch.Tensor:
+    """Sinusoidal positions (n, d): sin on even columns, cos on odd,
+    computed in float64 and rounded, as the JAX package does."""
+    pos = np.arange(n)[:, None]
+    i = np.arange(d)[None, :]
+    angle = pos / np.power(10000.0, (2 * (i // 2)) / d)
+    return torch.as_tensor(np.where(i % 2 == 0, np.sin(angle),
+                                    np.cos(angle)).astype(np.float32))
+
+
+def _affine(a: int, b: int) -> nn.ParameterDict:
+    return nn.ParameterDict({"w": nn.Parameter(torch.zeros(a, b)),
+                             "b": nn.Parameter(torch.zeros(b))})
+
+
+def _ln(x, p):
+    """Layer norm over the last axis: population variance, eps 1e-5."""
+    mu = x.mean(-1, keepdim=True)
+    var = x.var(-1, keepdim=True, unbiased=False)
+    return (x - mu) * torch.rsqrt(var + 1e-5) * p["g"] + p["b"]
+
+
+class PolicyTransformer(nn.Module):
+    """Pre-norm transformer encoder over per-body tokens
+    (uhc_tpu.learn.nets policy_transformer_mean): the observation is a
+    global block then n_tokens rows of token_dim (obs v4's local rows);
+    each token is its row with the global block appended, embedded, given
+    sinusoidal positions and run through `nlayers` attention + GELU MLP
+    blocks. Per-token heads give 3 action dims each (the joints), a head
+    on the mean token the rest (root, RFC, meta-PD). The attention is
+    written out as the JAX function writes it."""
+
+    def __init__(self, n_tokens, token_dim, global_dim, action_dim,
+                 d_model=128, nhead=4, ff_dim=256, nlayers=2):
+        super().__init__()
+        self.n_tokens, self.token_dim = n_tokens, token_dim
+        self.global_dim, self.d_model, self.nhead = global_dim, d_model, \
+            nhead
+        self.embed = _affine(token_dim + global_dim, d_model)
+        self.layers = nn.ModuleList(nn.ModuleDict({
+            "wqkv": _affine(d_model, 3 * d_model),
+            "wo": _affine(d_model, d_model),
+            "ff1": _affine(d_model, ff_dim),
+            "ff2": _affine(ff_dim, d_model),
+            "ln1": nn.ParameterDict({"g": nn.Parameter(torch.ones(d_model)),
+                                     "b": nn.Parameter(torch.zeros(d_model))}),
+            "ln2": nn.ParameterDict({"g": nn.Parameter(torch.ones(d_model)),
+                                     "b": nn.Parameter(torch.zeros(d_model))}),
+        }) for _ in range(nlayers))
+        self.head_tok = _affine(d_model, 3)
+        self.head_glob = _affine(d_model, action_dim - 3 * n_tokens)
+        self.register_buffer("pos", _pos_encoding(n_tokens, d_model),
+                             persistent=False)
+
+    def forward(self, obs):
+        B = obs.shape[0]
+        nt, td, gd = self.n_tokens, self.token_dim, self.global_dim
+        d, nh = self.d_model, self.nhead
+        hd = d // nh
+        g = obs[:, :gd]
+        x = torch.cat([obs[:, gd:].reshape(B, nt, td),
+                       g[:, None, :].expand(B, nt, gd)], -1)
+        h = x @ self.embed["w"] + self.embed["b"] + self.pos
+        for lp in self.layers:
+            qkv = _ln(h, lp["ln1"]) @ lp["wqkv"]["w"] + lp["wqkv"]["b"]
+            q, k, v = (t.reshape(B, nt, nh, hd).transpose(1, 2)
+                       for t in qkv.split(d, -1))
+            att = torch.softmax(q @ k.transpose(2, 3) / np.sqrt(hd), -1)
+            o = (att @ v).transpose(1, 2).reshape(B, nt, d)
+            h = h + o @ lp["wo"]["w"] + lp["wo"]["b"]
+            hn = _ln(h, lp["ln2"])
+            h = h + nn.functional.gelu(
+                hn @ lp["ff1"]["w"] + lp["ff1"]["b"], approximate="tanh") \
+                @ lp["ff2"]["w"] + lp["ff2"]["b"]
+        per_tok = (h @ self.head_tok["w"] + self.head_tok["b"]).reshape(
+            B, 3 * nt)
+        rest = h.mean(1) @ self.head_glob["w"] + self.head_glob["b"]
+        return torch.cat([per_tok, rest], -1)
+
+
 def _set(p: nn.Parameter, v) -> None:
-    v = torch.as_tensor(np.asarray(v, np.float32))
+    v = torch.from_numpy(np.array(v, np.float32))
     if tuple(v.shape) != tuple(p.shape):
         raise ValueError(f"shape {tuple(v.shape)} != {tuple(p.shape)}")
     with torch.no_grad():
@@ -116,10 +198,41 @@ def _load_trunk(mlp: MLP, layers, head=None) -> None:
         _set(mlp.head_b, head["b"])
 
 
+def _load_tree(module: nn.Module, tree) -> None:
+    """Copy a nested dict / list of arrays onto the module's parameters
+    of the same names."""
+    if isinstance(module, nn.Parameter):
+        _set(module, tree)
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            _load_tree(module[k] if isinstance(
+                module, (nn.ModuleDict, nn.ParameterDict))
+                else getattr(module, k), v)
+    else:
+        for m, v in zip(module, tree):
+            _load_tree(m, v)
+
+
 def policy_from_numpy(params, activation: str = "relu",
-                      device="cuda") -> nn.Module:
+                      device="cuda", n_tokens: int | None = None,
+                      token_dim: int | None = None,
+                      nhead: int = 4) -> nn.Module:
     """JAX policy parameter tree (nested dicts/lists of numpy arrays) ->
-    PolicyMCP or PolicyGaussian module on `device`."""
+    PolicyMCP, PolicyGaussian or PolicyTransformer module on `device`.
+    A transformer tree needs its token layout (`n_tokens`, `token_dim`)
+    and head count, which the JAX package keeps beside the tree."""
+    if "embed" in params:
+        if n_tokens is None or token_dim is None:
+            raise ValueError("a transformer policy needs n_tokens and "
+                             "token_dim")
+        tok_in, d_model = np.shape(params["embed"]["w"])
+        m = PolicyTransformer(
+            n_tokens, token_dim, tok_in - token_dim,
+            3 * n_tokens + np.shape(params["head_glob"]["w"])[1], d_model,
+            nhead, np.shape(params["layers"][0]["ff1"]["w"])[1],
+            len(params["layers"]))
+        _load_tree(m, {k: v for k, v in params.items() if k != "log_std"})
+        return m.to(device).eval()
     if "prims" in params:
         trunk = params["prims"]["trunk"]
         P, D = np.shape(trunk[0]["w"])[:2]
@@ -137,6 +250,23 @@ def policy_from_numpy(params, activation: str = "relu",
                            [np.shape(t["w"])[-1] for t in trunk], activation)
         _load_trunk(m.net, trunk, params["mean"])
     return m.to(device).eval()
+
+
+def stack_policies(policies: Sequence[nn.Module]):
+    """S policies of one architecture -> fn(x (S, D)) -> (S, A) that runs
+    row s through policy s: the weights stacked on a leading axis and one
+    forward vmapped over it (a batched matmul per layer, not S forwards;
+    uhc_tpu.learn.evaluate's per_seq_params)."""
+    from torch.func import functional_call, stack_module_state, vmap
+
+    params, buffers = stack_module_state(list(policies))
+    base = copy.deepcopy(policies[0]).to("meta")
+
+    def one(p, b, x):
+        return functional_call(base, (p, b), (x[None],))[0]
+
+    batched = vmap(one)
+    return lambda x: batched(params, buffers, x)
 
 
 def value_from_numpy(params, activation: str = "relu",
@@ -157,8 +287,20 @@ def _dump_trunk(mlp: MLP, head: bool):
                     if head else None)
 
 
+def _dump_tree(module):
+    if isinstance(module, nn.Parameter):
+        return module.detach().cpu().numpy().copy()
+    if isinstance(module, (nn.ModuleDict, nn.ParameterDict)):
+        return {k: _dump_tree(v) for k, v in module.items()}
+    return [_dump_tree(v) for v in module]
+
+
 def policy_to_numpy(m: nn.Module) -> dict:
-    """PolicyMCP / PolicyGaussian -> the JAX parameter tree (numpy)."""
+    """PolicyMCP / PolicyGaussian / PolicyTransformer -> the JAX parameter
+    tree (numpy)."""
+    if isinstance(m, PolicyTransformer):
+        return {k: _dump_tree(getattr(m, k))
+                for k in ("embed", "layers", "head_tok", "head_glob")}
     if isinstance(m, PolicyMCP):
         trunk, head = _dump_trunk(m.prims, True)
         return {"prims": {"trunk": trunk, "head": head},
@@ -178,6 +320,16 @@ def gaussian_log_prob(mean, log_std, action):
     lp = -((action - mean) ** 2) / (2 * var) - 0.5 * np.log(2 * np.pi) \
         - log_std
     return lp.sum(-1)
+
+
+def gaussian_kl(mean0, log_std0, mean1, log_std1):
+    """KL(N(mean0, std0) ‖ N(mean1, std1)) of diagonal Gaussians, summed
+    over the action axis."""
+    var0 = torch.exp(2.0 * log_std0)
+    var1 = torch.exp(2.0 * log_std1)
+    kl = (log_std1 - log_std0
+          + (var0 + (mean0 - mean1) ** 2) / (2.0 * var1) - 0.5)
+    return kl.sum(-1)
 
 
 def _uniform(shape, lim, gen):
@@ -235,16 +387,44 @@ def policy_gaussian_init(state_dim, action_dim, hidden,
     return m.to(device).eval()
 
 
+@torch.no_grad()
+def policy_transformer_init(n_tokens, token_dim, global_dim, action_dim,
+                            generator: torch.Generator, d_model=128,
+                            nhead=4, ff_dim=256, nlayers=2,
+                            device="cuda") -> PolicyTransformer:
+    """Seeded random transformer policy (uhc_tpu.learn.nets
+    policy_transformer_init): U(±1/√fan_in) affine layers, unit layer
+    norms, both heads scaled by 0.01 with zero bias."""
+    m = PolicyTransformer(n_tokens, token_dim, global_dim, action_dim,
+                          d_model, nhead, ff_dim, nlayers)
+    affine = [m.embed] + [lp[k] for lp in m.layers
+                          for k in ("wqkv", "wo", "ff1", "ff2")]
+    for p in affine + [m.head_tok, m.head_glob]:
+        lim = 1.0 / np.sqrt(p["w"].shape[0])
+        p["w"].copy_(_uniform(p["w"].shape, lim, generator))
+        p["b"].copy_(_uniform(p["b"].shape, lim, generator))
+    for p in (m.head_tok, m.head_glob):
+        p["w"].mul_(0.01)
+        p["b"].zero_()
+    return m.to(device).eval()
+
+
 def make_policy(cfg, state_dim, action_dim, generator: torch.Generator,
-                device="cuda") -> nn.Module:
+                device="cuda", n_tokens: int | None = None,
+                token_dim: int | None = None) -> nn.Module:
     """The policy of `cfg.actor_type` (uhc_tpu.learn.nets make_policy):
-    "mcp" or "gauss"."""
+    "mcp", "transformer" (which needs the token layout: n_tokens rows of
+    token_dim after a global block) or else the Gaussian."""
+    if cfg.actor_type == "transformer":
+        if n_tokens is None or token_dim is None:
+            raise ValueError("actor_type=transformer needs n_tokens and "
+                             "token_dim (per-body observation rows)")
+        return policy_transformer_init(
+            n_tokens, token_dim, state_dim - n_tokens * token_dim,
+            action_dim, generator, device=device)
     if cfg.actor_type == "mcp":
         return policy_mcp_init(state_dim, action_dim, cfg.policy_hsize,
                                cfg.composer_dim, cfg.num_primitive,
                                generator, cfg.policy_htype, device)
-    if cfg.actor_type == "gauss":
-        return policy_gaussian_init(state_dim, action_dim, cfg.policy_hsize,
-                                    generator, cfg.policy_htype, device)
-    raise NotImplementedError(f"actor_type {cfg.actor_type!r} is not "
-                              "ported yet")
+    return policy_gaussian_init(state_dim, action_dim, cfg.policy_hsize,
+                                generator, cfg.policy_htype, device)

@@ -1,5 +1,5 @@
 """PPO update: clipped surrogate + value regression (PyTorch twin of
-uhc_tpu.learn.ppo, fixed-std branch).
+uhc_tpu.learn.ppo).
 
 Reference semantics (uhc/khrylib/rl/agents/agent_ppo.py:16 update_policy):
   * log-probs snapshotted before optimization,
@@ -9,9 +9,12 @@ Reference semantics (uhc/khrylib/rl/agents/agent_ppo.py:16 update_policy):
   * the policy loss sums over rows with exps = 1 and divides by
     max(Σexps, 1),
   * the policy gradient is scaled by min(1, clip / (‖g‖ + 1e-8)),
-  * separate Adam optimizers for policy and value.
+  * separate Adam optimizers for policy and value,
+  * with a trainable exploration std (fix_std=False) its log-std is a
+    policy parameter with its own Adam, and the clip takes one global
+    norm over the policy's gradient and the log-std's together.
 
-The networks and optimizers are updated in place.
+The networks, the log-std and the optimizers are updated in place.
 """
 from __future__ import annotations
 
@@ -45,10 +48,11 @@ def minibatches(N: int, minibatch_size: int, perm):
 def ppo_update(policy, value, policy_opt, value_opt, log_std, batch,
                generator: torch.Generator, clip_epsilon: float,
                num_epochs: int, minibatch_size: int,
-               policy_grad_clip: float = 40.0) -> dict:
+               policy_grad_clip: float = 40.0, log_std_opt=None) -> dict:
     """One PPO optimization over `batch` {states, actions, advantages,
     returns, exps}; returns the value loss before and after and the policy
-    loss after, on the whole batch."""
+    loss after, on the whole batch. With `log_std_opt` (an optimizer over
+    `log_std`, a leaf that requires grad) the log-std trains too."""
     s, a = batch["states"], batch["actions"]
     adv, ret, exps = batch["advantages"], batch["returns"], batch["exps"]
     N = s.shape[0]
@@ -56,6 +60,7 @@ def ppo_update(policy, value, policy_opt, value_opt, log_std, batch,
         flp = gaussian_log_prob(policy(s), log_std, a)
         v_before = value_loss(value, s, ret)
     pparams = list(policy.parameters())
+    clipped = pparams + ([log_std] if log_std_opt is not None else [])
     for _ in range(num_epochs):
         perm = torch.randperm(N, generator=generator,
                               device=generator.device).to(s.device)
@@ -64,17 +69,21 @@ def ppo_update(policy, value, policy_opt, value_opt, log_std, batch,
             value_loss(value, s[idx], ret[idx]).backward()
             value_opt.step()
             policy_opt.zero_grad(set_to_none=True)
+            if log_std_opt is not None:
+                log_std_opt.zero_grad(set_to_none=True)
             policy_loss(policy, log_std, s[idx], a[idx], adv[idx], flp[idx],
                         exps[idx], clip_epsilon).backward()
             if policy_grad_clip is not None:
                 with torch.no_grad():
                     gnorm = torch.sqrt(sum((p.grad ** 2).sum()
-                                           for p in pparams))
+                                           for p in clipped))
                     scale = torch.clamp(policy_grad_clip / (gnorm + 1e-8),
                                         max=1.0)
-                    for p in pparams:
+                    for p in clipped:
                         p.grad.mul_(scale)
             policy_opt.step()
+            if log_std_opt is not None:
+                log_std_opt.step()
     with torch.no_grad():
         return {"value_loss_before": v_before,
                 "value_loss": value_loss(value, s, ret),

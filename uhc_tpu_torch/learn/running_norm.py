@@ -28,6 +28,15 @@ def from_numpy(d, device="cuda") -> RunningStats:
     return RunningStats(t(d["n"]), t(d["mean"]), t(d["m2"]))
 
 
+def stack(stats) -> RunningStats:
+    """Per-sequence statistics: a list of S RunningStats -> one whose row
+    s normalizes row s of an (S, D) batch (n as (S, 1), mean and m2 as
+    (S, D))."""
+    return RunningStats(torch.stack([r.n.reshape(1) for r in stats]),
+                        torch.stack([r.mean for r in stats]),
+                        torch.stack([r.m2 for r in stats]))
+
+
 def update_batch(rs: RunningStats, x: torch.Tensor,
                  mask=None) -> RunningStats:
     """Merge a (B, D) batch (optionally row-masked) into the stats."""

@@ -144,8 +144,25 @@ def heading_angle(q: torch.Tensor) -> torch.Tensor:
                              torch.where(safe, w, 1.0))
 
 
+def heading_angle_new(q: torch.Tensor) -> torch.Tensor:
+    """Yaw via atan2, in (-π, π] (the obs v5 / v6 heading)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.atan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
+
+
+def heading_quat_new(q: torch.Tensor) -> torch.Tensor:
+    """The rotation about +z by `heading_angle_new`."""
+    half = 0.5 * heading_angle_new(q)
+    zeros = torch.zeros_like(half)
+    return torch.stack([torch.cos(half), zeros, zeros, torch.sin(half)], -1)
+
+
 def de_heading(q: torch.Tensor) -> torch.Tensor:
     return quat_mul(quat_inv(heading_quat(q)), q)
+
+
+def de_heading_new(q: torch.Tensor) -> torch.Tensor:
+    return quat_mul(quat_inv(heading_quat_new(q)), q)
 
 
 def wrap_to_pi(x: torch.Tensor) -> torch.Tensor:
@@ -155,11 +172,14 @@ def wrap_to_pi(x: torch.Tensor) -> torch.Tensor:
 
 def transform_vec(v: torch.Tensor, q: torch.Tensor,
                   trans: str = "root") -> torch.Tensor:
-    """Express world vector v in the frame of q ("root") or its heading."""
+    """Express world vector v in the frame of q ("root"), its heading
+    ("heading") or its atan2 heading ("heading_new")."""
     if trans == "root":
         fq = q
     elif trans == "heading":
         fq = heading_quat(q)
+    elif trans == "heading_new":
+        fq = heading_quat_new(q)
     else:
         raise ValueError(f"unknown trans {trans!r}")
     return quat_rotate_inv(fq, v)
