@@ -40,9 +40,16 @@ trainable log-std (fix_std=False) and one TRPO update on its batch, the
 obs families v0, v3, v4, v5 and v6 with the rewards
 world_rfc_implicit_v1_mul, _v2, local_rfc_implicit, world_rfc_implicit_v3
 and local_rfc_explicit (through K1, K1f under the explicit config), and
-the transformer actor on obs v4's tokens -- checks their output, and
-times the kernels at B=2048 (and the big trees' at B=512). Whatever the
-phases write goes to temporary directories.
+the transformer actor on obs v4's tokens, the models built from SMPL-H
+and SMPL-X model data (seeded 52- and 55-joint files: `cli/train
+--robot-model smplh --smpl-data` through K1d, the SMPL-X rollout through
+K2-55, each kernel held against its plain versions on that model), K1e
+over an exact-mass shaped library (hull mass properties per body, the
+library's eval of the 8 shape clips), and the ball-joint family (`--cfg
+ball`: training and the six-clip eval on the torque route, which runs no
+kernel, and its step held against its plain versions) -- checks their
+output, and times the kernels at B=2048 (and the big trees' at B=512).
+Whatever the phases write goes to temporary directories.
 
 Usage: python3 chip_smoke.py [--parent SRC] (needs one CUDA card).
 With --parent, SRC is another version of
@@ -420,10 +427,11 @@ def plain_pair(topo, env_cfg, model, ins, pcg_iters, refresh_at=None,
                 refresh_at=refresh_at, precond_bf16=precond_bf16))
 
 
-def big_tree(family: str, dev, meta_pd: bool = False):
+def big_tree(family: str, dev, meta_pd: bool = False, smpl_data=None):
     """uhc_implicit on a big tree built from the stand-in: "smplh" (52
-    bodies) or "masterfoot" (48) -> (topo, env cfg, model, expert library
-    of the gait clips on that tree)."""
+    bodies; its bone offsets from `smpl_data`, a 52-joint model file,
+    where given) or "masterfoot" (48) -> (topo, env cfg, model, expert
+    library of the gait clips on that tree)."""
     import dataclasses
 
     from uhc_tpu_torch.config.config import Config
@@ -436,7 +444,8 @@ def big_tree(family: str, dev, meta_pd: bool = False):
     env = on_tree(dataclasses.replace(Config.uhc_implicit().env,
                                       meta_pd=meta_pd), family)
     topo24, model24 = load_fixture_humanoid()
-    topo, model_np, conv, _, _ = robot_family(topo24, model24, env)
+    topo, model_np, conv, _, _ = robot_family(topo24, model24, env,
+                                              smpl_data)
     model = model_from_numpy(model_np, dev)
     lib, _ = build_expert_library(
         topo, model, load_motion_file("sample_data/gait_clips.pkl"),
@@ -746,13 +755,18 @@ def time_split(k1d_ms, k1d_11_ms, head_ms, tail_ms, substeps) -> dict:
 def big_rows(fam, src, k2_src, train_counts, k1d_err, head_err,
              timing) -> list:
     """The kernels-line rows of K1d and of K2's head and tail on one big
-    tree: launches from its training phases, times at B_BIG_TIME[0]."""
+    tree: launches from its training phases (SMPL-H's smplh_data too),
+    times at B_BIG_TIME[0]."""
     t = timing[f"B{B_BIG_TIME[0]}"]
     split = train_counts[f"train_{fam}_split"]
     return [
         {"name": f"control_step_big_{fam}", "route": "cuda", "source": src,
          "replaces": "uhc_tpu/physics/pallas_lane.py:83",
-         "launches": train_counts[f"train_{fam}"][f"k1d_{fam}"],
+         # SMPL-H's training on the anthropometric and on the data-built
+         # model
+         "launches": sum(train_counts[run][f"k1d_{fam}"]
+                         for run in (f"train_{fam}", f"{fam}_data")
+                         if run in train_counts),
          "max_abs_err": k1d_err, "ms": t["k1d_ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound"]["k1d"]["bound_ms"],
          "bound_by": t["bound"]["k1d"]["bound_by"], "library_ms": None},
@@ -1024,10 +1038,12 @@ def smplx_pose(pose_aa):
     return out
 
 
-def smplx_tree(dev, meta_pd: bool = False):
+def smplx_tree(dev, meta_pd: bool = False, data=None):
     """uhc_implicit on the 55-body SMPL-X tree built from the stand-in
-    (`smplx_model`'s anthropometric defaults) -> (topo, env cfg, model,
-    expert library of the six gait clips as 165-dof poses)."""
+    (`smplx_model`'s anthropometric defaults, or every bone offset from
+    `data`, a 55-joint model file, through `smplx_model_from_data`) ->
+    (topo, env cfg, model, expert library of the six gait clips as
+    165-dof poses)."""
     import dataclasses
 
     from uhc_tpu_torch.config.config import Config
@@ -1035,11 +1051,16 @@ def smplx_tree(dev, meta_pd: bool = False):
                                             load_motion_file)
     from uhc_tpu_torch.physics.model import model_from_numpy
     from uhc_tpu_torch.smpl.fixture_humanoid import load_fixture_humanoid
-    from uhc_tpu_torch.smpl.smplh import smplx_model, smplx_topology
+    from uhc_tpu_torch.smpl.lbs import load_smplh_data
+    from uhc_tpu_torch.smpl.smplh import (smplx_model,
+                                          smplx_model_from_data,
+                                          smplx_topology)
 
     topo24, model24 = load_fixture_humanoid()
     topo = smplx_topology()
-    model = model_from_numpy(smplx_model(topo24, model24), dev)
+    model = model_from_numpy(
+        smplx_model(topo24, model24) if data is None else
+        smplx_model_from_data(topo24, model24, load_smplh_data(data)), dev)
     seqs = {k: {"pose_aa": smplx_pose(v["pose_aa"]), "trans": v["trans"]}
             for k, v in load_motion_file(
                 "sample_data/gait_clips.pkl").items()}
@@ -1048,18 +1069,19 @@ def smplx_tree(dev, meta_pd: bool = False):
     return topo, env, model, lib
 
 
-def smplx_draws(dev):
-    """The draws of phase k2_smplx: (mode, topo, env cfg, model, (qpos,
-    qvel, actions, target_base)) in plain PD and meta-PD, B_CHECK envs
-    each from the SMPL-X library, made on the host from one seeded
-    generator and moved to `dev`."""
+def smplx_draws(dev, data=None, seed=20):
+    """The draws of phase k2_smplx (smplx_data with `data`, the tree of
+    that model file): (mode, topo, env cfg, model, (qpos, qvel, actions,
+    target_base)) in plain PD and meta-PD, B_CHECK envs each from the
+    SMPL-X library, made on the host from one seeded generator and moved
+    to `dev`."""
     import torch
 
     from uhc_tpu_torch.physics import solver
 
-    gen = torch.Generator().manual_seed(20)
+    gen = torch.Generator().manual_seed(seed)
     for mode in ("plain_pd", "meta_pd"):
-        topo, env, model, lib = smplx_tree(dev, mode == "meta_pd")
+        topo, env, model, lib = smplx_tree(dev, mode == "meta_pd", data)
         qpos, qvel, tb = draw_big_states(lib, topo.nv, B_CHECK, gen, dev)
         n_act = sum(solver.action_dims(topo, env))
         act = (0.02 * torch.randn((B_CHECK, n_act), generator=gen)).to(dev)
@@ -1354,9 +1376,10 @@ def k2b_check(tree, topo, env_cfg, model, ins) -> tuple:
     return e, f + fh
 
 
-def rollout_smplx(dev) -> dict:
-    """The env's main path on SMPL-X: `make_env_step_batched(smplx_topology(),
-    cfg, fused_model=model)` through learn/rollout.py, SMPLX_ROLLOUT envs
+def rollout_smplx(dev, data=None) -> dict:
+    """The env's main path on SMPL-X (the tree of the model file `data`
+    where given): `make_env_step_batched(smplx_topology(), cfg,
+    fused_model=model)` through learn/rollout.py, SMPLX_ROLLOUT envs
     × steps with a seeded MCP policy at SMPL-X's obs and action widths and
     unit diff weights (the JAX package has none for SMPL-X): one K2-55
     head and tail launch per step and no call of the plain chain, finite
@@ -1370,7 +1393,7 @@ def rollout_smplx(dev) -> dict:
     from uhc_tpu_torch.physics import solver
     from uhc_tpu_torch.physics.control_step_split import ControlStepSplit
 
-    topo, env, model, lib = smplx_tree(dev)
+    topo, env, model, lib = smplx_tree(dev, data=data)
     B, T = SMPLX_ROLLOUT
     cfg = Config.uhc_implicit()
     obs_dim, act_dim = H.obs_dim(topo, env), sum(H.action_dims(topo, env))
@@ -1422,14 +1445,16 @@ def rollout_smplx(dev) -> dict:
             "plain_chain_calls": 0}
 
 
-def smplx_rows(src, k2_src, rollout_x, k2x_errs, smplx_time) -> list:
+def smplx_rows(src, k2_src, rollouts, k2x_errs, smplx_time) -> list:
     """The kernels-line rows of K2's head and tail on SMPL-X: launches
-    from phase rollout_smplx, times at B_BIG_TIME[0]."""
+    from the rollouts of phases rollout_smplx and smplx_data, times at
+    B_BIG_TIME[0]."""
     t = smplx_time[f"B{B_BIG_TIME[0]}"]
     return [
         {"name": f"control_step_{part}_smplx", "route": "cuda",
          "source": src, "replaces": k2_src,
-         "launches": rollout_x["launches"][f"k2_{part}_smplx"],
+         "launches": sum(r["launches"][f"k2_{part}_smplx"]
+                         for r in rollouts),
          "max_abs_err": max(v for e in k2x_errs.values()
                             for v in (e["head"] if part == "head" else e)[
                                 "kernel_vs_plain64"]),
@@ -1481,6 +1506,246 @@ def k1e_check(topo, env_cfg, lib_model, ins, name):
     plain32 = CS.control_step_reference(topo, env_cfg, lib_model, qpos,
                                         qvel, act, tb, 1.0, (1, 2), seq)
     return gate(f"K1e {name}", out, plain32, plain64)
+
+
+# the ball phase: its torque step timed at the training batch; its eval
+# cut to the clips' first frames (the eager torque route takes ~0.33 s a
+# control step at 6 envs on the card, 80 s for the full 239)
+B_BALL_TIME, BALL_EVAL_FRAMES = 1024, 120
+
+
+def model_data_file(directory, nj: int) -> str:
+    """A seeded nj-joint model file (`synthetic_smpl_data(nj=nj)`, whose
+    random regressor gives a skeleton of centimetre bones) in the layout
+    of the SMPL-H / SMPL-X releases, written to `directory`."""
+    import numpy as np
+
+    from uhc_tpu_torch.smpl.lbs import synthetic_smpl_data
+
+    sd = synthetic_smpl_data(nj=nj)
+    path = os.path.join(directory, f"model{nj}.npz")
+    np.savez(path, v_template=sd.v_template.numpy(),
+             shapedirs=sd.shapedirs.numpy(),
+             J_regressor=sd.j_regressor.numpy(), weights=sd.weights.numpy())
+    return path
+
+
+def smplh_data_phase(dev, directory) -> tuple:
+    """SMPL-H from model data: cli/train --robot-model smplh --smpl-data
+    on a seeded 52-joint file, 1 epoch of 512 × 32 through K1d on the
+    model built from it, then K1d on that model (plain PD, (2, 2),
+    B_CHECK draws of its clip frames) against its float32 and float64
+    plain versions by `gate_big` -> (the training's launches, errors,
+    failures)."""
+    import numpy as np
+    import torch
+
+    from uhc_tpu_torch.physics import control_step as CS
+    from uhc_tpu_torch.physics import solver
+
+    path = model_data_file(directory, 52)
+    got = run_train(None, 1, "smplh_data", dev, SMPLH_TRAIN_ARGS + [
+        "--smpl-data", path, "--no-train-eval"], routed=("k1d_smplh",))
+    topo, env, model, lib = big_tree("smplh", dev, smpl_data=path)
+    anthro = big_tree("smplh", dev)[2]
+    if np.allclose(model.body_pos.cpu().numpy(),
+                   anthro.body_pos.cpu().numpy()):
+        raise RuntimeError("smplh_data: the model has the anthropometric "
+                           "offsets, not the data's")
+    gen = torch.Generator().manual_seed(23)
+    qpos, qvel, tb = draw_big_states(lib, topo.nv, B_CHECK, gen, dev)
+    act = (0.02 * torch.randn((B_CHECK, sum(solver.action_dims(topo, env))),
+                              generator=gen)).to(dev)
+    ins = (qpos, qvel, act, tb)
+    reset_counts()
+    out = CS.ControlStep(topo, env, model, (2, 2))(*ins, 1.0)
+    torch.cuda.synchronize()
+    if counts() != expect(1, "k1d_smplh") or not all(
+            bool(torch.isfinite(t).all()) for t in out):
+        raise RuntimeError(f"K1d smplh_data: launches {counts()} or output "
+                           "not finite")
+    plain32, plain64 = plain_pair(topo, env, model, ins, (2, 2))
+    errs, fails = gate_big(
+        "K1d smplh_data", out, plain32, plain64,
+        lambda e: [moved_steps(topo, env, model, ins, e, dt)
+                   for dt in (torch.float64, torch.float32)])
+    return got, errs, fails
+
+
+def dense_smpl_data(topo, model, per_body: int = 16, seed: int = 25):
+    """SMPL data whose bodies have hulls, for the exact-mass library:
+    `synthetic_smpl_data_like`'s skeleton and bone modes, each body's
+    vertices `per_body` seeded points on an ellipsoid (axes 1.5 : 1 : 0.6,
+    seeded orientation) about its joint, centred on it so the regressor
+    stays exact, sized so the solid ellipsoid would weigh the body's mass
+    at 1000 kg/m³; beta modes move a body's points with its joint and
+    scale them about it (±0.15 per unit beta)."""
+    import numpy as np
+    import torch
+
+    from uhc_tpu_torch.smpl.constants import SMPL_2_MUJOCO
+    from uhc_tpu_torch.smpl.lbs import SMPLData, synthetic_smpl_data_like
+
+    like = synthetic_smpl_data_like(topo, model)
+    nj = topo.nbody
+    joints = (like.j_regressor @ like.v_template).numpy()    # native order
+    nb = like.shapedirs.shape[-1]
+    bone = like.shapedirs.numpy().reshape(nj, 4, 3, nb).mean(1)
+    mass = np.zeros(nj)
+    mass[SMPL_2_MUJOCO] = model.body_mass.cpu().numpy()
+    rng = np.random.default_rng(seed)
+    axes = np.array([1.5, 1.0, 0.6])
+    v, sd = [], []
+    for k in range(nj):
+        r = np.cbrt(3.0 * mass[k] / (4.0 * np.pi * 1000.0 * axes.prod()))
+        u = rng.standard_normal((per_body, 3))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        rot = np.linalg.qr(rng.standard_normal((3, 3)))[0]
+        off = (u * axes * r) @ rot.T
+        off -= off.mean(0)
+        spread = rng.normal(scale=0.15, size=nb)
+        v.append(joints[k] + off)
+        sd.append(bone[k][None] + off[:, :, None] * spread[None, None])
+    jr = np.kron(np.eye(nj), np.full((1, per_body), 1.0 / per_body))
+    w = np.kron(np.eye(nj), np.ones((per_body, 1)))
+    return SMPLData(*(torch.as_tensor(x, dtype=torch.float32) for x in (
+        np.concatenate(v), np.concatenate(sd), jr, w)))
+
+
+def exact_shape_phase(topo, model, dev) -> tuple:
+    """The 8 shape clips, each on its own body with exact hull mass
+    properties (`build_shaped_library(exact_mass=True)` over
+    `dense_smpl_data`): the library's per-shape leaves include the four
+    the hulls set (mass, COM, moments, principal frame), all among the
+    leaves K1e gathers; K1e vs its plain versions by `gate` (B_CHECK,
+    uhc_implicit_shape's meta-PD); then the closed-loop eval of the 8
+    clips, full length, through K1e with a seeded policy -> (the eval's
+    launches, numbers, failures)."""
+    import numpy as np
+    import torch
+
+    from uhc_tpu_torch.config.config import Config
+    from uhc_tpu_torch.data.dataset import (build_shaped_library,
+                                            load_motion_file,
+                                            neutral_from_library)
+    from uhc_tpu_torch.envs import humanoid_im as H
+    from uhc_tpu_torch.learn import nets, running_norm as RN
+    from uhc_tpu_torch.learn.evaluate import make_eval_fn, summarize
+    from uhc_tpu_torch.physics.control_step import PE_MODEL_LEAVES
+    from uhc_tpu_torch.physics.model import model_batch_axes
+    from uhc_tpu_torch.smpl.constants import default_diff_weights
+
+    cfg = Config.uhc_implicit_shape()
+    lib, keys, ml = build_shaped_library(
+        topo, model, load_motion_file(SHAPE_CLIPS),
+        dense_smpl_data(topo, model), cfg.env, exact_mass=True)
+    leaves = {k for k, a in model_batch_axes(ml).items() if a == 0}
+    hull = {"body_mass", "body_ipos", "body_inertia", "body_iquat"}
+    if not hull <= leaves <= set(PE_MODEL_LEAVES):
+        raise RuntimeError(f"exact_shape: library leaves {sorted(leaves)}")
+    gen = torch.Generator().manual_seed(24)
+    qpos, qvel, tb, seq = draw_lib_states(lib, B_CHECK, gen, dev)
+    act_dim = sum(H.action_dims(topo, cfg.env))
+    act = (0.02 * torch.randn((B_CHECK, act_dim), generator=gen)).to(dev)
+    errs, fails = k1e_check(topo, cfg.env, ml, (qpos, qvel, act, tb, seq),
+                            "exact_shape")
+    obs_dim = H.obs_dim(topo, cfg.env)
+    policy = nets.make_policy(cfg, obs_dim, act_dim,
+                              torch.Generator().manual_seed(0), dev)
+    rs = RN.RunningStats(torch.tensor(2.0, device=dev),
+                         torch.zeros(obs_dim, device=dev),
+                         torch.ones(obs_dim, device=dev))
+    nq, nv = neutral_from_library(lib)
+    jpw, bdw = default_diff_weights()
+    aux = {"neutral_qpos": nq, "neutral_qvel": nv,
+           "jpos_diffw": torch.as_tensor(jpw, device=dev),
+           "body_diffw": torch.as_tensor(bdw, device=dev)}
+    steps = int(lib["len"].max()) - 1
+    eval_fn = make_eval_fn(topo, cfg.env, policy, steps, fused_model=ml)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj, fail_safe, percent = eval_fn(ml, lib, aux, rs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = counts()
+    if got != expect(steps, "k1e"):
+        raise RuntimeError(f"exact_shape eval: launches {got} for {steps} "
+                           "control steps")
+    summary = summarize(traj, fail_safe, percent, lib, keys)["summary"]
+    if not all(np.isfinite(v) for v in summary.values()):
+        raise RuntimeError(f"exact_shape eval summary: {summary}")
+    m = {k: getattr(ml, k).cpu().numpy() for k in sorted(hull)}
+    return got, {**errs, "library_leaves": sorted(leaves),
+                 "body_mass_kg": [float(m["body_mass"].sum(1).min()),
+                                  float(m["body_mass"].sum(1).max())],
+                 "eval_control_steps": steps,
+                 "eval_ms_per_step": 1e3 * secs / steps,
+                 "eval_summary": summary}, fails
+
+
+def ball_phase(topo, model_np, dev) -> tuple:
+    """The ball family on the card (`--cfg ball`: one quaternion per
+    joint, direct torques, obs v2_quat): cli/train, 2 epochs of 1024 × 48,
+    and the six-clip eval over the clips' first BALL_EVAL_FRAMES frames,
+    neither launching a kernel (the torque route, as in the JAX package);
+    its control step on the card in
+    float32 against the plain step in float32 on the host and in float64
+    on the card by `gate` (B_CHECK clip frames); the step timed at
+    B_BALL_TIME -> (numbers, failures)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from uhc_tpu_torch.cli.eval import run_eval
+    from uhc_tpu_torch.config.config import Config
+    from uhc_tpu_torch.data.dataset import (build_expert_library,
+                                            load_motion_file)
+    from uhc_tpu_torch.physics import solver
+    from uhc_tpu_torch.physics.model import model_from_numpy
+
+    run_train(None, 2, "train_ball", dev, ["--cfg", "ball"] + TRAIN_ARGS,
+              routed=())
+    reset_counts()
+    res = run_eval("sample_data/gait_clips.pkl", device=dev, seed=0,
+                   cfg="ball", max_seq_len=BALL_EVAL_FRAMES)
+    T = res["control_steps"]
+    pred = res["traj"]["pred_qpos"]
+    if counts() != expect(T) or tuple(pred.shape) != (6, T, 99) or not bool(
+            torch.isfinite(pred).all()) or not all(
+            np.isfinite(v) for v in res["summary"].values()):
+        raise RuntimeError(f"ball eval: launches {counts()}, trajectory "
+                           f"{tuple(pred.shape)}, summary {res['summary']}")
+    env = Config.named("ball").env
+    btopo = dataclasses.replace(topo, joint_kind="ball")
+    model = model_from_numpy(model_np, dev)
+    lib, _ = build_expert_library(btopo, model,
+                                  load_motion_file("sample_data/gait_clips"
+                                                   ".pkl"))
+    gen = torch.Generator().manual_seed(26)
+    draws = {}
+    for B in (B_CHECK, B_BALL_TIME):
+        qpos, qvel, tb = draw_big_states(lib, btopo.nv, B, gen, dev)
+        act = (0.02 * torch.randn((B, btopo.ndof), generator=gen)).to(dev)
+        draws[B] = (qpos, qvel, act, tb)
+    ins = draws[B_CHECK]
+    out = solver.do_simulation(btopo, env, model, *ins, 1.0)
+    plain32 = [t.to(dev) for t in solver.do_simulation(
+        btopo, env, model_from_numpy(model_np, "cpu"),
+        *[t.cpu() for t in ins], 1.0)]
+    plain64 = solver.do_simulation(btopo, env, double_model(model),
+                                   *[t.double() for t in ins], 1.0)
+    errs, fails = gate("ball torque step", out, plain32, plain64)
+    big = draws[B_BALL_TIME]
+    step_ms = cuda_ms(lambda: solver.do_simulation(btopo, env, model, *big,
+                                                   1.0), 3)
+    return {**errs, "step_ms": step_ms, "num_envs": B_BALL_TIME,
+            "substeps_per_s": B_BALL_TIME * env.frame_skip / (step_ms / 1e3),
+            "eval_control_steps": T, "eval_ms_per_step": res["ms_per_step"],
+            "eval_summary": res["summary"],
+            "train_rollout_env_steps_per_s": TRAIN_RATES["train_ball"][
+                "rollout_env_steps_per_s"]}, fails
 
 
 # the fit-and-eval protocol on the repository's uhc_implicit_dyn19 run:
@@ -2382,6 +2647,52 @@ def run(parent=None) -> int:
     rollout_x = rollout_smplx(dev)
     done("rollout_smplx", **rollout_x)
 
+    # this slice: model data and exact shapes on the kernels of earlier
+    # slices, and the ball family on its torque route
+    with tempfile.TemporaryDirectory() as data_dir:
+        phase("smplh_data", "(cli/train --robot-model smplh --smpl-data "
+                            "<seeded 52-joint npz>, 512 envs × 32 steps, 1 "
+                            "epoch through K1d on the data-built model; "
+                            f"K1d there vs its plain versions by gate_big, "
+                            f"B={B_CHECK})")
+        train_counts["smplh_data"], smplh_data_errs, fails = \
+            smplh_data_phase(dev, data_dir)
+        done("smplh_data", **smplh_data_errs, launches=train_counts[
+            "smplh_data"], qpos_tol=QPOS_TOL, qvel_tol=QVEL_TOL)
+        if fails:
+            raise RuntimeError("; ".join(fails))
+        phase("smplx_data", "(make_env_step_batched on smplx_model_from_data "
+                            "of a seeded 55-joint npz, "
+                            f"{SMPLX_ROLLOUT[0]} envs × {SMPLX_ROLLOUT[1]} "
+                            "steps through K2-55; K2-55 there vs its plain "
+                            f"versions, B={B_CHECK})")
+        data55 = model_data_file(data_dir, 55)
+        rollout_xd = rollout_smplx(dev, data=data55)
+        xd_errs, fails = k2_smplx_check(list(smplx_draws(dev, data55, 27)))
+        done("smplx_data", rollout=rollout_xd, **xd_errs, qpos_tol=QPOS_TOL,
+             qvel_tol=QVEL_TOL, x_rel_tol=X_REL_TOL)
+        if fails:
+            raise RuntimeError("; ".join(fails))
+    phase("exact_shape", "(uhc_implicit_shape over the 8 shape clips on an "
+                         "exact-mass library: K1e vs its plain versions by "
+                         f"gate, B={B_CHECK}; the eval of the 8 clips through "
+                         "K1e)")
+    exact_counts, exact_numbers, fails = exact_shape_phase(topo, model, dev)
+    done("exact_shape", **exact_numbers, launches=exact_counts,
+         qpos_tol=QPOS_TOL, qvel_tol=QVEL_TOL)
+    if fails:
+        raise RuntimeError("; ".join(fails))
+    phase("ball", "(--cfg ball: cli/train 1024 envs × 48 steps, 2 epochs, "
+                  f"and the six-clip eval over {BALL_EVAL_FRAMES} frames on "
+                  "the torque route, no kernel; "
+                  f"the card's step vs its plain versions by gate, "
+                  f"B={B_CHECK}; timed at B={B_BALL_TIME})")
+    ball_numbers, fails = ball_phase(topo, model_np, dev)
+    done("ball", **ball_numbers, qpos_tol=QPOS_TOL, qvel_tol=QVEL_TOL,
+         card=smi)
+    if fails:
+        raise RuntimeError("; ".join(fails))
+
     phase("kernel_bench", "(python -m uhc_tpu_torch.cli.kernel_bench, "
                           "B=2048, STEPS=20: " + " ".join(KERNEL_BENCH_ROWS)
           + ")")
@@ -3038,7 +3349,7 @@ def run(parent=None) -> int:
         {"name": "control_step_per_env", "route": "cuda", "source": src,
          "replaces": "uhc_tpu/physics/pallas_lane.py:176",
          "launches": (shape_counts["k1e"] + train_counts["train_shape"]["k1e"]
-                      + train_counts["train_dr"]["k1e"]),
+                      + train_counts["train_dr"]["k1e"] + exact_counts["k1e"]),
          "max_abs_err": k1e_err, "ms": k1e_ms, "plain_ms": plain_e_ms,
          "bound_ms": k1e_bound["bound_ms"], "bound_by": k1e_bound["bound_by"],
          "library_ms": None},
@@ -3099,7 +3410,10 @@ def run(parent=None) -> int:
          "ms": k1g_time["k1g_ms"], "plain_ms": k1g_time["plain_ms"],
          "bound_ms": k1g_time["bound"]["bound_ms"],
          "bound_by": k1g_time["bound"]["bound_by"], "library_ms": None}]
-        + smplx_rows(src, k2_src, rollout_x, k2x_errs, smplx_time)
+        + smplx_rows(src, k2_src, (rollout_x, rollout_xd),
+                     {**k2x_errs, **{f"data_{m}": e
+                                     for m, e in xd_errs.items()}},
+                     smplx_time)
         + k2b_rows(src, k2_src, bench_counts, k2b_errs, k2b_t)}),
         flush=True)
     print(smi, flush=True)

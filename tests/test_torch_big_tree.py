@@ -283,14 +283,19 @@ def test_masterfoot_agent_epoch_on_cpu(clips, tmp_path):
 
 @pytest.mark.parametrize("family,extra", [("smplh", {"dr_variants": 2}),
                                           ("masterfoot", {"dr_variants": 4}),
-                                          ("smplh", {"smpl_data": "x.pkl"})])
+                                          ("smplh", {"has_shape": True})])
 def test_agent_refuses_libraries_on_big_trees(tmp_path, family, extra):
     """As the JAX agent refuses dr_variants on these trees, the port
-    refuses model libraries and SMPL model data on them."""
+    refuses model libraries on them, a shaped one too (the shape library
+    is built for the 24-body tree). SMPL-H model data is taken
+    (tests/test_torch_smpl_data.py)."""
     from uhc_tpu_torch.config.config import Config
     from uhc_tpu_torch.learn.agent import CopycatAgent
 
-    cfg = dataclasses.replace(Config.uhc_implicit(), env=big_env_cfg(family))
+    extra = dict(extra)
+    env = dataclasses.replace(big_env_cfg(family),
+                              has_shape=extra.pop("has_shape", False))
+    cfg = dataclasses.replace(Config.uhc_implicit(), env=env)
     with pytest.raises(NotImplementedError):
         CopycatAgent(cfg, GAIT, num_envs=2, horizon=2, device="cpu",
                      results_dir=str(tmp_path), **extra)

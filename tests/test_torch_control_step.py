@@ -133,7 +133,7 @@ def test_pack_tables_layout(setup):
     assert I[-8:].tolist() == [1, 1, 1, 1, 1, 2, 15, -1]
     # levels cover every non-root body once
     assert sorted(I[48:71].tolist()) == list(range(1, 24))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="torque"):
         CS.pack_tables(topo, dataclasses.replace(cfg, action_type="torque"),
                        m)
 

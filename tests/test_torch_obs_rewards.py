@@ -134,15 +134,23 @@ def test_obs_v4_tokens_are_the_local_rows(setup):
 
 
 def test_ball_obs_still_refused(setup):
+    """The ball flag changes obs v2 alone (v2_quat, held against JAX in
+    tests/test_torch_ball.py): under obs v1 it dispatches as the JAX
+    get_obs does, to obs v1, and the widths agree with JAX's obs_dim."""
+    from uhc_tpu.envs import humanoid_im as JH
     from uhc_tpu_torch.envs import humanoid_im as H
 
     _, _, _, tt, m, lib = setup
     cfg = dataclasses.replace(env_cfgs()["plain_pd"], robot_ball=True)
     _, port = _states(setup, 0)
-    with pytest.raises(NotImplementedError, match="v2_quat"):
-        H.get_obs(tt, m, cfg, port, lib)
-    with pytest.raises(NotImplementedError, match="v2_quat"):
-        H.obs_dim(tt, cfg)
+    plain = dataclasses.replace(cfg, robot_ball=False)
+    assert torch.equal(H.get_obs(tt, m, cfg, port, lib),
+                       H.get_obs(tt, m, plain, port, lib))
+    ball = dataclasses.replace(tt, joint_kind="ball")
+    for v in (1, 2):
+        c = dataclasses.replace(cfg, obs_v=v)
+        assert H.obs_dim(ball, c) == JH.obs_dim(ball, jax_cfg(c))
+    assert H.obs_dim(ball, dataclasses.replace(cfg, obs_v=2)) == 517
 
 
 def _reward_cfgs():

@@ -74,7 +74,7 @@ def run_eval(motion: str, checkpoint: str | None = None, device=None,
     if not isinstance(cfg, Config):
         cfg = Config.named(cfg)
     topo, model_np, converter, jpw, bdw = robot_family(
-        *load_fixture_humanoid(), cfg.env)
+        *load_fixture_humanoid(), cfg.env, smpl_data)
     model = model_from_numpy(model_np, dev)
     lib, keys, sim_model, smpl_data = build_library(
         topo, model, cfg.env, load_motion_file(motion), smpl_data,

@@ -7,8 +7,9 @@ experiment. `Config.uhc_implicit()` and `Config.uhc_implicit_shape()`
 build the release configs without YAML; `Config.preset(name)` looks them
 up by name, and `Config.named(name)`, the CLIs' --cfg, takes a preset or
 `<name>.yml` from config/ or this package's directory, which holds the
-explicit-RFC (`explicit.yml`, `EXPLICIT`) and per-joint meta-PD
-(`meta_joint.yml`, `META_JOINT`) variants of uhc_implicit.
+explicit-RFC (`explicit.yml`, `EXPLICIT`), per-joint meta-PD
+(`meta_joint.yml`, `META_JOINT`) and ball-joint (`ball.yml`, `BALL`)
+variants of uhc_implicit.
 """
 from __future__ import annotations
 
@@ -414,3 +415,14 @@ EXPLICIT = {
 # in place of plain PD. `meta_joint.yml` beside this file holds the same
 # dict.
 META_JOINT = {**UHC_IMPLICIT, "meta_pd": False, "meta_pd_joint": True}
+
+# uhc_implicit as the ball-joint family (the reference's robot.ball: one
+# quaternion per joint, uhc/khrylib/mocap/skeleton_mesh_v2.py:258), with
+# exactly the fields tests/test_ball.py:33-35 sets: direct torque control,
+# no residual force, no meta-PD, obs v2 (v2_quat, 517 wide; A = 69).
+# `ball.yml` beside this file holds the same dict. The release
+# copycat_ball_1.yml is not in the repository (it sets has_shape: true,
+# tests/test_ball.py:147-148; its other fields are unknown), so this is
+# not its exact preset.
+BALL = {**UHC_IMPLICIT, "action_type": "torque", "residual_force": False,
+        "meta_pd": False, "robot": {"ball": True}, "obs_v": 2}

@@ -20,7 +20,7 @@ from uhc_tpu_torch.data import joblib_compat
 from uhc_tpu_torch.envs.expert import qpos_fk
 from uhc_tpu_torch.physics.model import (Model, Topology, model_from_numpy,
                                          model_to_numpy)
-from uhc_tpu_torch.smpl.convert import smpl_to_qpose
+from uhc_tpu_torch.smpl.convert import smpl_to_qpose, smpl_to_qpose_ball
 
 EXPERT_KEYS = ["qpos", "qvel", "wbpos", "wbquat", "bquat", "body_com",
                "rlinv", "rlinv_local", "rangv", "bangvel", "ee_wpos",
@@ -100,7 +100,8 @@ def _pose_to_qpose(topo: Topology, model: Model, pose_aa, trans, device):
     SMPL-H tree takes all 156 dofs, a 72-dof SMPL clip on it gets flat
     hands (its two hand-root joints dropped, the finger chains zero); the
     55-body SMPL-X tree takes 165-dof poses only; the 24-body tree takes
-    72 dofs (a SMPL-H pose loses its hands)."""
+    72 dofs (a SMPL-H pose loses its hands), as euler joints or, on a
+    ball-joint tree, as one quaternion per joint."""
     root_offset = model.body_pos[0].cpu().numpy()
     if topo.nbody == 52:
         from uhc_tpu_torch.smpl.smplh import smplh_to_qpose
@@ -116,6 +117,9 @@ def _pose_to_qpose(topo: Topology, model: Model, pose_aa, trans, device):
         if pose_aa.shape[-1] != 165:
             raise ValueError("55-body topology needs 165-dof SMPL-X poses")
         return smplx_to_qpose(pose_aa, root_offset, trans, device=device)
+    if topo.joint_kind == "ball":
+        return smpl_to_qpose_ball(_body_dofs(pose_aa), root_offset, trans,
+                                  device=device)
     return smpl_to_qpose(_body_dofs(pose_aa), root_offset, trans,
                          device=device)
 
@@ -168,20 +172,24 @@ def stack_models(models, device) -> Model:
 def build_shaped_library(topo: Topology, base_model: Model, seqs,
                          smpl_data, cfg, fps: float = 30.0,
                          max_len: Optional[int] = None,
+                         exact_mass: bool = False,
                          rel_joint_lm: bool = True):
     """Shape-conditioned expert library (reference humanoid_im.py:154-180
     reset_robot): every sequence gets its own `Model` from its SMPL betas
-    (`smpl.robot.model_from_betas`, with the anatomical joint ranges of
-    `rel_joint_ranges` under rel_joint_lm), its expert features come from
-    that model's FK, and its shape observation ([beta(16) if has_pca] +
-    [gender] + [weight if has_weight] + [bone lengths if has_bone_length])
-    is lib["shape_obs"].
+    (`smpl.robot.model_from_betas`, or with exact_mass
+    `model_from_betas_exact`'s hull mass properties; with the anatomical
+    joint ranges of `rel_joint_ranges` under rel_joint_lm), its expert
+    features come from that model's FK, and its shape observation
+    ([beta(16) if has_pca] + [gender] + [weight if has_weight] + [bone
+    lengths if has_bone_length]) is lib["shape_obs"].
 
     `smpl_data` is one SMPLData for every gender, or a dict of them by
     "neutral" / "male" / "female" (a missing gender maps to neutral).
     Returns (lib, keys, model_lib), all on base_model's device."""
     from uhc_tpu_torch.smpl.lbs import SMPLData, vertex_body_assignment
-    from uhc_tpu_torch.smpl.robot import model_from_betas, rel_joint_ranges
+    from uhc_tpu_torch.smpl.robot import (model_from_betas,
+                                         model_from_betas_exact,
+                                         rel_joint_ranges)
 
     dev = base_model.body_pos.device
     if isinstance(smpl_data, SMPLData):
@@ -199,11 +207,16 @@ def build_shaped_library(topo: Topology, base_model: Model, seqs,
         beta16, gender = seq_beta_gender(seqs[k], 16)
         sd = by_gender.get(gender, by_gender[0.0])
         n_b = int(sd.shapedirs.shape[-1])
-        model_s = model_from_betas(topo, base_model, sd, beta16[:n_b],
-                                   assign[id(sd)])
-        if rel_joint_lm:
-            model_s = dataclasses.replace(
-                model_s, jnt_range=rel_joint_ranges(topo, model_s))
+        if exact_mass:
+            model_s = model_from_betas_exact(topo, base_model, sd,
+                                             beta16[:n_b], assign[id(sd)],
+                                             rel_joint_lm=rel_joint_lm)
+        else:
+            model_s = model_from_betas(topo, base_model, sd, beta16[:n_b],
+                                       assign[id(sd)])
+            if rel_joint_lm:
+                model_s = dataclasses.replace(
+                    model_s, jnt_range=rel_joint_ranges(topo, model_s))
         model_s = model_from_numpy(model_to_numpy(model_s), dev)
         feats.append(_featurize(topo, model_s, seqs[k], fps, max_len))
         models.append(model_s)

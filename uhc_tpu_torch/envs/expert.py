@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 
 from uhc_tpu_torch.maths import (angvel_fd, quat_from_euler_zyx, qvel_fd,
-                                 transform_vec)
+                                 qvel_fd_ball, transform_vec)
 from uhc_tpu_torch.physics import engine as E
 from uhc_tpu_torch.physics.model import Model, Topology
 from uhc_tpu_torch.smpl.constants import ee_indices, head_index
@@ -13,15 +13,19 @@ from uhc_tpu_torch.smpl.constants import ee_indices, head_index
 
 def qpos_fk(topo: Topology, model: Model, qpos_seq: torch.Tensor,
             fps: float = 30.0) -> dict:
-    """(T, nq) -> expert feature dict of (T, ...) tensors."""
+    """(T, nq) -> expert feature dict of (T, ...) tensors; a ball-joint
+    tree's qpos holds its joint quaternions (qvel from `qvel_fd_ball`)."""
     T = qpos_seq.shape[0]
     dt = 1.0 / fps
     kin = E.fk(topo, model, qpos_seq)
     wbpos, wbquat, body_com = kin["xpos"], kin["xquat"], kin["xipos"]
-    joint_quats = quat_from_euler_zyx(qpos_seq[:, 7:].reshape(T, -1, 3))
+    ball = topo.joint_kind == "ball"
+    joint_quats = (qpos_seq[:, 7:].reshape(T, -1, 4) if ball else
+                   quat_from_euler_zyx(qpos_seq[:, 7:].reshape(T, -1, 3)))
     bquat = torch.cat([qpos_seq[:, None, 3:7], joint_quats], 1)
     if T > 1:
-        qvel = qvel_fd(qpos_seq[:-1], qpos_seq[1:], dt)
+        qvel = (qvel_fd_ball if ball else qvel_fd)(qpos_seq[:-1],
+                                                   qpos_seq[1:], dt)
         qvel = torch.cat([qvel[0:1], qvel], 0)
         bang = angvel_fd(bquat[:-1].reshape(T - 1, -1),
                          bquat[1:].reshape(T - 1, -1), dt)

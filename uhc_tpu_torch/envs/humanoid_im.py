@@ -17,10 +17,11 @@ domain-randomized training, `data.dataset.build_shaped_library` /
 on its own sequence's model, gathered by its seq_idx (`env_models`), and
 the kernels take the library with seq_idx (K1e).
 
-Ported: obs v0 to v6 (v1, v2, v4 to v6 with the shape observation; not
-the ball family's v2_quat), every reward family of
+Ported: obs v0 to v6 (v1, v2, v4 to v6 with the shape observation) and
+the ball family's v2_quat, every reward family of
 `rewards.reward_function`, implicit and explicit RFC, plain, meta-PD and
-per-joint meta-PD, body-diff termination.
+per-joint meta-PD, direct torque control (action_type "torque", the ball
+family's; no kernel, as in the JAX package), body-diff termination.
 """
 from __future__ import annotations
 
@@ -103,10 +104,14 @@ def do_simulation(topo: Topology, model: Model, cfg: EnvConfig, qpos, qvel,
                   action, target_base, rfc_rate):
     """One control step with an exact factorization at every substep (the
     reference path; `make_env_step_batched` uses the PCG chain). `model`
-    is shared or per env."""
+    is shared or per env. Torque control is `solver.torque_substeps`,
+    exact on either path."""
     from uhc_tpu_torch.physics import linalg as LA
 
     S.check_supported(cfg)
+    if cfg.action_type == "torque":
+        return S.torque_substeps(topo, cfg, model, qpos, qvel, action,
+                                 rfc_rate)
     model = model_per_env(model, qpos.shape[0])
     ndof, vf_dim, _ = S.action_dims(topo, cfg)
     kp_scale, kd_scale = S.gain_scales(cfg, action, ndof, vf_dim)
@@ -139,8 +144,12 @@ def do_simulation(topo: Topology, model: Model, cfg: EnvConfig, qpos, qvel,
 
 
 def get_body_quat(qpos: torch.Tensor) -> torch.Tensor:
-    """Root quat + per-joint local quats, flat (B, nb*4)."""
+    """Root quat + per-joint local quats, flat (B, nb*4). A ball-joint
+    qpos (7 + 4·nj wide, never 7 mod 3 on the trees ported) holds them
+    already."""
     B = qpos.shape[0]
+    if (qpos.shape[1] - 7) % 3:
+        return qpos[:, 3:]
     jq = quat_from_euler_zyx(qpos[:, 7:].reshape(B, -1, 3))
     return torch.cat([qpos[:, None, 3:7], jq], 1).reshape(B, -1)
 
@@ -387,6 +396,58 @@ def obs_v6(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
     return torch.cat(obs, 1)
 
 
+def obs_v2_quat(topo: Topology, model: Model, cfg: EnvConfig,
+                state: EnvState, expert_lib, shape_obs=None,
+                tgt=None) -> torch.Tensor:
+    """get_full_obs_v2_quat (uhc_tpu/envs/humanoid_im.py:313-377), the ball
+    family's obs v2, feature-order exact: heading quat, the target's, the
+    current and their difference's root height, q_cur⁻¹ ⊗ q_target over
+    the base-removed root and every joint quaternion, qvel (linear part
+    transformed twice, as the reference), relative heading, the target
+    root quat's xyz as rel_pos (the reference's read), component-major
+    joint-position blocks, heading-relative and relative body quats."""
+    qpos, qvel = state.qpos, state.qvel
+    B = qpos.shape[0]
+    base_rot = qpos.new_tensor(cfg.base_rot)
+    if tgt is None:
+        tgt = expert_at(expert_lib, state.seq_idx,
+                        state.start_ind + state.cur_t + 1)
+    kin = E.fk(topo, model, qpos)
+    c = cfg.obs_coord
+    qvel = torch.cat([transform_vec(qvel[:, :3], qpos[:, 3:7], c),
+                      qvel[:, 3:]], 1)
+    curr_root_quat = quat_mul(qpos[:, 3:7], quat_inv(base_rot))
+    hq = heading_quat(curr_root_quat)
+    target_qpos = tgt["qpos"]
+    target_quat = tgt["wbquat"].reshape(B, -1, 4)
+    target_jpos = tgt["wbpos"].reshape(B, -1, 3)
+    target_root_quat = quat_mul(target_qpos[:, 3:7], quat_inv(base_rot))
+    obs = [hq, target_qpos[:, 2:3], qpos[:, 2:3],
+           target_qpos[:, 2:3] - qpos[:, 2:3]]
+    cur_quats = torch.cat([curr_root_quat[:, None],
+                           qpos[:, 7:].reshape(B, -1, 4)], 1)
+    tgt_quats = torch.cat([target_root_quat[:, None],
+                           target_qpos[:, 7:].reshape(B, -1, 4)], 1)
+    obs.append(quat_mul(quat_inv(cur_quats), tgt_quats).reshape(B, -1))
+    qvel = torch.cat([transform_vec(qvel[:, :3], curr_root_quat, c),
+                      qvel[:, 3:]], 1)
+    obs.append(qvel if cfg.obs_vel == "full" else qvel[:, :6])
+    obs.append(wrap_to_pi(heading_angle(target_root_quat)
+                          - heading_angle(curr_root_quat))[:, None])
+    obs.append(transform_vec(target_root_quat[:, :3] - qpos[:, :3],
+                             curr_root_quat, c)[:, :2])
+    crq = curr_root_quat[:, None]
+    curr_jpos = kin["xpos"]
+    for v in (curr_jpos - qpos[:, None, :3], target_jpos - curr_jpos):
+        obs.append(_component_major(transform_vec(v, crq, c)))
+    cur_quat = kin["xquat"]
+    obs.append(quat_mul(quat_inv(hq)[:, None], cur_quat).reshape(B, -1))
+    obs.append(quat_mul(quat_inv(cur_quat), target_quat).reshape(B, -1))
+    if cfg.has_shape and cfg.has_shape_obs and shape_obs is not None:
+        obs.append(shape_obs)
+    return torch.cat(obs, 1)
+
+
 def obs_v3(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
            expert_lib, shape_obs=None) -> torch.Tensor:
     """Obs v2 stacked over `fut_frames` future frames `obs_skip` apart
@@ -401,10 +462,10 @@ def obs_v3(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
 def observe(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
             expert_lib, tgt=None) -> torch.Tensor:
     """Observation dispatch over a shared or per-env model
-    (uhc_tpu/envs/humanoid_im.py:697-742). A shape-conditioned config
+    (uhc_tpu/envs/humanoid_im.py:653-692). A shape-conditioned config
     appends each env's shape observation from the library; a library
-    built without one is an error. The ball family's v2_quat is not
-    ported."""
+    built without one is an error. Obs v2 of the ball family
+    (robot_ball) is v2_quat."""
     shape_obs = None
     if cfg.has_shape:
         if "shape_obs" not in expert_lib:
@@ -413,9 +474,9 @@ def observe(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
                 "'shape_obs': build it with data.dataset."
                 "build_shaped_library, not build_expert_library")
         shape_obs = expert_lib["shape_obs"][state.seq_idx]
-    if cfg.robot_ball:
-        raise NotImplementedError("obs v2_quat (ball joints) is not ported "
-                                  "yet")
+    if cfg.obs_v == 2 and cfg.robot_ball:
+        return obs_v2_quat(topo, model, cfg, state, expert_lib, shape_obs,
+                           tgt)
     if cfg.obs_v in (1, 2):
         return obs_v12(topo, model, cfg, state, expert_lib, shape_obs, tgt)
     if cfg.obs_v == 0:
@@ -450,9 +511,10 @@ def obs_dim(topo: Topology, cfg: EnvConfig) -> int:
     vel = nv if cfg.obs_vel == "full" else 6
     shape_all = shape_obs_dim(topo, cfg) if cfg.has_shape else 0
     shape = shape_all if cfg.has_shape_obs else 0
-    if cfg.robot_ball:
-        raise NotImplementedError("obs v2_quat (ball joints) is not ported "
-                                  "yet")
+    if cfg.obs_v == 2 and cfg.robot_ball:
+        # v2_quat: heading quat, 3 heights, a quat difference per body,
+        # qvel, heading + xy, the two jpos blocks, the two body-quat blocks
+        return 4 + 3 + 4 * nb + vel + 3 + 6 * nb + 8 * nb + shape
     if cfg.obs_v == 0:
         return ((1 if cfg.obs_heading else 0) + (nq - 2) + vel + topo.ndof
                 + (1 if cfg.obs_phase else 0))
@@ -498,7 +560,8 @@ def env_post_step(topo: Topology, model: Model, cfg: EnvConfig,
                   state: EnvState, action, expert_lib, jpos_diffw,
                   body_diffw, train: bool = True):
     """Termination + reward + obs after the physics advanced; `model` is
-    shared or per env (already gathered, see `env_models`)."""
+    shared or per env (already gathered, see `env_models`). A blown-up
+    env (non-finite qpos or |qvel| > 1e4) fails with zero reward."""
     qpos, qvel, cur_t = state.qpos, state.qvel, state.cur_t
     length = expert_lib["len"][state.seq_idx]
     t_max = cfg.t_max if cfg.t_max > 0 else 10 ** 9
@@ -527,6 +590,11 @@ def env_post_step(topo: Topology, model: Model, cfg: EnvConfig,
     aux = {"jpos_diffw": jpos_diffw, "body_diffw": body_diffw}
     reward, terms = get_reward_fn(cfg.reward_id)(
         topo, model, cfg, state, action, expert_lib, aux)
+    # a step that blew up fails and earns nothing: its reward, computed
+    # from a non-finite or runaway state, would be NaN and spread through
+    # the whole batch's advantages (the JAX package returns the NaN)
+    reward = torch.where(blown, 0.0, reward)
+    terms = torch.where(blown[:, None], 0.0, terms)
     obs = observe(topo, model, cfg, state, expert_lib)
     return state, obs, reward, terms, done
 
@@ -575,7 +643,11 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
       JAX package runs XLA (`fused_compatible`; the hull tables are per
       shape);
     - 25 to 32 bodies raise NotImplementedError (the JAX lane kernel's K1
-      at those sizes is not ported), as does any tree under 24.
+      at those sizes is not ported), as does any tree under 24;
+    - torque control (action_type "torque", the ball family) runs no
+      kernel on any tree: `solver.torque_substeps`, one exact solve a
+      substep, batched over the envs, as the JAX package runs its generic
+      path there (uhc_tpu/envs/humanoid_im.py:862,905-910).
     UHC_TPU_MERGEJ6=1, which makes the JAX lane kernel project every
     wrench in one contraction, picks the same kernel here: K1's phase G
     already projects each body's bias and external wrench in one pass.
@@ -587,7 +659,7 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
     the kernel wrapper it calls as `step.kernel` (None for the plain
     chain)."""
     kernel = None
-    if fused_model is not None:
+    if fused_model is not None and cfg.action_type != "torque":
         big = topo.nbody in LANE_BIG_BODIES
         split_only = topo.nbody >= LANE_BIG_BODIES.stop
         if topo.nbody != SMPL_BODIES and not (big or split_only):

@@ -1,7 +1,11 @@
 """Copycat training agent (PyTorch twin of uhc_tpu.learn.agent
-CopycatAgent) on the 24-body stand-in humanoid or a tree built from it:
-the 52-body SMPL-H (`env.robot_model == "smplh"`, anthropometric finger
-chains, `smpl.smplh.smplh_model`) or the 48-body masterfoot
+CopycatAgent) on the 24-body stand-in humanoid, its ball-joint twin
+(`env.robot_ball`: one quaternion per joint, direct torque control, obs
+v2_quat; the `ball` config) or a tree built from it: the 52-body SMPL-H
+(`env.robot_model == "smplh"`: every bone offset exact from 52-joint
+SMPL-H model data given as `smpl_data`, `smpl.smplh.smplh_model_from_data`,
+else anthropometric finger chains, `smpl.smplh.smplh_model`) or the
+48-body masterfoot
 (`env.masterfoot`, `smpl.masterfoot.masterfoot_model`, whose converter
 remaps the 24-body clips onto the tree and gives its diff weights), each
 with the enlarged feet of `env.bigfoot` (`smpl.masterfoot.bigfoot_model`,
@@ -31,8 +35,10 @@ PCG-5 chain, as the JAX agent does off the TPU.
 
 The reset pose for reactive initialization is the first frame of the
 first clip at rest (the reference's standing_neutral.pkl is not in the
-repository). Checkpoints are pickles of numpy arrays in the JAX package's
-layout, so either package loads the other's.
+repository); on the ball family that frame is already in quaternions,
+which the JAX agent makes of its euler neutral pose. Checkpoints are
+pickles of numpy arrays in the JAX package's layout, so either package
+loads the other's.
 """
 from __future__ import annotations
 
@@ -83,7 +89,7 @@ class CopycatAgent:
 
         self.topo, model_np = load_fixture_humanoid()
         self.topo, model_np, self.converter, jpw, bdw = robot_family(
-            self.topo, model_np, self.env_cfg)
+            self.topo, model_np, self.env_cfg, smpl_data)
         self.model = model_from_numpy(model_np, dev)
         (self.expert_lib, self.seq_keys, self.sim_model,
          self.smpl_data) = build_library(
@@ -324,20 +330,30 @@ def checkpoint_path(results_dir: str, epoch: int) -> str:
     return os.path.join(results_dir, "models", f"iter_{epoch:04d}.p")
 
 
-def robot_family(topo, model, env_cfg):
+def robot_family(topo, model, env_cfg, smpl_data=None):
     """The tree the config trains on, from the 24-body humanoid ->
     (topo, model with numpy leaves, converter or None, jpos_diffw,
-    body_diffw), as uhc_tpu/learn/agent.py:69-106,171-191 builds it:
-    SMPL-H for robot_model "smplh", then the enlarged feet of `bigfoot`
-    (the same tree), then masterfoot's sole bodies when `masterfoot` is
-    set (its converter remaps 24-body clips onto the tree and gives the
-    diff weights)."""
+    body_diffw), as uhc_tpu/learn/agent.py:59-106,171-191 builds it: ball
+    joints on the same tree for `robot_ball`; SMPL-H for robot_model
+    "smplh", its bone offsets from `smpl_data` where that is 52-joint
+    SMPL-H model data (`smplh_data`), else anthropometric; then the
+    enlarged feet of `bigfoot` (the same tree), then masterfoot's sole
+    bodies when `masterfoot` is set (its converter remaps 24-body clips
+    onto the tree and gives the diff weights)."""
+    import dataclasses
+
     converter = None
+    if env_cfg.robot_ball:
+        topo = dataclasses.replace(topo, joint_kind="ball")
     if env_cfg.robot_model == "smplh":
         from uhc_tpu_torch.smpl.smplh import (smplh_diff_weights,
-                                              smplh_model, smplh_topology)
+                                              smplh_model,
+                                              smplh_model_from_data,
+                                              smplh_topology)
 
-        model = smplh_model(topo, model)
+        data = smplh_data(smpl_data)
+        model = (smplh_model(topo, model) if data is None
+                 else smplh_model_from_data(topo, model, data))
         topo = smplh_topology()
         jpw, bdw = smplh_diff_weights()
     else:
@@ -365,16 +381,15 @@ def build_library(topo, model, env_cfg, seqs, smpl_data=None,
     config, a domain-randomized one for dr_variants >= 2, else the shared
     model (with a converter, the clips go through the 24-body layout onto
     the converter's tree). smpl_data (one SMPLData, the neutral one of a
-    gendered set) is what the eval's vertex metrics use, None without
-    model data."""
-    if topo.nbody != 24 and (env_cfg.has_shape or dr_variants >= 2
-                             or smpl_data is not None):
+    gendered set) is what the eval's vertex metrics use: 24-joint data on
+    the 24-body tree, 52-joint SMPL-H data on SMPL-H (`smplh_data`), None
+    without model data or on another tree."""
+    if topo.nbody != 24 and (env_cfg.has_shape or dr_variants >= 2):
         # the JAX agent refuses dr_variants on these trees
-        # (uhc_tpu/learn/agent.py:142-144); a shape library on them and
-        # SMPL-H model data (smplh_model_from_data) are not ported
+        # (uhc_tpu/learn/agent.py:142-144); its shape library is built
+        # for the 24-body tree alone
         raise NotImplementedError(
-            "model libraries and SMPL model data are supported on the "
-            "24-body SMPL family")
+            "model libraries are supported on the 24-body SMPL family")
     if env_cfg.has_shape:
         shape_data = load_shape_data(topo, model, smpl_data)
         lib, keys, sim_model = build_shaped_library(
@@ -390,9 +405,30 @@ def build_library(topo, model, env_cfg, seqs, smpl_data=None,
             base_root_offset=(None if converter is None
                               else model.body_pos[0].cpu().numpy()))
         sim_model = model
-    if smpl_data is not None:
-        smpl_data = neutral_data(load_shape_data(topo, model, smpl_data))
+    if topo.nbody == 52:
+        smpl_data = smplh_data(smpl_data)
+    elif smpl_data is not None:
+        smpl_data = (neutral_data(load_shape_data(topo, model, smpl_data))
+                     if topo.nbody == 24 else None)
     return lib, keys, sim_model, smpl_data
+
+
+def smplh_data(smpl_data):
+    """52-joint SMPL-H model data from `smpl_data`: a path that
+    `load_smplh_data` reads as 52 joints, or SMPLData of 52 joints; None
+    for anything else, a file it refuses (ValueError, KeyError) included,
+    as the JAX agent falls back (uhc_tpu/learn/agent.py:69-91)."""
+    from uhc_tpu_torch.smpl.lbs import SMPLData, load_smplh_data
+
+    if isinstance(smpl_data, str):
+        try:
+            smpl_data = load_smplh_data(smpl_data)
+        except (ValueError, KeyError):
+            return None
+    if isinstance(smpl_data, SMPLData) and \
+            smpl_data.j_regressor.shape[0] == 52:
+        return smpl_data
+    return None
 
 
 def load_shape_data(topo, model, smpl_data=None):

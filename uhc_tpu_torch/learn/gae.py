@@ -15,8 +15,12 @@ def estimate_advantages(rewards, masks, values, bootstrap_value, gamma, tau):
     """rewards / masks / values: (T, B); bootstrap_value: (B,).
 
     Returns (advantages, returns), both (T, B), with the advantages
-    whitened over the whole batch (population std, as jnp.std)."""
-    prev_value = bootstrap_value
+    whitened over the whole batch (population std, as jnp.std). The
+    bootstrap of an episode that ended at the last step is masked out;
+    it is set to 0 there first, so that a non-finite one (the observation
+    of a blown-up state) cannot turn the masked product into NaN."""
+    prev_value = torch.where(masks[-1] > 0, bootstrap_value,
+                             torch.zeros_like(bootstrap_value))
     prev_adv = torch.zeros_like(bootstrap_value)
     advantages = torch.empty_like(rewards)
     for t in reversed(range(rewards.shape[0])):

@@ -136,13 +136,18 @@ def compute_penetration_skate_vertices(verts: np.ndarray,
 
 def vertices_from_qpos(pred_qpos: np.ndarray, smpl_data, betas,
                        root_offset, chunk: int = 64) -> np.ndarray:
-    """(T, 76) qpos -> (T, V, 3) SMPL vertices via qpos_to_smpl + LBS, in
-    chunks of frames (the reference eval's pred_vertices)."""
-    from uhc_tpu_torch.smpl.convert import qpos_to_smpl
+    """(T, nq) qpos -> (T, V, 3) mesh vertices via the pose's inverse and
+    LBS, in chunks of frames (the reference eval's pred_vertices): the
+    24-body euler qpos (76 wide) through qpos_to_smpl, the ball family's
+    (99, uhc_tpu/learn/metrics.py:171-175) through qpos_ball_to_smpl, the
+    52-body SMPL-H's (160) through qpos_to_smplh on 52-joint model data."""
+    from uhc_tpu_torch.smpl.convert import qpos_ball_to_smpl, qpos_to_smpl
     from uhc_tpu_torch.smpl.lbs import lbs
+    from uhc_tpu_torch.smpl.smplh import qpos_to_smplh
 
-    pose_aa, trans = qpos_to_smpl(np.asarray(pred_qpos, np.float32),
-                                  root_offset)
+    inverse = {76: qpos_to_smpl, 99: qpos_ball_to_smpl,
+               160: qpos_to_smplh}[np.shape(pred_qpos)[-1]]
+    pose_aa, trans = inverse(np.asarray(pred_qpos, np.float32), root_offset)
     betas = np.asarray(betas, np.float32)
     out = [lbs(smpl_data, pose_aa[i:i + chunk], betas,
                trans[i:i + chunk])[0].numpy()

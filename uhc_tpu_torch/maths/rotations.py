@@ -1,6 +1,6 @@
 """Quaternion / rotation math (PyTorch twin of uhc_tpu.maths.rotations).
 
-Only the functions the closed-loop evaluation path calls. Conventions are
+The functions the port's paths call. Conventions are
 the JAX package's: quaternions are ``(..., 4)`` tensors in wxyz order with
 the Hamilton product, joint euler angles are intrinsic Z-Y-X stored as
 ``[z, y, x]``, and every function broadcasts over leading dimensions.
@@ -77,6 +77,40 @@ def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
         2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
     ], dim=-1)
     return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion, w >= 0: Shepperd's
+    four constructions, the one with the largest pivot taken."""
+    tr = m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2]
+    piv = torch.stack([1.0 + tr,
+                       1.0 + m[..., 0, 0] - m[..., 1, 1] - m[..., 2, 2],
+                       1.0 - m[..., 0, 0] + m[..., 1, 1] - m[..., 2, 2],
+                       1.0 - m[..., 0, 0] - m[..., 1, 1] + m[..., 2, 2]],
+                      dim=-1)
+    case = torch.argmax(piv, dim=-1, keepdim=True)
+    s = 2.0 * torch.sqrt(torch.clamp(torch.gather(piv, -1, case)[..., 0],
+                                     min=1e-12))
+    d21, d02, d10 = (m[..., 2, 1] - m[..., 1, 2], m[..., 0, 2] - m[..., 2, 0],
+                     m[..., 1, 0] - m[..., 0, 1])
+    s01, s02, s12 = (m[..., 0, 1] + m[..., 1, 0], m[..., 0, 2] + m[..., 2, 0],
+                     m[..., 1, 2] + m[..., 2, 1])
+    cands = torch.stack([
+        torch.stack([s / 4.0, d21 / s, d02 / s, d10 / s], -1),
+        torch.stack([d21 / s, s / 4.0, s01 / s, s02 / s], -1),
+        torch.stack([d02 / s, s01 / s, s / 4.0, s12 / s], -1),
+        torch.stack([d10 / s, s02 / s, s12 / s, s / 4.0], -1)], dim=-2)
+    q = torch.gather(cands, -2, case[..., None].expand(
+        case.shape[:-1] + (1, 4)))[..., 0, :]
+    return quat_normalize(q * torch.where(q[..., 0:1] < 0, -1.0, 1.0))
+
+
+def quat_from_axis_angle(axis: torch.Tensor,
+                         angle: torch.Tensor) -> torch.Tensor:
+    """Unit axis (..., 3) and angle (...) -> quaternion."""
+    half = angle * 0.5
+    return torch.cat([torch.cos(half)[..., None],
+                      axis * torch.sin(half)[..., None]], dim=-1)
 
 
 def quat_from_rotvec(rv: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -198,6 +232,15 @@ def multi_quat_norm(nq: torch.Tensor) -> torch.Tensor:
     return torch.arccos(torch.clamp(w, -1.0, 1.0))
 
 
+def multi_quat_norm_v2(nq: torch.Tensor) -> torch.Tensor:
+    """Distance from the identity per joint, ‖(|w| - 1, x, y, z)‖, over a
+    flat (..., 4J) layout."""
+    s = nq.shape
+    q = nq.reshape(s[:-1] + (-1, 4))
+    d = torch.cat([q[..., 0:1].abs() - 1.0, q[..., 1:]], dim=-1)
+    return torch.linalg.vector_norm(d, dim=-1)
+
+
 def angvel_fd(prev_q: torch.Tensor, cur_q: torch.Tensor, dt) -> torch.Tensor:
     """rotvec(q_cur ⊗ q_prev⁻¹)/dt over a flat (..., 4J) layout."""
     s = cur_q.shape
@@ -215,3 +258,19 @@ def qvel_fd(cur_qpos: torch.Tensor, next_qpos: torch.Tensor,
     rv = transform_vec(rv, cur_qpos[..., 3:7], "root")
     diff = wrap_to_pi(next_qpos[..., 7:] - cur_qpos[..., 7:])
     return torch.cat([v, rv, diff / dt], dim=-1)
+
+
+def qvel_fd_ball(cur_qpos: torch.Tensor, next_qpos: torch.Tensor,
+                 dt) -> torch.Tensor:
+    """Finite-difference generalized velocity of ball-joint qpos (root as
+    `qvel_fd`; each joint's child-local angular velocity
+    rotvec(q_cur⁻¹ ⊗ q_next)/dt, the coordinates `quat_integrate`
+    advances)."""
+    v = (next_qpos[..., :3] - cur_qpos[..., :3]) / dt
+    dq = quat_mul(next_qpos[..., 3:7], quat_inv(cur_qpos[..., 3:7]))
+    rv = transform_vec(quat_to_rotvec(dq) / dt, cur_qpos[..., 3:7], "root")
+    s = cur_qpos.shape
+    jc = cur_qpos[..., 7:].reshape(s[:-1] + (-1, 4))
+    jn = next_qpos[..., 7:].reshape(s[:-1] + (-1, 4))
+    w = quat_to_rotvec(quat_mul(quat_inv(jc), jn)) / dt
+    return torch.cat([v, rv, w.reshape(s[:-1] + (-1,))], dim=-1)

@@ -152,6 +152,9 @@ def pack_tables(topo: Topology, cfg, model, pcg_iters=(1, 2),
         raise ValueError(f"the control-step kernel is built for euler-joint "
                          f"trees, not {topo.joint_kind} joints")
     S.check_supported(cfg)
+    if cfg.action_type == "torque":
+        raise ValueError("torque control runs no control-step kernel, as "
+                         "in the JAX package (fused_compatible)")
     m = model_to_numpy(model) if isinstance(model, Model) else model
     n_lib = library_size(m)
     if n_lib is not None:

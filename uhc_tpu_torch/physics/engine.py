@@ -15,6 +15,13 @@ Per substep (450 Hz): FK -> velocities -> Jacobians -> M and bias force ->
 ground contact, self-collision and joint-limit terms -> the two SPD
 systems of stable PD and forward dynamics (`assemble`) -> semi-implicit
 integration.
+
+Joints are three z-y-x hinges (`joint_kind="euler"`) or one quaternion
+each (`"ball"`, the reference's robot.ball family): a ball joint's dofs
+are the child body's local angular velocity, its motion subspace the
+child's world-frame axes; it has no range limits, integrates its
+quaternion like the root's and is driven by direct torques
+(`substep_torque`, no stable-PD system).
 """
 from __future__ import annotations
 
@@ -56,22 +63,26 @@ def fk(topo: Topology, model: Model, qpos: torch.Tensor) -> dict:
 
     Returns xpos (B,nb,3), xquat (B,nb,4), xipos (B,nb,3) and the per-dof
     world axes / anchors (B,nv,3)."""
-    if topo.joint_kind != "euler":
-        raise NotImplementedError("only euler (z-y-x hinge) joints")
+    if topo.joint_kind not in ("euler", "ball"):
+        raise ValueError(f"unknown joint kind {topo.joint_kind!r}")
+    ball = topo.joint_kind == "ball"
     tb = tables(topo, qpos.device)
     B, nb = qpos.shape[0], topo.nbody
     model = model_per_env(model, B)
     root_q = quat_normalize(qpos[:, 3:7])
-    e = qpos[:, 7:].reshape(B, nb - 1, 3) * 0.5
-    cz, sz = torch.cos(e[..., 0]), torch.sin(e[..., 0])
-    cy, sy = torch.cos(e[..., 1]), torch.sin(e[..., 1])
-    cx, sx = torch.cos(e[..., 2]), torch.sin(e[..., 2])
-    zero = torch.zeros_like(cz)
-    q_z = torch.stack([cz, zero, zero, sz], -1)
-    q_y = torch.stack([cy, zero, sy, zero], -1)
-    q_x = torch.stack([cx, sx, zero, zero], -1)
-    q_zy = quat_mul(q_z, q_y)
-    q_local = quat_mul(q_zy, q_x)
+    if ball:
+        q_local = quat_normalize(qpos[:, 7:].reshape(B, nb - 1, 4))
+    else:
+        e = qpos[:, 7:].reshape(B, nb - 1, 3) * 0.5
+        cz, sz = torch.cos(e[..., 0]), torch.sin(e[..., 0])
+        cy, sy = torch.cos(e[..., 1]), torch.sin(e[..., 1])
+        cx, sx = torch.cos(e[..., 2]), torch.sin(e[..., 2])
+        zero = torch.zeros_like(cz)
+        q_z = torch.stack([cz, zero, zero, sz], -1)
+        q_y = torch.stack([cy, zero, sy, zero], -1)
+        q_x = torch.stack([cx, sx, zero, zero], -1)
+        q_zy = quat_mul(q_z, q_y)
+        q_local = quat_mul(q_zy, q_x)
 
     xpos = qpos.new_zeros((B, nb, 3))
     xquat = qpos.new_zeros((B, nb, 4))
@@ -86,11 +97,17 @@ def fk(topo: Topology, model: Model, qpos: torch.Tensor) -> dict:
     xipos = xpos + quat_rotate(xquat, model.body_ipos)
 
     eye = torch.eye(3, dtype=qpos.dtype, device=qpos.device)
-    qp_all = xquat[:, tb["parents"]]
-    a_z = quat_rotate(qp_all, eye[2])
-    a_y = quat_rotate(quat_mul(qp_all, q_z), eye[1])
-    a_x = quat_rotate(quat_mul(qp_all, q_zy), eye[0])
-    joint_axes = torch.stack([a_z, a_y, a_x], 2).reshape(B, -1, 3)
+    if ball:
+        # the child body's world-frame x, y, z columns
+        jq = xquat[:, 1:]
+        joint_axes = torch.stack([quat_rotate(jq, eye[k]) for k in range(3)],
+                                 2).reshape(B, -1, 3)
+    else:
+        qp_all = xquat[:, tb["parents"]]
+        a_z = quat_rotate(qp_all, eye[2])
+        a_y = quat_rotate(quat_mul(qp_all, q_z), eye[1])
+        a_x = quat_rotate(quat_mul(qp_all, q_zy), eye[0])
+        joint_axes = torch.stack([a_z, a_y, a_x], 2).reshape(B, -1, 3)
     R0 = quat_to_mat(root_q)
     axes = torch.cat([eye.expand(B, 3, 3), R0.transpose(1, 2), joint_axes], 1)
     anchors = xpos[:, tb["dof_body"]]
@@ -105,6 +122,10 @@ def velocities(topo: Topology, kin: dict, qvel: torch.Tensor) -> dict:
     xpos, xipos, axes = kin["xpos"], kin["xipos"], kin["axes"]
     jaxes = axes[:, 6:].reshape(B, nb - 1, 3, 3)
     jdq = qvel[:, 6:].reshape(B, nb - 1, 3)
+    ball = topo.joint_kind == "ball"
+    if ball:
+        # each joint's world angular velocity Σ_k a_k ω_k
+        jw = torch.einsum("bjkc,bjk->bjc", jaxes, jdq)
 
     omega = qvel.new_zeros((B, nb, 3))
     v = qvel.new_zeros((B, nb, 3))
@@ -115,16 +136,22 @@ def velocities(topo: Topology, kin: dict, qvel: torch.Tensor) -> dict:
     v[:, 0] = qvel[:, 0:3]
     for idx, par in tb["levels"]:
         w0 = omega[:, par]
-        az, ay, ax = (jaxes[:, idx - 1, 0], jaxes[:, idx - 1, 1],
-                      jaxes[:, idx - 1, 2])
-        dz = jdq[:, idx - 1, 0:1]
-        dy = jdq[:, idx - 1, 1:2]
-        dx = jdq[:, idx - 1, 2:3]
-        w1 = w0 + az * dz
-        w2 = w1 + ay * dy
-        wi = w2 + ax * dx
-        al = (alpha[:, par] + cross(w0, az) * dz + cross(w1, ay) * dy
-              + cross(w2, ax) * dx)
+        if ball:
+            # the subspace turns with the child: its rate is ω_parent × S q̇
+            wj = jw[:, idx - 1]
+            wi = w0 + wj
+            al = alpha[:, par] + cross(w0, wj)
+        else:
+            az, ay, ax = (jaxes[:, idx - 1, 0], jaxes[:, idx - 1, 1],
+                          jaxes[:, idx - 1, 2])
+            dz = jdq[:, idx - 1, 0:1]
+            dy = jdq[:, idx - 1, 1:2]
+            dx = jdq[:, idx - 1, 2:3]
+            w1 = w0 + az * dz
+            w2 = w1 + ay * dy
+            wi = w2 + ax * dx
+            al = (alpha[:, par] + cross(w0, az) * dz + cross(w1, ay) * dy
+                  + cross(w2, ax) * dx)
         d = xpos[:, idx] - xpos[:, par]
         vi = v[:, par] + cross(w0, d)
         ai = a[:, par] + cross(alpha[:, par], d) + cross(w0, cross(w0, d))
@@ -320,7 +347,11 @@ def self_collision_terms(topo: Topology, model: Model, kin: dict, vel: dict,
 
 
 def limit_qfrc(model: Model, qpos, qvel, k: float = 500.0, d: float = 20.0):
-    """Joint-range penalty: spring force (B,nv), implicit damping (B,nv)."""
+    """Joint-range penalty: spring force (B,nv), implicit damping (B,nv);
+    zero for ball joints (qpos wider than nv + 1), which have no ranges."""
+    if qpos.shape[1] != qvel.shape[1] + 1:
+        z = qvel.new_zeros(qvel.shape)
+        return z, z
     q = qpos[:, 7:]
     model = model_per_env(model, qpos.shape[0])
     lo, hi = model.jnt_range[..., 0], model.jnt_range[..., 1]
@@ -346,12 +377,20 @@ def stable_pd_errors(model: Model, qpos, qvel, target_pos, kp, kd, C):
 
 def integrate(model: Model, qpos, qvel, qacc):
     """Semi-implicit Euler; the root quaternion integrates its local
-    angular velocity."""
-    dt = model_per_env(model, qpos.shape[0]).dt[:, None]
+    angular velocity, and so does each joint quaternion of a ball-joint
+    qpos (7 + 4·nj wide)."""
+    B = qpos.shape[0]
+    dt = model_per_env(model, B).dt[:, None]
     qvel_new = qvel + dt * qacc
     root_pos = qpos[:, 0:3] + dt * qvel_new[:, 0:3]
     root_quat = quat_integrate(qpos[:, 3:7], qvel_new[:, 3:6], dt)
-    joints = qpos[:, 7:] + dt * qvel_new[:, 6:]
+    nj = (qvel.shape[1] - 6) // 3
+    if nj > 0 and qpos.shape[1] == 7 + 4 * nj:
+        joints = quat_integrate(qpos[:, 7:].reshape(B, nj, 4),
+                                qvel_new[:, 6:].reshape(B, nj, 3),
+                                dt[:, :, None]).reshape(B, -1)
+    else:
+        joints = qpos[:, 7:] + dt * qvel_new[:, 6:]
     return torch.cat([root_pos, root_quat, joints], 1), qvel_new
 
 
@@ -423,7 +462,9 @@ def assemble(topo: Topology, model: Model, qpos, qvel, target_pos, kp, kd,
     """Everything of a substep except the linear solves: the stable-PD
     system A_pd = M + dt·Kd, the forward-dynamics system
     A_fd = M + dt·(CD + limit damping), the PD right-hand side and the
-    force terms of the forward-dynamics right-hand side. `vf_body` is the
+    force terms of the forward-dynamics right-hand side. A ball-joint
+    tree has no stable-PD system (its joints take direct torques): A_pd is
+    M and the PD terms are zero. `vf_body` is the
     (B, nb, 9) body-frame wrench of explicit RFC (`prep_explicit_vf`):
     rotated into the world by each body's current orientation, gated by
     `vf_gate` (None, "height" or "ground"), and applied at the body
@@ -455,10 +496,14 @@ def assemble(topo: Topology, model: Model, qpos, qvel, target_pos, kp, kd,
                                v6.reshape(B, -1, 1))[..., 0]
                  - lim_damp * qvel)
 
-    pd_rhs, qpos_err, kd_full = stable_pd_errors(model, qpos, qvel,
-                                                 target_pos, kp, kd, C)
     dt = model.dt[:, None, None]
-    A_pd = M + torch.diag_embed(kd_full) * dt
+    if topo.joint_kind == "ball":
+        pd_rhs = qpos_err = torch.zeros_like(qvel)
+        A_pd = M
+    else:
+        pd_rhs, qpos_err, kd_full = stable_pd_errors(model, qpos, qvel,
+                                                     target_pos, kp, kd, C)
+        A_pd = M + torch.diag_embed(kd_full) * dt
     A_fd = M + dt * (CD + torch.diag_embed(lim_damp))
     rhs_base = qfrc_applied + qfrc_con + qfrc_lim + qfrc_damp - C
     if vf_body is not None:
@@ -473,3 +518,26 @@ def assemble(topo: Topology, model: Model, qpos, qvel, target_pos, kp, kd,
     return dict(A_pd=A_pd, A_fd=A_fd, pd_rhs=pd_rhs, qpos_err=qpos_err,
                 rhs_base=rhs_base,
                 contact_active=W.abs().sum((-1, -2)) > 0)
+
+
+def substep_torque(topo: Topology, model: Model, qpos, qvel, tau,
+                   qfrc_applied, self_collision: bool = False, vf_body=None,
+                   vf_gate=None):
+    """One substep under direct joint torques `tau` (B, ndof) (action_type
+    "torque", the ball family's control; uhc_tpu/physics/engine.py:651
+    substep_torque): the forward-dynamics system alone, factored exactly
+    -> (qpos', qvel', tau). No kernel takes this route (nor a Pallas one
+    in the JAX package), so the factorization is torch's batched Cholesky
+    (one call, no host sync; the JAX package's blocked one rounds
+    otherwise); a system that is not positive definite gives a non-finite
+    state, which the env fails as blown up."""
+    model = model_per_env(model, qpos.shape[0])
+    out = assemble(topo, model, qpos, qvel, torch.zeros_like(tau),
+                   model.jkp, model.jkd, qfrc_applied, self_collision,
+                   vf_body, vf_gate)
+    rhs = out["rhs_base"].clone()
+    rhs[:, 6:] += tau
+    L, _ = torch.linalg.cholesky_ex(out["A_fd"])
+    qacc = torch.cholesky_solve(rhs[..., None], L)[..., 0]
+    qpos, qvel = integrate(model, qpos, qvel, qacc)
+    return qpos, qvel, tau

@@ -15,7 +15,10 @@
 
 Layouts match MuJoCo: qpos = [root xyz, root quat wxyz, 23 × euler z-y-x]
 (76), qvel = [root linvel (world), root angvel (root-local), 69 joint
-rates] (75).
+rates] (75). A ball-joint tree (`joint_kind="ball"`, the reference's
+robot.ball family) carries one quaternion per joint in qpos (7 + 4·23 =
+99) and the same qvel: each joint's three rates are its child-local
+angular velocity.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ class Topology:
     nbody: int
     parents: tuple  # len nbody, -1 for root
     body_names: tuple
-    joint_kind: str = "euler"
+    joint_kind: str = "euler"   # or "ball": one quaternion per joint
 
     @property
     def nv(self) -> int:
@@ -41,7 +44,7 @@ class Topology:
 
     @property
     def nq(self) -> int:
-        return 7 + 3 * (self.nbody - 1)
+        return 7 + (4 if self.joint_kind == "ball" else 3) * (self.nbody - 1)
 
     @property
     def ndof(self) -> int:

@@ -10,6 +10,11 @@ head), substeps 1.. take them (its tail). With `precond_bf16` (the plain
 version of K2b) the inverses are rounded to bfloat16 as they are made, and
 every preconditioner product rounds its vector to bfloat16 first, in the
 chain's own dtype otherwise.
+
+Torque control (action_type "torque", the ball family) takes another
+route, as in the JAX package (uhc_tpu/envs/humanoid_im.py:905-910): no
+maintained inverse and no kernel, each substep one exact solve of the
+forward-dynamics system (`torque_substeps`).
 """
 from __future__ import annotations
 
@@ -112,9 +117,9 @@ def action_dims(topo: Topology, cfg):
 def check_supported(cfg) -> None:
     """The ported control step covers plain PD, meta-PD and per-joint
     meta-PD, implicit, explicit or no RFC, position control with action_v
-    0/1."""
-    if cfg.action_type != "position":
-        raise NotImplementedError("torque control is not ported yet")
+    0/1, and direct torque control."""
+    if cfg.action_type not in ("position", "torque"):
+        raise ValueError(f"unknown action_type {cfg.action_type!r}")
 
 
 def gain_scales(cfg, actions: torch.Tensor, ndof: int, vf_dim: int):
@@ -137,7 +142,7 @@ def implicit_rfc(cfg, qpos, actions, ndof: int, rfc_rate):
     """(B, nv) applied force of implicit RFC (humanoid_im.py:1136
     rfc_implicit): the scaled root wrench, its linear part rotated into
     the world by the heading, clipped; zero without it."""
-    qfrc = qpos.new_zeros((qpos.shape[0], qpos.shape[1] - 1))
+    qfrc = qpos.new_zeros((qpos.shape[0], ndof + 6))
     if cfg.residual_force and not explicit_rfc(cfg):
         vf = actions[:, ndof:ndof + 6] * (cfg.residual_force_scale
                                           * rfc_rate)
@@ -172,7 +177,11 @@ def do_simulation(topo: Topology, cfg, model: Model, qpos, qvel, actions,
     `sched_pcg`). `precond_bf16` rounds the preconditioner to bfloat16
     (the plain version of K2b); given `inverses` (Xpd, Xfd) stand in for
     substep 0's. A `trace` list receives each substep's (B, nb)
-    ground-contact sets."""
+    ground-contact sets. Torque control runs `torque_substeps`, whatever
+    the PCG arguments say (and records no trace)."""
+    if cfg.action_type == "torque":
+        return torque_substeps(topo, cfg, model, qpos, qvel, actions,
+                               rfc_rate)
     return substeps(topo, cfg, model, qpos, qvel, actions, target_base,
                     rfc_rate, pcg_iters, 0, cfg.frame_skip,
                     inverses=inverses, trace=trace, refresh_at=refresh_at,
@@ -192,6 +201,9 @@ def substeps(topo: Topology, cfg, model: Model, qpos, qvel, actions,
     preconditioner product's vector (K2b); given inverses must then hold
     bfloat16 values."""
     check_supported(cfg)
+    if cfg.action_type == "torque":
+        raise ValueError("torque control has no PCG chain: see "
+                         "torque_substeps")
     pd_iters, fd_iters = ((pcg_iters, pcg_iters)
                           if isinstance(pcg_iters, int) else pcg_iters)
     ndof, vf_dim, _ = action_dims(topo, cfg)
@@ -229,3 +241,25 @@ def substeps(topo: Topology, cfg, model: Model, qpos, qvel, actions,
         qacc = pcg_solve(out["A_fd"], rhs, Xfd, fd_iters, precond_bf16)
         qpos, qvel = E.integrate(model, qpos, qvel, qacc)
     return qpos, qvel, (Xpd, Xfd)
+
+
+def torque_substeps(topo: Topology, cfg, model: Model, qpos, qvel, actions,
+                    rfc_rate):
+    """One control step under direct joint torques (action_type "torque";
+    uhc_tpu/envs/humanoid_im.py:150-152,195-198): τ = clip(ctrl · a_scale ·
+    100, ±torque_lim), held over the frame_skip substeps, no PD target;
+    RFC as under position control; each substep `engine.substep_torque`,
+    one exact solve -> (qpos, qvel)."""
+    check_supported(cfg)
+    ndof, vf_dim, _ = action_dims(topo, cfg)
+    model = model_per_env(model, qpos.shape[0])
+    tau = torch.maximum(torch.minimum(actions[:, :ndof] * model.a_scale
+                                      * 100.0, model.torque_lim),
+                        -model.torque_lim)
+    vf_body = explicit_wrench(topo, cfg, model, actions, ndof, vf_dim)
+    for _ in range(cfg.frame_skip):
+        qfrc = implicit_rfc(cfg, qpos, actions, ndof, rfc_rate)
+        qpos, qvel, _ = E.substep_torque(topo, model, qpos, qvel, tau, qfrc,
+                                         cfg.self_collision, vf_body,
+                                         vf_gate_mode(cfg))
+    return qpos, qvel

@@ -7,12 +7,13 @@
 * per-body vertex assignment by argmax skinning weight.
 
 Model data loads from the standard SMPL .pkl / .npz files when a user has
-them (they are not redistributable). Without them,
-`synthetic_smpl_data_like` builds SMPL-shaped blendshapes around a given
-skeleton from a numpy seed; `synthetic_smpl_data` is the older random
-stand-in used by tests. Both are pure numpy, so they equal the JAX
-package's to the bit. The 24-joint SMPL family only (SMPL-H / SMPL-X
-loading is not ported).
+them (they are not redistributable): `load_smpl_data` keeps SMPL's 24
+joints, `load_smplh_data` the 52 of SMPL-H or the 55 articulated joints
+of SMPL-X, whose exact bone offsets `smplh_offsets_from_betas` gives.
+Without them, `synthetic_smpl_data_like` builds SMPL-shaped blendshapes
+around a given skeleton from a numpy seed; `synthetic_smpl_data` is the
+older random stand-in (24, 52 or 55 joints) used by tests. Both are pure
+numpy, so they equal the JAX package's to the bit.
 """
 from __future__ import annotations
 
@@ -34,8 +35,8 @@ class SMPLData:
 
     v_template: Any   # (V, 3)
     shapedirs: Any    # (V, 3, n_betas)
-    j_regressor: Any  # (24, V)
-    weights: Any      # (V, 24) LBS skinning weights
+    j_regressor: Any  # (nj, V): 24 SMPL, 52 SMPL-H, 55 SMPL-X joints
+    weights: Any      # (V, nj) LBS skinning weights
 
 
 def _smpl_data(v, sd, jr, w) -> SMPLData:
@@ -43,24 +44,45 @@ def _smpl_data(v, sd, jr, w) -> SMPLData:
                       for x in (v, sd, jr, w)))
 
 
-def load_smpl_data(path: str, n_betas: int = 16) -> SMPLData:
-    """A SMPL model file (.pkl or .npz) -> SMPLData."""
+def _model_file(path: str):
+    """A model file's arrays and its dense joint regressor."""
     if path.endswith(".npz"):
         d = dict(np.load(path, allow_pickle=True))
     else:
         with open(path, "rb") as f:
             d = pickle.load(f, encoding="latin1")
     jr = d["J_regressor"]
-    jr = np.asarray(jr.todense() if hasattr(jr, "todense") else jr)[:24]
+    return d, np.asarray(jr.todense() if hasattr(jr, "todense") else jr)
+
+
+def load_smpl_data(path: str, n_betas: int = 16) -> SMPLData:
+    """A SMPL model file (.pkl or .npz) -> SMPLData of its first 24
+    joints."""
+    d, jr = _model_file(path)
     return _smpl_data(np.asarray(d["v_template"]),
-                      np.asarray(d["shapedirs"])[:, :, :n_betas], jr,
+                      np.asarray(d["shapedirs"])[:, :, :n_betas], jr[:24],
                       np.asarray(d["weights"])[:, :24])
+
+
+def load_smplh_data(path: str, n_betas: int = 16) -> SMPLData:
+    """A SMPL-H (52-joint) or SMPL-X model file -> SMPLData with every
+    articulated joint (uhc_tpu/smpl/lbs.py:70): the joint count is the
+    regressor's rows, at most 55 (SMPL-X rows past 55 are surface
+    landmarks); any other count than 52 or 55 is a ValueError."""
+    d, jr = _model_file(path)
+    nj = min(jr.shape[0], 55)
+    if nj not in (52, 55):
+        raise ValueError(f"expected a 52/55-joint SMPL-H/X model, got {nj}")
+    return _smpl_data(np.asarray(d["v_template"]),
+                      np.asarray(d["shapedirs"])[:, :, :n_betas], jr[:nj],
+                      np.asarray(d["weights"])[:, :nj])
 
 
 def synthetic_smpl_data(rng_seed: int = 0, V: int = 512, n_betas: int = 16,
                         nj: int = 24) -> SMPLData:
-    """Random stand-in with SMPL's array shapes (tests only: its regressed
-    joints all sit near the mean vertex)."""
+    """Random stand-in with the array shapes of SMPL (nj=24), SMPL-H (52)
+    or SMPL-X (55) (tests only: its regressed joints all sit near the
+    mean vertex)."""
     rng = np.random.default_rng(rng_seed)
     v = rng.normal(scale=0.3, size=(V, 3)).astype(np.float32)
     v[:, 2] += 0.3
@@ -86,20 +108,20 @@ def synthetic_smpl_data_like(topo, base_model, rng_seed: int = 0,
     regressed joints are `base_model`'s zero-pose joints; each beta mode
     moves bone vectors smoothly down the kinematic chain (±bone_sigma per
     bone per unit beta) and spreads each body's four vertices (volume,
-    hence mass and hull scale). These are not real SMPL bodies."""
+    hence mass and hull scale). These are not real SMPL bodies. The tree
+    is the 24-body SMPL, the 52-body SMPL-H or the 55-body SMPL-X."""
     nj = topo.nbody
-    if nj != 24:
-        raise NotImplementedError("only the 24-joint SMPL family is ported")
     rng = np.random.default_rng(rng_seed)
 
-    # absolute zero-pose joints: mujoco order, then scattered to SMPL order
+    # absolute zero-pose joints: mujoco order, then scattered to the
+    # native (pose-vector) order
     bp = _np64(base_model.body_pos)
     abs_j = np.zeros_like(bp)
     for i in range(nj):
         p = topo.parents[i]
         abs_j[i] = bp[i] + (abs_j[p] if p >= 0 else 0.0)
     native = np.zeros_like(abs_j)
-    native[np.asarray(SMPL_2_MUJOCO)] = abs_j
+    native[_native_to_mujoco(nj)] = abs_j
 
     # 4 tetrahedral vertices per joint: an exact regressor and hulls
     tet = np.array([[1, 1, 1], [1, -1, -1], [-1, 1, -1], [-1, -1, 1]],
@@ -112,12 +134,13 @@ def synthetic_smpl_data_like(topo, base_model, rng_seed: int = 0,
         jr[k, 4 * k:4 * k + 4] = 0.25
         w[4 * k:4 * k + 4, k] = 1.0
 
-    # beta modes: a random walk of bone displacement down the SMPL tree
+    # beta modes: a random walk of bone displacement down the native tree
     # (children inherit their parent's) + per-joint isotropic spread
+    parents = _parents_for(nj)
     d = np.zeros((n_betas, nj, 3))
     for m in range(n_betas):
         for k in range(1, nj):
-            p = int(SMPL_PARENTS[k])
+            p = int(parents[k])
             d[m, k] = d[m, p] + rng.normal(scale=bone_sigma, size=3)
     e = rng.normal(scale=spread_sigma, size=(n_betas, nj))
     sdirs = np.zeros((V, 3, n_betas))
@@ -128,11 +151,24 @@ def synthetic_smpl_data_like(topo, base_model, rng_seed: int = 0,
     return _smpl_data(v, sdirs, jr, w)
 
 
-def _parents(nj: int) -> np.ndarray:
-    if nj != 24:
-        raise NotImplementedError(f"{nj}-joint model data: only the "
-                                  "24-joint SMPL family is ported")
-    return SMPL_PARENTS
+def _parents_for(nj: int) -> np.ndarray:
+    """Native-order kinematic parents of a joint count (24 / 52 / 55)."""
+    if nj == 24:
+        return SMPL_PARENTS
+    if nj in (52, 55):
+        from uhc_tpu_torch.smpl.smplh import SMPLH_PARENTS, SMPLX_PARENTS
+
+        return SMPLH_PARENTS if nj == 52 else SMPLX_PARENTS
+    raise ValueError(f"unsupported joint count {nj}")
+
+
+def _native_to_mujoco(nj: int) -> np.ndarray:
+    """MuJoCo body index -> native joint index of a joint count."""
+    if nj == 24:
+        return np.asarray(SMPL_2_MUJOCO)
+    from uhc_tpu_torch.smpl.smplh import SMPLH_2_MUJOCO, SMPLX_2_MUJOCO
+
+    return {52: SMPLH_2_MUJOCO, 55: SMPLX_2_MUJOCO}[nj]
 
 
 def shaped_vertices(data: SMPLData, betas) -> torch.Tensor:
@@ -144,20 +180,20 @@ def shaped_vertices(data: SMPLData, betas) -> torch.Tensor:
 
 
 def shaped_joints(data: SMPLData, betas) -> torch.Tensor:
-    """(24, 3) zero-pose joints in SMPL bone order."""
+    """(nj, 3) zero-pose joints in native bone order."""
     return data.j_regressor @ shaped_vertices(data, betas)
 
 
 def lbs(data: SMPLData, pose_aa, betas, trans: Optional[Any] = None):
     """Linear blend skinning over a batch of frames.
 
-    pose_aa: (..., 24, 3) axis-angle in SMPL bone order; betas:
-    (n_betas,); trans: (..., 3). Returns (vertices (..., V, 3), joints
-    (..., 24, 3)) in world space."""
+    pose_aa: (..., nj, 3) axis-angle in native bone order (nj from the
+    model data: 24, 52 or 55); betas: (n_betas,); trans: (..., 3).
+    Returns (vertices (..., V, 3), joints (..., nj, 3)) in world space."""
     pose_aa = torch.as_tensor(pose_aa, dtype=torch.float32)
     verts0 = shaped_vertices(data, betas)
     joints0 = data.j_regressor @ verts0
-    parents = _parents(joints0.shape[0])
+    parents = _parents_for(joints0.shape[0])
     quats = quat_from_rotvec(pose_aa)                 # (..., nj, 4)
     lead = quats.shape[:-2]
     gquat = [quats[..., 0, :]]
@@ -196,3 +232,22 @@ def mujoco_offsets_from_betas(data: SMPLData, betas):
     off = joints - torch.where((parents >= 0)[:, None], par,
                                torch.zeros_like(par))
     return off, joints[0]
+
+
+def smplh_offsets_from_betas(data: SMPLData, betas):
+    """Exact bone offsets of the SMPL-H / SMPL-X families from model data
+    (uhc_tpu/smpl/lbs.py:252): ({body name: (3,) offset from its parent
+    joint} over every non-root body, the (3,) root joint), for
+    `smpl.smplh.smplh_model` / `smplx_model`'s finger_offsets."""
+    from uhc_tpu_torch.smpl.smplh import (SMPLH_BONE_ORDER_NAMES,
+                                          SMPLX_BONE_ORDER_NAMES)
+
+    nj = int(data.j_regressor.shape[0])
+    if nj not in (52, 55):
+        raise ValueError(f"expected 52/55-joint data, got {nj}")
+    names = SMPLH_BONE_ORDER_NAMES if nj == 52 else SMPLX_BONE_ORDER_NAMES
+    parents = _parents_for(nj)
+    joints = shaped_joints(data, betas).numpy()
+    offsets = {names[i]: (joints[i] - joints[int(parents[i])]).astype(
+        np.float32) for i in range(1, nj)}
+    return offsets, joints[0].astype(np.float32)

@@ -5,8 +5,10 @@ A body shape is data: `model_from_betas` maps SMPL betas to a `Model` of
 the same layout as the base model. Joint offsets are exact (shape
 blendshapes + joint regressor); COM, mass, inertia, contact points and
 self-collision spheres are the base body's, scaled per body by the ratio
-of skinned vertex extents (mass ~ s³, inertia ~ s⁵). The exact hull mass
-properties of `uhc_tpu.smpl.robot.model_from_betas_exact` are not ported.
+of skinned vertex extents (mass ~ s³, inertia ~ s⁵).
+`model_from_betas_exact` replaces the scaled mass, COM, inertia and
+principal frame of every body with those of the convex hull of its
+shaped vertices (host-side, once per shape, with scipy's Qhull).
 """
 from __future__ import annotations
 
@@ -97,3 +99,55 @@ def rel_joint_ranges(topo: Topology, base_model: Model) -> torch.Tensor:
             for k in range(3):
                 jr[base + k] = rows[k]
     return torch.as_tensor(jr)
+
+
+def model_from_betas_exact(topo: Topology, base_model: Model, data: SMPLData,
+                           betas, assignment: np.ndarray,
+                           density: float = 1000.0,
+                           rel_joint_lm: bool = True) -> Model:
+    """`model_from_betas` with exact per-body hull mass properties
+    (uhc_tpu/smpl/robot.py:107): each body's assigned shaped vertices,
+    relative to its joint, span a convex hull (scipy's Qhull); its
+    triangles, oriented outward against the hull's vertex centroid, give
+    the solid's mass, COM and inertia at `density`
+    (`mesh.mesh_mass_properties`), diagonalized into moments and a
+    principal-frame quaternion. A body with fewer than 8 vertices, a flat
+    hull or a non-positive moment keeps its scaled values. With
+    rel_joint_lm the anatomical joint ranges of `rel_joint_ranges` too."""
+    from scipy.spatial import ConvexHull
+
+    from uhc_tpu_torch.smpl.mesh import (mesh_mass_properties,
+                                         principal_inertia)
+
+    m = model_from_betas(topo, base_model, data, betas, assignment)
+    if rel_joint_lm:
+        m = dataclasses.replace(m, jnt_range=rel_joint_ranges(topo, m))
+    verts = shaped_vertices(data, betas).numpy()
+    joints = shaped_joints(data, betas).numpy()[SMPL_2_MUJOCO]
+    assignment = np.asarray(assignment)
+    out = {k: getattr(m, k).numpy().copy()
+           for k in ("body_mass", "body_ipos", "body_inertia", "body_iquat")}
+    for b in range(topo.nbody):
+        pts = verts[assignment == b] - joints[b]
+        if len(pts) < 8:
+            continue
+        try:
+            hull = ConvexHull(pts)
+        except RuntimeError:          # Qhull's error: a flat point set
+            continue
+        tris = pts[hull.simplices]
+        cen = pts[hull.vertices].mean(0)
+        n = np.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0])
+        flip = np.einsum("ij,ij->i", n, tris[:, 0] - cen) < 0
+        tris[flip] = tris[flip][:, [0, 2, 1]]
+        mass, com, inertia = mesh_mass_properties(tris, density)
+        if mass <= 0 or not np.all(np.isfinite(inertia)):
+            continue
+        diag, q = principal_inertia(inertia)
+        if np.any(diag <= 0):
+            continue
+        for k, v in (("body_mass", mass), ("body_ipos", com),
+                     ("body_inertia", diag), ("body_iquat", q)):
+            out[k][b] = v
+    return dataclasses.replace(m, **{k: torch.as_tensor(v)
+                                     for k, v in out.items()})

@@ -1,7 +1,9 @@
 """SMPL-H: the 52-body humanoid with articulated hands, and SMPL-X, the
 55-body one with a jaw and two eyes (PyTorch twin of uhc_tpu.smpl.smplh
-smplh_topology / default_finger_offsets / smplh_model / smplh_to_qpose /
-smplh_diff_weights / smplx_topology / smplx_model / smplx_to_qpose).
+smplh_topology / default_finger_offsets / smplh_model /
+smplh_model_from_data / smplh_to_qpose / smplh_diff_weights /
+ee_indices_smplh / smplx_topology / smplx_model / smplx_model_from_data /
+smplx_to_qpose).
 
 Reference: uhc/smpllib/smpl_parser.py:42 SMPLH_BONE_ORDER_NAMES; per-finger
 gain tables uhc/smpllib/smpl_mujoco.py:93-200 (the port's copy:
@@ -14,7 +16,10 @@ depth-first traversal of the joint tree with children in native order, so
 every finger chain, like every subtree, is one contiguous index range.
 
 No SMPL-H model data is in the repository, so finger joint offsets are
-anthropometric chains derived from the base model's wrist->hand offset.
+by default anthropometric chains derived from the base model's
+wrist->hand offset; `smplh_model_from_data` / `smplx_model_from_data`
+take every bone offset from SMPL-H / SMPL-X model data instead
+(`smpl.lbs.load_smplh_data`), as the reference's SMPLH_Parser does.
 
 SMPL-X (reference smpl_parser.py:97 SMPLX_BONE_ORDER_NAMES) inserts Jaw,
 L_Eye_Smplhf and R_Eye_Smplhf after the 22 body joints, all three hanging
@@ -71,6 +76,11 @@ def _dfs_order_generic(parents) -> np.ndarray:
 
     visit(0)
     return np.asarray(order, np.int32)
+
+
+def _dfs_order() -> list:
+    """The SMPL-H depth-first body order (uhc_tpu/smpl/smplh.py:49)."""
+    return _dfs_order_generic(SMPLH_PARENTS).tolist()
 
 
 SMPLH_2_MUJOCO = _dfs_order_generic(SMPLH_PARENTS)     # mujoco idx -> native
@@ -232,6 +242,58 @@ def smplh_to_qpose(pose_aa, root_offset, trans=None, count_offset=True,
                          device=device)
     pos = trans + ro if count_offset else trans
     return torch.cat([pos, quats[:, 0], eulers.reshape(T, -1)], 1)
+
+
+def smplh_model_from_data(topo24: Topology, base_model: Model, smplh_data,
+                          betas=None) -> Model:
+    """The 52-body Model with every bone offset exact from SMPL-H model
+    data (`smpl.lbs.smplh_offsets_from_betas` at `betas`, zeros by
+    default; reference SMPLH_Parser.get_mesh_offsets ->
+    Robot.load_from_skeleton)."""
+    from uhc_tpu_torch.smpl.lbs import smplh_offsets_from_betas
+
+    if betas is None:
+        betas = np.zeros(smplh_data.shapedirs.shape[-1], np.float32)
+    return smplh_model(topo24, base_model,
+                       smplh_offsets_from_betas(smplh_data, betas)[0])
+
+
+def smplx_model_from_data(topo24: Topology, base_model: Model, smplx_data,
+                          betas=None) -> Model:
+    """The 55-body twin of `smplh_model_from_data` from SMPL-X model data
+    (reference SMPLX_Parser.get_mesh_offsets)."""
+    from uhc_tpu_torch.smpl.lbs import smplh_offsets_from_betas
+
+    if betas is None:
+        betas = np.zeros(smplx_data.shapedirs.shape[-1], np.float32)
+    return smplx_model(topo24, base_model,
+                       smplh_offsets_from_betas(smplx_data, betas)[0])
+
+
+def ee_indices_smplh() -> np.ndarray:
+    """The SMPL end effectors' indices on the SMPL-H tree."""
+    from uhc_tpu_torch.smpl.constants import SMPL_EE_NAMES
+
+    return np.array([SMPLH_MUJOCO_NAMES.index(n) for n in SMPL_EE_NAMES],
+                    np.int32)
+
+
+def qpos_to_smplh(qpos, root_offset):
+    """(T, 160) SMPL-H qpos -> ((T, 52, 3) axis-angle in SMPL-H native
+    order, (T, 3) trans); the inverse of smplh_to_qpose with
+    count_offset (the vertex metrics of an SMPL-H run)."""
+    from uhc_tpu_torch.maths import quat_from_euler_zyx, quat_to_rotvec
+
+    qpos = torch.as_tensor(qpos, dtype=torch.float32)
+    T = qpos.shape[0]
+    trans = qpos[:, :3] - torch.as_tensor(np.asarray(root_offset),
+                                          dtype=torch.float32,
+                                          device=qpos.device)
+    quats = torch.cat([qpos[:, None, 3:7], quat_from_euler_zyx(
+        qpos[:, 7:].reshape(T, NUM_SMPLH_BODIES - 1, 3))], 1)
+    rv = quat_to_rotvec(quats)                           # MuJoCo order
+    return rv[:, torch.as_tensor(MUJOCO_2_SMPLH.astype(np.int64),
+                                 device=qpos.device)], trans
 
 
 def smplh_diff_weights():
