@@ -47,8 +47,14 @@ K2-55, each kernel held against its plain versions on that model), K1e
 over an exact-mass shaped library (hull mass properties per body, the
 library's eval of the 8 shape clips), and the ball-joint family (`--cfg
 ball`: training and the six-clip eval on the torque route, which runs no
-kernel, and its step held against its plain versions) -- checks their
-output, and times the kernels at B=2048 (and the big trees' at B=512).
+kernel, and its step held against its plain versions), and remove_toe's
+22-body tree (smpl/local_robot.py) through the -DNB=22 build of every
+kernel (K1, K1f, K1e over a 2-model library and K2's head and tail, each
+held against its plain versions and driven by the env's rollout of 512
+envs × 32 steps), with K1 on the capsule and box_feet variants; K2's head
+state is held on every tree -- checks their output, and times the kernels
+at B=2048 (and the big trees' at B=512). A 32-body build is compiled and
+sized only, the largest tree of the small-tree layout.
 Whatever the phases write goes to temporary directories.
 
 Usage: python3 chip_smoke.py [--parent SRC] (needs one CUDA card).
@@ -91,6 +97,11 @@ QPOS_TOL, QVEL_TOL = 1e-5, 1e-3
 # (tests/test_torch_control_step_split.py).
 X_REL_TOL = 1e-4
 B_CHECK, B_TIME = 256, 2048
+# phase k2_big's draw for the big trees' heads: float32 arithmetic misses
+# the float64 bounds after one substep on some 0.4 % of masterfoot's envs,
+# so gate_big's count rule needs thousands of envs to tell two float32
+# computations apart (PERF.md §2)
+B_HEAD = 4096
 TRAIN_ARGS = ["--num-envs", "1024", "--horizon", "48", "--no-train-eval"]
 SHAPE_CLIPS = "sample_data/shape_clips.pkl"
 # the shape run of the JAX package (tools/train_queue.sh:36-38)
@@ -100,6 +111,9 @@ SHAPE_TRAIN_ARGS = ["--cfg", "uhc_implicit_shape", "--motion-file",
 DR_TRAIN_ARGS = TRAIN_ARGS + ["--dr-variants", "4"]
 # the kernel builds: the 24-body humanoid, masterfoot, SMPL-H, SMPL-X
 BODIES = (24, 48, 52, 55)
+# remove_toe's 22-body tree (phase remove_toe), and the largest tree of the
+# small-tree layout, built and sized only (no tree of 32 bodies exists)
+TOE_BODIES, COMPILE_ONLY_BODIES = 22, (32,)
 BIG = (("smplh", 52), ("masterfoot", 48))
 SMPLX_BODIES = 55
 # phase rollout_smplx: the big trees' rollout size (SMPLH_TRAIN_ARGS)
@@ -131,6 +145,7 @@ SCHED_QPOS_TOL, SCHED_QVEL_TOL = 2e-3, 0.2
 K1G_CHAIN = 15
 
 _phase = ["start"]
+_T0 = time.perf_counter()       # phase lines print the seconds since here
 TRAIN_RATES = {}     # phase -> per-epoch rollout rates and PPO times
 
 
@@ -144,7 +159,8 @@ def _on_alarm(signum, frame):
 
 def phase(name: str, detail: str = "") -> None:
     _phase[0] = name
-    print(f"phase {name} {detail}".rstrip(), flush=True)
+    print(f"phase {name} {detail} [{time.perf_counter() - _T0:.1f} s]"
+          .replace("  [", " ["), flush=True)
 
 
 def done(name: str, **numbers) -> None:
@@ -202,6 +218,12 @@ COUNTERS = {"k1": ("step", 24, False), "k2_head": ("head", 24, False),
             "k2_head_smplx": ("head", SMPLX_BODIES, False),
             "k2_tail_smplx": ("tail", SMPLX_BODIES, False),
             "k1_smplx": ("step", SMPLX_BODIES, False),
+            # remove_toe's 22 bodies: K1, K1f, K2's head and tail, K1e
+            "k1_22": ("step", TOE_BODIES, False),
+            "k1f_22": ("k1f", TOE_BODIES, False),
+            "k2_head_22": ("head", TOE_BODIES, False),
+            "k2_tail_22": ("tail", TOE_BODIES, False),
+            "k1e_22": ("step", TOE_BODIES, True),
             # K2b: head, tail and the one-launch form (split=False)
             **{f"{name}_{tree}": (entry, nb, False) for tree, nb in K2B_TREES
                for name, entry in (("k2b_head", "head_bf16"),
@@ -467,11 +489,12 @@ def draw_big_states(lib, nv, B, gen, dev):
             lib["qpos"][si, ti + 1, 7:].contiguous())
 
 
-def k1d_draws(dev):
-    """The draws of phase k1d_vs_plain, one case after another: (family,
+def k1d_draws(dev, B=B_CHECK):
+    """The draws of phase k1d_vs_plain (B_CHECK envs each; phase k2_big
+    draws its heads' B_HEAD envs so), one case after another: (family,
     mode, topo, env cfg, model, (qpos, qvel, actions, target_base)) for
-    SMPL-H and masterfoot, plain PD and meta-PD, B_CHECK envs each, made
-    on the host from one seeded generator and moved to `dev`."""
+    SMPL-H and masterfoot, plain PD and meta-PD, B envs each, made on the
+    host from one seeded generator and moved to `dev`."""
     import torch
 
     from uhc_tpu_torch.physics import solver
@@ -481,11 +504,9 @@ def k1d_draws(dev):
         for mode in ("plain_pd", "meta_pd"):
             btopo, benv, bmodel, blib = big_tree(fam, dev,
                                                  mode == "meta_pd")
-            qpos, qvel, tb = draw_big_states(blib, btopo.nv, B_CHECK, gen,
-                                             dev)
+            qpos, qvel, tb = draw_big_states(blib, btopo.nv, B, gen, dev)
             n_act = sum(solver.action_dims(btopo, benv))
-            act = (0.02 * torch.randn((B_CHECK, n_act),
-                                      generator=gen)).to(dev)
+            act = (0.02 * torch.randn((B, n_act), generator=gen)).to(dev)
             yield fam, mode, btopo, benv, bmodel, (qpos, qvel, act, tb)
 
 
@@ -563,11 +584,16 @@ def gate_big(name, out, plain32, plain64, moved) -> tuple:
       plain versions from the state moved by one or two float32 ulps)
       lands within the bounds of the kernel's;
     - the kernel may miss on no more envs than the float32 plain version
-      does, plus half that and one, and on at most one env in eight.
+      does, plus half that and one (the count rule), and on at most one env
+      in eight.
     Every missed env is printed: the kernel's and the float32 plain
     version's distances from the float64 one, the rule it passed by, and
     for a witness the nearest moved step (in units of the bounds) and how
-    many moved steps land within the bounds."""
+    many moved steps land within the bounds. The count rule compares
+    rates: where float32 misses on a few envs in a thousand (the
+    masterfoot head after one substep), it needs a draw of thousands of
+    envs (phase k2_big's B_HEAD).
+    """
     import torch
 
     def per_env(a, b):
@@ -2026,6 +2052,415 @@ def obs_families(dev) -> tuple:
     return got, numbers
 
 
+def bound(flops, nbytes) -> dict:
+    """The least time of `flops` float32 operations and `nbytes` of
+    device memory traffic on the card: the larger of the two, and which."""
+    t_op, t_by = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+    return {"flops": flops, "bytes": nbytes,
+            "bound_ms": 1e3 * max(t_op, t_by),
+            "bound_by": "operations" if t_op >= t_by else "bytes"}
+
+
+def remove_toe_tree(dev):
+    """remove_toe's 22-body tree of the stand-in (smpl/local_robot.py) ->
+    (topo, model on `dev`, expert library of the gait clips mapped
+    through SMPLConverter, the converter's (jpos, body) diff weights)."""
+    import numpy as np
+    import torch
+
+    from uhc_tpu_torch.data.dataset import (build_expert_library,
+                                            load_motion_file)
+    from uhc_tpu_torch.physics.model import model_from_numpy
+    from uhc_tpu_torch.smpl.converter import SMPLConverter
+    from uhc_tpu_torch.smpl.fixture_humanoid import load_fixture_humanoid
+    from uhc_tpu_torch.smpl.local_robot import remove_toe_model
+
+    t24, m24 = load_fixture_humanoid()
+    topo, m_np = remove_toe_model(t24, m24)
+    model = model_from_numpy(m_np, dev)
+    conv = SMPLConverter(t24, topo)
+    motion = load_motion_file("sample_data/gait_clips.pkl")
+    lib, _ = build_expert_library(topo, model, motion, converter=conv,
+                                  base_root_offset=np.asarray(
+                                      m24.body_pos)[0])
+    jpw = torch.as_tensor(conv.get_new_diff_weight().astype(np.float32),
+                          device=dev)
+    return topo, model, lib, (jpw, jpw[1:].contiguous())
+
+
+def toe_library(model, rows: int = 2):
+    """`rows` remove_toe models that differ only in body_mass (a leaf K1e
+    gathers), scaled from 1 to 1.25."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(model, body_mass=torch.stack(
+        [model.body_mass * s for s in torch.linspace(1.0, 1.25, rows)
+         .tolist()]))
+
+
+def launched(name, want_counts, out):
+    """Fail unless the launches since reset_counts() are `want_counts`
+    and every output is finite."""
+    import torch
+
+    torch.cuda.synchronize()
+    if counts() != want_counts or not all(bool(torch.isfinite(t).all())
+                                          for t in out):
+        raise RuntimeError(f"{name}: launches {counts()} (expected "
+                           f"{want_counts}) or output not finite")
+
+
+def remove_toe_check(topo, model, lib, dev) -> tuple:
+    """The 22-body kernels against their float32 and float64 plain
+    versions on B_CHECK clip-frame states of the tree (plain PD and
+    meta-PD): K1-22 at (1, 2) by `gate`; K2-22 at PCG-2, its tail by
+    `gate`, its head's state by `gate` against the plain head and its
+    Xp/Xf by `x_check`, head + tail equal to K1-22 at (2, 2) bit for bit;
+    K1e-22 over the 2-model `toe_library` by `gate`; K1f-22 under the
+    explicit config by `gate`, one env in K1F_LOWERED lowered; one launch
+    each -> (errors, failures)."""
+    import dataclasses
+
+    import torch
+
+    from uhc_tpu_torch.config.config import Config
+    from uhc_tpu_torch.physics import control_step as CS
+    from uhc_tpu_torch.physics import control_step_split as K2
+
+    gen = torch.Generator().manual_seed(31)
+    errs, fails = {}, []
+    plain_env = Config.uhc_implicit().env
+    lib2 = toe_library(model)
+    for mode, env in (("plain_pd", plain_env),
+                      ("meta_pd", dataclasses.replace(plain_env,
+                                                      meta_pd=True))):
+        step = CS.ControlStep(topo, env, model, (1, 2))
+        qpos, qvel, tb = draw_big_states(lib, topo.nv, B_CHECK, gen, dev)
+        act = (0.02 * torch.randn((B_CHECK, step.act_dim),
+                                  generator=gen)).to(dev)
+        ins = (qpos, qvel, act, tb)
+        reset_counts()
+        out = step(*ins, 1.0)
+        launched(f"K1-22 {mode}", expect(1, "k1_22"), out)
+        e, f = gate(f"K1-22 {mode}", out, *plain_pair(topo, env, model, ins,
+                                                     (1, 2)))
+        errs[f"k1_{mode}"], fails = e, fails + f
+
+        split = K2.ControlStepSplit(topo, env, model, 2)
+        reset_counts()
+        qh, vh, X = split.head(*ins, 1.0)
+        q2, v2 = split.tail(qh, vh, act, tb, X, 1.0)
+        launched(f"K2-22 {mode}", expect(1, "k2_head_22", "k2_tail_22"),
+                 (q2, v2, X))
+        q1, v1 = CS.ControlStep(topo, env, model, (2, 2))(*ins, 1.0)
+        torch.cuda.synchronize()
+        if not (torch.equal(q1, q2) and torch.equal(v1, v2)):
+            raise RuntimeError(
+                f"K2-22 {mode}: head + tail differ from K1-22 at (2, 2): "
+                f"|dqpos| {(q1 - q2).abs().max().item()}, |dqvel| "
+                f"{(v1 - v2).abs().max().item()}")
+        e, f = gate(f"K2-22 tail {mode}", (q2, v2),
+                    *plain_pair(topo, env, model, ins, (2, 2)))
+        h32, h64 = head_references(topo, env, model, ins)
+        eh, fh = gate(f"K2-22 head {mode}", (qh, vh), h32[:2], h64[:2])
+        e.update(x_check(f"K2-22 {mode}", X, h32[2], h64[2], f), head=eh,
+                 split_equals_k1=True)
+        errs[f"k2_{mode}"], fails = e, fails + f + fh
+
+        seq = (torch.arange(B_CHECK, dtype=torch.int32) % 2).to(dev)
+        reset_counts()
+        e, f = k1e_check(topo, env, lib2, (*ins, seq), f"22 bodies {mode}")
+        launched(f"K1e-22 {mode}", expect(1, "k1e_22"), ())
+        errs[f"k1e_{mode}"], fails = e, fails + f
+
+    env = k1f_modes()["explicit"]
+    step = CS.ControlStep(topo, env, model, (1, 2))
+    ins = k1f_draw(topo, env, lib, B_CHECK, gen, dev)
+    reset_counts()
+    out = step(*ins, 1.0)
+    launched("K1f-22 explicit", expect(1, "k1f_22"), out)
+    e, f = gate("K1f-22 explicit", out, *plain_pair(topo, env, model, ins,
+                                                   (1, 2)))
+    e["act_dim"] = step.act_dim
+    errs["k1f_explicit"], fails = e, fails + f
+    return errs, fails
+
+
+# the rollouts of phase remove_toe: the route's name, its config and
+# UHC_TPU_LANE, whether it runs over a model library, its counters
+TOE_ROLLOUTS = (("k1", "uhc_implicit", None, False, ("k1_22",)),
+                ("k1f", "explicit", None, False, ("k1f_22",)),
+                ("k1e", "uhc_implicit", None, True, ("k1e_22",)),
+                ("k2", "uhc_implicit", "0", False,
+                 ("k2_head_22", "k2_tail_22")))
+
+
+def toe_rollouts(topo, model, lib, diffw, dev) -> dict:
+    """The env's main path on remove_toe's tree, once per route:
+    `make_env_step_batched(topo, cfg, fused_model=...)` through
+    learn/rollout.py, SMPLX_ROLLOUT envs × steps with a fresh seeded policy
+    at the config's widths and the converter's (jpos, body) diff weights
+    `diffw`: K1-22 at the default routing, K1f-22 under `explicit`, K1e-22
+    over a `toe_library` of one row per clip, K2-22 under UHC_TPU_LANE=0;
+    one launch of the route's kernels per step, none of any other and no
+    call of the plain chain; finite rewards and observations -> {route:
+    numbers}."""
+    import torch
+
+    from uhc_tpu_torch.config.config import EXPLICIT, Config
+    from uhc_tpu_torch.envs import humanoid_im as H
+    from uhc_tpu_torch.learn import nets, running_norm as RN
+    from uhc_tpu_torch.learn.rollout import init_env_states, make_rollout_fn
+    from uhc_tpu_torch.physics import solver
+
+    B, T = SMPLX_ROLLOUT
+    out = {}
+    jpw, bdw = diffw
+    for route, cfg_name, lane, library, routed in TOE_ROLLOUTS:
+        fused = (toe_library(model, lib["len"].shape[0]) if library
+                 else model)
+        cfg = (Config.from_dict("explicit", EXPLICIT)
+               if cfg_name == "explicit" else Config.uhc_implicit())
+        env = cfg.env
+        obs_dim = H.obs_dim(topo, env)
+        act_dim = sum(H.action_dims(topo, env))
+        if lane is not None:
+            os.environ["UHC_TPU_LANE"] = lane
+        try:
+            rollout = make_rollout_fn(
+                topo, env, nets.make_policy(
+                    cfg, obs_dim, act_dim, torch.Generator().manual_seed(32),
+                    dev), T, fused_model=fused)
+        finally:
+            os.environ.pop("UHC_TPU_LANE", None)
+        aux = {"neutral_qpos": lib["qpos"][0, 0],
+               "neutral_qvel": torch.zeros(topo.nv, device=dev),
+               "jpos_diffw": jpw, "body_diffw": bdw}
+        gen = torch.Generator(device=dev).manual_seed(32)
+        states = init_env_states(topo, env, fused, lib, aux, gen, B)
+        plain_calls = []
+        plain = solver.do_simulation
+
+        def counted(*a, **k):
+            plain_calls.append(1)
+            return plain(*a, **k)
+
+        reset_counts()
+        solver.do_simulation = counted
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, traj, last = rollout(
+                fused, lib, aux,
+                torch.full((act_dim,), cfg.log_std, device=dev),
+                RN.init(obs_dim, dev), states, gen, 1.0, 1.0,
+                torch.zeros(lib["len"].shape[0], device=dev))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            solver.do_simulation = plain
+        got = counts()
+        if got != expect(T, *routed) or plain_calls:
+            raise RuntimeError(f"remove_toe rollout {route}: launches {got}, "
+                               f"plain chain calls {len(plain_calls)}")
+        if not all(bool(torch.isfinite(t).all()) for t in (
+                traj.rewards, traj.states, last)):
+            raise RuntimeError(f"remove_toe rollout {route}: rewards or "
+                               "observations not finite")
+        out[route] = {"launches": {k: got[k] for k in routed},
+                      "cfg": cfg_name, "num_envs": B, "horizon": T,
+                      "obs_dim": obs_dim, "action_dim": act_dim,
+                      "env_steps_per_s": B * T / secs, "seconds": secs,
+                      "reward_mean": traj.rewards.mean().item(),
+                      "episodes_done": int(traj.dones.sum()),
+                      "plain_chain_calls": 0}
+    return out
+
+
+def toe_times(topo, model, lib, dev) -> dict:
+    """K1-22 at (1, 2), K1f-22 (explicit), K1e-22 over the 2-model
+    library and K2-22's head and tail at PCG-2 timed at B_TIME on
+    clip-frame states of the tree, each with its plain version's time and
+    its bound (`control_step_flops` of this draw's contacts; the bytes of
+    its inputs and outputs once, K2's Xp/Xf round trip included)."""
+    import torch
+
+    from uhc_tpu_torch.config.config import Config
+    from uhc_tpu_torch.physics import control_step as CS
+    from uhc_tpu_torch.physics import control_step_split as K2
+    from uhc_tpu_torch.physics import solver as SV
+    from uhc_tpu_torch.physics.model import model_gather
+
+    gen = torch.Generator().manual_seed(33)
+    env = Config.uhc_implicit().env
+    B = B_TIME
+    qpos, qvel, tb = draw_big_states(lib, topo.nv, B, gen, dev)
+    k1 = CS.ControlStep(topo, env, model, (1, 2))
+    act = (0.02 * torch.randn((B, k1.act_dim), generator=gen)).to(dev)
+    seq = (torch.arange(B, dtype=torch.int32) % 2).to(dev)
+    lib2 = toe_library(model)
+    k1e = CS.ControlStep(topo, env, lib2, (1, 2))
+    split = K2.ControlStepSplit(topo, env, model, 2)
+    envf = k1f_modes()["explicit"]
+    k1f = CS.ControlStep(topo, envf, model, (1, 2))
+    insf = k1f_draw(topo, envf, lib, B, gen, dev)
+    ins = (qpos, qvel, act, tb)
+
+    def io(step, extra=0, a=act):
+        return 4 * (qpos.numel() * 2 + qvel.numel() * 2 + a.numel()
+                    + tb.numel() + step.params.size + step.itab.size
+                    + extra)
+
+    def traced(env_cfg, m, args, pcg):
+        trace = []
+        SV.do_simulation(topo, env_cfg, m, *args, 1.0, pcg, trace=trace)
+        return trace
+
+    out = {"bodies": topo.nbody, "nv": topo.nv, "B": B}
+    k1(*ins, 1.0)
+    k1e(*ins, 1.0, seq)
+    k1f(*insf, 1.0)
+    qh, vh, X = split.head(*ins, 1.0)
+    split.tail(qh, vh, act, tb, X, 1.0)
+    torch.cuda.synchronize()
+    out["k1"] = {
+        "ms": cuda_ms(lambda: k1(*ins, 1.0), 10),
+        "plain_ms": cuda_ms(lambda: CS.control_step_reference(
+            topo, env, model, *ins, 1.0, (1, 2)), 2),
+        "bound": bound(CS.control_step_flops(
+            topo, env, traced(env, model, ins, (1, 2)), (1, 2)), io(k1))}
+    gathered = model_gather(lib2, seq.long())
+    out["k1e"] = {
+        "ms": cuda_ms(lambda: k1e(*ins, 1.0, seq), 10),
+        "plain_ms": cuda_ms(lambda: CS.control_step_reference(
+            topo, env, lib2, *ins, 1.0, (1, 2), seq), 2),
+        "bound": bound(CS.control_step_flops(
+            topo, env, traced(env, gathered, ins, (1, 2)), (1, 2)),
+            io(k1e, B))}
+    vfx, gains = CS.k1f_operands(topo, envf, model, insf[2])
+    operands = sum(x.numel() for x in (vfx, gains) if x is not None)
+    out["k1f"] = {
+        "ms": cuda_ms(lambda: k1f(*insf, 1.0), 10),
+        "plain_ms": cuda_ms(lambda: CS.control_step_reference(
+            topo, envf, model, *insf, 1.0, (1, 2)), 2),
+        "bound": bound(CS.control_step_flops(
+            topo, envf, traced(envf, model, insf, (1, 2)), (1, 2)),
+            io(k1f, operands, insf[2]))}
+    trace2 = traced(env, model, ins, (2, 2))
+    out["k2"] = {
+        "head_ms": cuda_ms(lambda: split.head(*ins, 1.0), 10),
+        "tail_ms": cuda_ms(lambda: split.tail(qh, vh, act, tb, X, 1.0), 10),
+        "plain_head_ms": cuda_ms(lambda: K2.head_reference(
+            topo, env, model, *ins, 1.0, 2), 2),
+        "plain_tail_ms": cuda_ms(lambda: K2.tail_reference(
+            topo, env, model, qh, vh, act, tb, X, 1.0, 2), 2),
+        "bound": {part: bound(CS.control_step_flops(
+            topo, env, tr, (2, 2), start), io(split, X.numel()))
+            for part, tr, start in (("head", trace2[:1], 0),
+                                    ("tail", trace2[1:], 1))}}
+    for k in ("k1", "k1e", "k1f"):
+        out[k]["substeps_per_s"] = B * env.frame_skip / (out[k]["ms"] / 1e3)
+    return out
+
+
+def variant_draws(topo, model, lib, dev):
+    """The draws of the variant check, one variant after another: (name,
+    variant model on `dev`, (qpos, qvel, actions, target_base)) of B_CHECK
+    gait-frame states for the capsule_model and box_feet_model variants
+    of the stand-in (smpl/local_robot.py: the contact sets change, the
+    tree does not), made on the host from one seeded generator."""
+    import torch
+
+    from uhc_tpu_torch.config.config import Config
+    from uhc_tpu_torch.physics.model import model_from_numpy
+    from uhc_tpu_torch.physics.solver import action_dims
+    from uhc_tpu_torch.smpl import local_robot as L
+
+    gen = torch.Generator().manual_seed(34)
+    n_act = sum(action_dims(topo, Config.uhc_implicit().env))
+    for name in ("capsule", "box_feet"):
+        vmodel = model_from_numpy(getattr(L, f"{name}_model")(topo, model),
+                                  dev)
+        qpos, qvel, tb = draw_states(lib, B_CHECK, gen, dev)
+        act = (0.02 * torch.randn((B_CHECK, n_act), generator=gen)).to(dev)
+        yield name, vmodel, (qpos, qvel, act, tb)
+
+
+def variant_check(topo, model, lib, dev) -> dict:
+    """K1 (24 bodies, (1, 2)) over the capsule_model and box_feet_model
+    variants on `variant_draws` against its float32 and float64 plain
+    versions -> (errors, failures). box_feet is held by `gate`. capsule
+    by `gate_big` (witnesses at (1, 2)): env 230 of its draws is a state
+    where the (1, 2) step grows a 1-2-ulp move of the state past the
+    bounds (a stale preconditioner under few PCG iterations, no contact
+    switch), so every float32 computation of it, the plain version's too,
+    lands off the float64 one and off the others; the host build of K1
+    fails `gate` there and passes `gate_big`
+    (tests/test_torch_variant_gate.py)."""
+    import torch
+
+    from uhc_tpu_torch.config.config import Config
+    from uhc_tpu_torch.physics import control_step as CS
+
+    env = Config.uhc_implicit().env
+    errs, fails = {}, []
+    for name, vmodel, ins in variant_draws(topo, model, lib, dev):
+        step = CS.ControlStep(topo, env, vmodel, (1, 2))
+        reset_counts()
+        out = step(*ins, 1.0)
+        launched(f"K1 {name}", expect(1, "k1"), out)
+        plain = plain_pair(topo, env, vmodel, ins, (1, 2))
+        if name == "capsule":
+            e, f = gate_big(f"K1 {name}", out, *plain, lambda ev, m=vmodel,
+                            ins=ins: [moved_steps(topo, env, m, ins, ev, dt,
+                                                  pcg_iters=(1, 2))
+                                      for dt in (torch.float64,
+                                                 torch.float32)])
+        else:
+            e, f = gate(f"K1 {name}", out, *plain)
+        e["contact_points"] = int(vmodel.contact_mask.sum().item())
+        errs[name], fails = e, fails + f
+    return errs, fails
+
+
+def toe_rows(src, k2_src, errs, rollouts, t) -> list:
+    """The kernels-line rows of the 22-body kernels: launches from phase
+    remove_toe's rollouts, errors from its checks, times `t` at
+    B_TIME."""
+    def err(prefix, key=None):
+        return max(v for m, e in errs.items() if m.startswith(prefix)
+                   for y in ("kernel_vs_plain64", "kernel_vs_plain32")
+                   for v in (e if key is None else e[key])[y])
+
+    rows = [("control_step_remove_toe", "uhc_tpu/physics/pallas_lane.py:83",
+             rollouts["k1"]["launches"]["k1_22"], err("k1_"), t["k1"]),
+            ("control_step_explicit_remove_toe",
+             "uhc_tpu/physics/pallas_lane.py:127",
+             rollouts["k1f"]["launches"]["k1f_22"], err("k1f_"), t["k1f"]),
+            ("control_step_per_env_remove_toe",
+             "uhc_tpu/physics/pallas_lane.py:176",
+             rollouts["k1e"]["launches"]["k1e_22"], err("k1e_"), t["k1e"])]
+    out = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": n, "max_abs_err": e, "ms": tm["ms"],
+            "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"]["bound_ms"],
+            "bound_by": tm["bound"]["bound_by"], "library_ms": None}
+           for name, rep, n, e, tm in rows]
+    for part in ("head", "tail"):
+        out.append({
+            "name": f"control_step_{part}_remove_toe", "route": "cuda",
+            "source": src, "replaces": k2_src,
+            "launches": rollouts["k2"]["launches"][f"k2_{part}_22"],
+            "max_abs_err": err("k2_", "head" if part == "head" else None),
+            "ms": t["k2"][f"{part}_ms"],
+            "plain_ms": t["k2"][f"plain_{part}_ms"],
+            "bound_ms": t["k2"]["bound"][part]["bound_ms"],
+            "bound_by": t["k2"]["bound"][part]["bound_by"],
+            "library_ms": None})
+    return out
+
+
 def run(parent=None) -> int:
     """Every phase; `parent` is --parent's source, or None."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2055,8 +2490,8 @@ def run(parent=None) -> int:
          cuda=torch.version.cuda, numpy=np.__version__,
          python=sys.version.split()[0], count=torch.cuda.device_count())
 
-    phase("build", "(nvcc, sm_90a; 24, 48, 52 and 55 bodies, one nvcc "
-                   "each, at once)")
+    phase("build", "(nvcc, sm_90a; 22, 24, 48, 52 and 55 bodies and 32 "
+                   "bodies built and sized only, one nvcc each, at once)")
     from uhc_tpu_torch.csrc import build
 
     t0 = time.perf_counter()
@@ -2065,7 +2500,8 @@ def run(parent=None) -> int:
         # the --parent build's nvcc run beside this checkout's
         parent_build = (pool.submit(build.build_libraries, (24, *big_nb),
                                     parent) if parent else None)
-        libs = build.build_libraries(BODIES)
+        libs = build.build_libraries((TOE_BODIES, *BODIES,
+                                      *COMPILE_ONLY_BODIES))
         parent_libs = parent_build.result() if parent else None
     lib_cuda = libs[24]
 
@@ -2084,9 +2520,23 @@ def run(parent=None) -> int:
     jg_smpl = int(jacobian_tables(Topology(
         24, tuple(MUJOCO_PARENTS.tolist()), ("",) * 24))[0][-1])
     occ24 = build.occupancy(lib_cuda, jg_smpl)
+    # the small trees: remove_toe's 22 bodies on its own J6 / G, and the
+    # 32-body build at a chain's J6 / G, the most a 32-body tree needs
+    from uhc_tpu_torch.physics.control_step import max_jacobian_pairs
+    from uhc_tpu_torch.smpl.fixture_humanoid import load_fixture_humanoid
+    from uhc_tpu_torch.smpl.local_robot import remove_toe_model
+
+    jg_small = {TOE_BODIES: int(jacobian_tables(remove_toe_model(
+        *load_fixture_humanoid())[0])[0][-1]),
+        **{nb: 6 * max_jacobian_pairs(nb) for nb in COMPILE_ONLY_BODIES}}
+    small = {nb: {"layout": build.layout(libs[nb]), "ptxas": ptxas(nb),
+                  "jg_floats": jg,
+                  "occupancy": build.occupancy(libs[nb], jg),
+                  "seconds": build.build_log.get(("cuda", nb), {}).get(
+                      "seconds")} for nb, jg in jg_small.items()}
     done("build", seconds=time.perf_counter() - t0,
          layout=build.layout(lib_cuda), ptxas=ptxas(24),
-         jg_floats=jg_smpl, occupancy=occ24,
+         jg_floats=jg_smpl, occupancy=occ24, small=small,
          big={nb: {"layout": build.layout(libs[nb]), "ptxas": ptxas(nb),
                    "occupancy": build.occupancy(libs[nb]),
                    "seconds": build.build_log.get(("cuda", nb), {}).get(
@@ -2096,11 +2546,15 @@ def run(parent=None) -> int:
              **{nb: {"layout": build.layout(parent_libs[nb]), "ptxas":
                      ptxas(build.library_key("cuda", nb, parent))}
                 for nb in (24, *big_nb)}})
-    one_block = {e: o["blocks_per_sm"] for e, o in occ24.items()
-                 if o["blocks_per_sm"] < 2}
-    if one_block:
-        raise RuntimeError(f"24 bodies: fewer than 2 blocks per SM on the "
-                           f"SMPL tree: {one_block}")
+    # two blocks per SM at 24 and 22 bodies, one at least at 32
+    for nb, occ, least in ((24, occ24, 2),
+                           *((n, small[n]["occupancy"],
+                              2 if n == TOE_BODIES else 1) for n in small)):
+        few = {e: o["blocks_per_sm"] for e, o in occ.items()
+               if o["blocks_per_sm"] < least}
+        if few:
+            raise RuntimeError(f"{nb} bodies: fewer than {least} blocks per "
+                               f"SM: {few}")
 
     phase("kernel_vs_plain", f"(B={B_CHECK}, plain PD and meta-PD)")
     from uhc_tpu_torch.config.config import Config
@@ -2157,9 +2611,11 @@ def run(parent=None) -> int:
             max_err = max(max_err, dq, dv)
     done("kernel_vs_plain", **errs, qpos_tol=QPOS_TOL, qvel_tol=QVEL_TOL)
 
-    phase("k2_vs_plain", f"(B={B_CHECK}, the same draws, schedule (2, 2))")
+    phase("k2_vs_plain", f"(B={B_CHECK}, the same draws, schedule (2, 2); "
+                         "the head's state by gate)")
     k2_err = {"head": 0.0, "tail": 0.0}
     errs2 = {}
+    head_fails = []
     for mode, (env_cfg, qpos, qvel, act, tb) in draws.items():
         split = K2.ControlStepSplit(topo, env_cfg, model, 2)
         qh, vh, X = split.head(qpos, qvel, act, tb, 1.0)
@@ -2181,6 +2637,11 @@ def run(parent=None) -> int:
                                            act, tb, 1.0, (2, 2))
         qh64, vh64, X64 = K2.head_reference(topo, env_cfg, model64, *ins64,
                                             1.0, 2)
+        qh32, vh32, _ = K2.head_reference(topo, env_cfg, model, qpos, qvel,
+                                          act, tb, 1.0, 2)
+        head_gate, fails = gate(f"K2 head {mode}", (qh, vh), (qh32, vh32),
+                                (qh64, vh64))
+        head_fails += fails
         scale = X64.abs().amax((2, 3), keepdim=True)
         errs2[mode] = {
             "split_vs_plain64": [(q2.double() - q64).abs().max().item(),
@@ -2194,7 +2655,7 @@ def run(parent=None) -> int:
             "head_X_vs_plain64": [(X.double() - X64).abs().max().item(),
                                   ((X.double() - X64).abs() / scale).max()
                                   .item()],
-            "split_equals_k1": True}
+            "head": head_gate, "split_equals_k1": True}
         for yardstick in ("split_vs_plain64", "split_vs_plain32"):
             dq, dv = errs2[mode][yardstick]
             if not (dq <= QPOS_TOL and dv <= QVEL_TOL):
@@ -2209,6 +2670,8 @@ def run(parent=None) -> int:
         k2_err["head"] = max(k2_err["head"], *errs2[mode]["head_vs_plain64"])
     done("k2_vs_plain", **errs2, qpos_tol=QPOS_TOL, qvel_tol=QVEL_TOL,
          x_rel_tol=X_REL_TOL)
+    if head_fails:
+        raise RuntimeError("; ".join(head_fails))
 
     phase("k1e_vs_plain", f"(B={B_CHECK}, shaped and DR libraries, plain PD "
                           "and meta-PD)")
@@ -2260,12 +2723,16 @@ def run(parent=None) -> int:
                 seq)
             qh64, vh64, _ = K2.head_reference(
                 topo, env_cfg, double_model(emodel), *ins64, 1.0, 2, seq)
+            qh32, vh32, _ = K2.head_reference(
+                topo, env_cfg, emodel, qpos, qvel, act, tb, 1.0, 2, seq)
             e2, fails = gate(f"K2 over the library {mode}", (q2, v2),
                              plain32, plain64)
-            k1e_fails += fails
+            eh, fh = gate(f"K2 head over the library {mode}", (qh, vh),
+                          (qh32, vh32), (qh64, vh64))
+            k1e_fails += fails + fh
             e2.update(head_vs_plain64=[(qh.double() - qh64).abs().max()
                                        .item(), (vh.double() - vh64).abs()
-                                       .max().item()],
+                                       .max().item()], head=eh,
                       split_equals_k1e=True)
             errs_e[f"k2e_{mode}"] = e2
             k2_err["head_pe"] = max(k2_err.get("head_pe", 0.0),
@@ -2337,8 +2804,9 @@ def run(parent=None) -> int:
         raise RuntimeError("; ".join(k1d_fails))
 
     phase("k2_big", f"(B={B_CHECK}, the same draws: K2 head + tail on the "
-                    "big trees vs K1d at (2, 2); the heads' Xp/Xf held "
-                    "by x_check)")
+                    f"big trees vs K1d at (2, 2); the heads on B={B_HEAD} "
+                    "draws: their state held by gate_big, their Xp/Xf by "
+                    "x_check)")
     k2_big, k2_big_fails = {}, []
     for (fam, mode), (btopo, benv, bmodel, qpos, qvel, act, tb) in \
             big_draws.items():
@@ -2358,16 +2826,34 @@ def run(parent=None) -> int:
                 f"K2 {fam} {mode}: head + tail differ from K1d at (2, 2): "
                 f"|dqpos| {(q1 - q2).abs().max().item()}, |dqvel| "
                 f"{(v1 - v2).abs().max().item()}")
-        h32, (qh64, vh64, X64) = head_references(btopo, benv, bmodel,
-                                                 (qpos, qvel, act, tb))
-        k2_big[f"{fam}_{mode}"] = {
-            "split_equals_k1d": True,
+        k2_big[f"{fam}_{mode}"] = {"split_equals_k1d": True}
+    for fam, mode, btopo, benv, bmodel, ins in k1d_draws(dev, B_HEAD):
+        split = K2.ControlStepSplit(btopo, benv, bmodel, 2)
+        reset_counts()
+        qh, vh, X = split.head(*ins, 1.0)
+        if counts() != expect(1, f"k2big_head_{fam}"):
+            raise RuntimeError(f"K2 head {fam} {mode}: launches {counts()}")
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(t).all()) for t in (qh, vh, X)):
+            raise RuntimeError(f"K2 head {fam} {mode}: output not finite")
+        h32, (qh64, vh64, X64) = head_references(btopo, benv, bmodel, ins)
+
+        def moved_head(e, btopo=btopo, benv=benv, bmodel=bmodel, ins=ins):
+            return [moved_steps(btopo, benv, bmodel, ins, e, dt, stop=1)
+                    for dt in (torch.float64, torch.float32)]
+
+        eh, fh = gate_big(f"K2 head {fam} {mode}", (qh, vh), h32[:2],
+                          (qh64, vh64), moved_head)
+        k2_big_fails += fh
+        k2_big[f"{fam}_{mode}"].update({
             "head_vs_plain64": [(qh.double() - qh64).abs().max().item(),
                                 (vh.double() - vh64).abs().max().item()],
-            **x_check(f"K2 {fam} {mode}", X, h32[2], X64, k2_big_fails)}
+            "head": eh,
+            **x_check(f"K2 {fam} {mode}", X, h32[2], X64, k2_big_fails)})
         k2_err[f"head_{fam}"] = max(k2_err.get(f"head_{fam}", 0.0),
                                     *k2_big[f"{fam}_{mode}"][
                                         "head_vs_plain64"])
+        del h32, qh64, vh64, X64, X
     done("k2_big", **k2_big, x_rel_tol=X_REL_TOL)
     if k2_big_fails:
         raise RuntimeError("; ".join(k2_big_fails))
@@ -2693,6 +3179,26 @@ def run(parent=None) -> int:
     if fails:
         raise RuntimeError("; ".join(fails))
 
+    # this slice: the robot variants, remove_toe's 22-body tree through
+    # the -DNB=22 build of every kernel
+    phase("remove_toe", f"(the stand-in's 22-body remove_toe tree: K1-22, "
+                        f"K2-22 head and tail, K1e-22, K1f-22 vs their plain "
+                        f"versions by gate, B={B_CHECK}; the env's rollout of "
+                        f"{SMPLX_ROLLOUT[0]} envs × {SMPLX_ROLLOUT[1]} steps "
+                        f"through each; timed at B={B_TIME}; K1 on the "
+                        "capsule and box_feet variants by gate)")
+    ttopo, tmodel, tlib, tdiffw = remove_toe_tree(dev)
+    toe_errs, fails = remove_toe_check(ttopo, tmodel, tlib, dev)
+    var_errs, vfails = variant_check(topo, model, lib, dev)
+    toe_roll = toe_rollouts(ttopo, tmodel, tlib, tdiffw, dev)
+    toe_t = toe_times(ttopo, tmodel, tlib, dev)
+    done("remove_toe", **toe_errs, variants=var_errs, rollouts=toe_roll,
+         times=toe_t, bodies=ttopo.nbody, nq=ttopo.nq, nv=ttopo.nv,
+         qpos_tol=QPOS_TOL, qvel_tol=QVEL_TOL, x_rel_tol=X_REL_TOL,
+         card=smi)
+    if fails or vfails:
+        raise RuntimeError("; ".join(fails + vfails))
+
     phase("kernel_bench", "(python -m uhc_tpu_torch.cli.kernel_bench, "
                           "B=2048, STEPS=20: " + " ".join(KERNEL_BENCH_ROWS)
           + ")")
@@ -2949,12 +3455,6 @@ def run(parent=None) -> int:
     lib_tables = k1e.params.size + k1e.itab.size + B_TIME    # + seq_idx
     io_e = (qe.numel() * 2 + ve.numel() * 2 + acte.numel() + tbe.numel()
             + lib_tables)
-
-    def bound(fl, nbytes):
-        t_op, t_by = fl / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
-        return {"flops": fl, "bytes": nbytes,
-                "bound_ms": 1e3 * max(t_op, t_by),
-                "bound_by": "operations" if t_op >= t_by else "bytes"}
 
     k1e_bound = bound(CS.control_step_flops(topo, shape_env, trace_e,
                                             (1, 2)), 4 * io_e)
@@ -3414,7 +3914,8 @@ def run(parent=None) -> int:
                      {**k2x_errs, **{f"data_{m}": e
                                      for m, e in xd_errs.items()}},
                      smplx_time)
-        + k2b_rows(src, k2_src, bench_counts, k2b_errs, k2b_t)}),
+        + k2b_rows(src, k2_src, bench_counts, k2b_errs, k2b_t)
+        + toe_rows(src, k2_src, toe_errs, toe_roll, toe_t)}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

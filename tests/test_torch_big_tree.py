@@ -22,7 +22,7 @@ import jax
 import jax.numpy as jnp
 
 from test_torch_helpers import (BIG_FAMILIES, GAIT, big_env_cfg, big_trees,
-                                close, few_threads, jax_cfg)
+                                chain_tree, close, few_threads, jax_cfg)
 
 pytestmark = pytest.mark.usefixtures(few_threads.__name__)
 
@@ -304,11 +304,11 @@ def test_agent_refuses_libraries_on_big_trees(tmp_path, family, extra):
 def test_env_routes_trees_like_jax(setup, monkeypatch):
     """make_env_step_batched with a model to bake: SMPL-H and masterfoot
     take K1d at (2, 2); UHC_TPU_LANE_BIG=0 or UHC_TPU_LANE=0 takes K2 at
-    PCG-2; the 24-body tree keeps K1 at (1, 2); a 30-body tree raises."""
+    PCG-2; the 24-body tree keeps K1 at (1, 2), as does a 30-body tree,
+    the lane kernel's small-tree route up to 32 bodies."""
     from uhc_tpu_torch.envs import humanoid_im as H
     from uhc_tpu_torch.physics.control_step import ControlStep
     from uhc_tpu_torch.physics.control_step_split import ControlStepSplit
-    from uhc_tpu_torch.physics.model import Topology
     from uhc_tpu_torch.smpl.fixture_humanoid import load_fixture_humanoid
 
     trees, _ = setup
@@ -328,7 +328,8 @@ def test_env_routes_trees_like_jax(setup, monkeypatch):
     k = H.make_env_step_batched(t24, big_env_cfg("smplh"),
                                 fused_model=m24).kernel
     assert type(k) is ControlStep and k.pcg_iters == (1, 2)
-    t30 = Topology(30, tuple([-1] + list(range(29))),
-                   tuple(f"b{i}" for i in range(30)))
-    with pytest.raises(NotImplementedError, match="30-body"):
-        H.make_env_step_batched(t30, big_env_cfg("smplh"), fused_model=m24)
+    t30, m30 = chain_tree(30)
+    k = H.make_env_step_batched(t30, big_env_cfg("smplh"),
+                                fused_model=m30).kernel
+    assert type(k) is ControlStep and k.pcg_iters == (1, 2)
+    assert k.topo.nbody == 30

@@ -258,9 +258,9 @@ def test_pack_tables_over_library(setup):
 
 def test_env_step_routes_library_to_k1e(setup):
     """A model library routes make_env_step_batched to ControlStep over
-    the library (K2 over it under UHC_TPU_LANE=0); leaves outside the
-    per-env set are refused; on the CPU the routed step equals the plain
-    chain over the gathered models."""
+    the library (K2 over it under UHC_TPU_LANE=0); a library with a leaf
+    outside the per-env set runs the plain chain, where the JAX package
+    runs XLA."""
     from uhc_tpu_torch.config.config import Config
     from uhc_tpu_torch.envs import humanoid_im as H
     from uhc_tpu_torch.physics.control_step_split import ControlStepSplit
@@ -276,8 +276,8 @@ def test_env_step_routes_library_to_k1e(setup):
         assert k2.kernel.num_models == S_LIB
     bad = dataclasses.replace(s["ml"],
                               jkp=s["ml"].jkp.expand(S_LIB, -1).clone())
-    with pytest.raises(ValueError, match="jkp"):
-        H.make_env_step_batched(s["tt"], cfg, fused_model=bad)
+    assert H.make_env_step_batched(s["tt"], cfg,
+                                   fused_model=bad).kernel is None
 
 
 @pytest.mark.gpu

@@ -141,3 +141,75 @@ def big_env_cfg(family, meta_pd=False):
                                             else "smpl"),
                                masterfoot=family == "masterfoot",
                                meta_pd=meta_pd)
+
+
+def chain_tree(nb):
+    """A chain of `nb` bodies (names b0.., no SMPL name, so no
+    self-collision pair) with the stand-in's body and dof rows repeated:
+    (Topology, Model of numpy arrays), a tree no robot family has, for
+    routing checks on tree sizes."""
+    from uhc_tpu_torch.physics.model import Model, Topology
+    from uhc_tpu_torch.smpl.fixture_humanoid import load_fixture_humanoid
+
+    t24, m = load_fixture_humanoid()
+    topo = Topology(nb, tuple([-1] + list(range(nb - 1))),
+                    tuple(f"b{i}" for i in range(nb)))
+    body = np.arange(nb) % t24.nbody
+    dof = np.arange(topo.ndof) % t24.ndof
+    arm = np.asarray(m.armature)
+    rows = {f: np.asarray(getattr(m, f))[body] for f in (
+        "body_pos", "body_ipos", "body_mass", "body_inertia", "body_iquat",
+        "contact_point", "contact_mask", "sc_point", "sc_radius")}
+    rows.update({f: np.asarray(getattr(m, f))[dof] for f in (
+        "jkp", "jkd", "torque_lim", "a_scale", "jnt_range")})
+    return topo, dataclasses.replace(
+        m, **rows, armature=np.concatenate([arm[:6], arm[6:][dof]]))
+
+
+def batched_steps_both(jax_tree, port_tree, cfg, seq, start, actions,
+                       jpos_diffw, body_diffw, jax_fused=True):
+    """Both packages' batched env steps (`make_env_step_batched` with the
+    model, or model library, as `fused_model`) from the same eval-mode
+    resets of sequences `seq` at frames `start`, fed the seeded `actions`
+    (T, B, A) one step each. `jax_tree` / `port_tree` are (topo, model,
+    expert library) of each package; with `jax_fused` False the JAX
+    step is built without `fused_model` (its XLA chain, the model given
+    at step time). Returns
+    (port step, [(JAX state, obs, reward)], [(port state, obs, reward)])
+    per step."""
+    import jax
+    import jax.numpy as jnp
+
+    from uhc_tpu.envs import humanoid_im as JH
+    from uhc_tpu_torch.data.dataset import neutral_from_library
+    from uhc_tpu_torch.envs import humanoid_im as H
+
+    jt, jm, jlib = jax_tree
+    tt, m, lib = port_tree
+    jcfg = jax_cfg(cfg)
+    nq, nv = neutral_from_library(lib)
+    B = len(seq)
+    jst = jax.vmap(lambda k, q, st: JH.env_reset(
+        jt, jm, jcfg, k, q, jlib, jnp.asarray(nq.numpy()),
+        jnp.asarray(nv.numpy()), start_ind=st, train=False))(
+        jax.random.split(jax.random.PRNGKey(0), B),
+        jnp.asarray(seq, jnp.int32), jnp.asarray(start, jnp.int32))
+    st = H.env_reset(tt, m, cfg, torch.tensor(seq), lib, nq, nv,
+                     start_ind=torch.tensor(start), train=False)
+    jstep = jax.jit(JH.make_env_step_batched(
+        jt, jcfg, fused_model=jm if jax_fused else None),
+        static_argnames="train")
+    step = H.make_env_step_batched(tt, cfg, fused_model=m)
+    jw, bw = np.asarray(jpos_diffw, np.float32), np.asarray(body_diffw,
+                                                            np.float32)
+    jout, tout = [], []
+    for a in np.asarray(actions, np.float32):
+        jst, jobs, jrew, _, _ = jstep(jm, jst, jnp.asarray(a), jlib,
+                                      jnp.asarray(jw), jnp.asarray(bw),
+                                      train=False)
+        st, obs, rew, _, _ = step(m, st, torch.tensor(a), lib,
+                                  torch.tensor(jw), torch.tensor(bw),
+                                  train=False)
+        jout.append((jst, jobs, jrew))
+        tout.append((st, obs, rew))
+    return step, jout, tout

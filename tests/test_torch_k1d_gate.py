@@ -121,6 +121,40 @@ def test_gate_big_passes_a_witnessed_miss_and_fails_another(smplh_meta):
     assert errs["kernel_missed_envs"][0]["passed_by"] is None
 
 
+def test_gate_big_count_rule():
+    """gate_big's count rule (the big trees' heads in phase k2_big): over
+    64 envs where the float32 plain version misses once, each miss of the
+    kernel within float32's worst miss on a non-sharp env, two misses
+    pass (n_p + n_p // 2 + 1) and four fail the check by that rule alone;
+    a miss beyond float32's worst miss that no moved step reaches fails
+    by its own rule."""
+    B, nq, nv = 64, 3, 4
+    p64 = [torch.zeros((B, nq), dtype=torch.float64),
+           torch.zeros((B, nv), dtype=torch.float64)]
+    p32 = [torch.zeros((B, nq)), torch.zeros((B, nv))]
+    p32[1][0, 0] = 2.0 * C.QVEL_TOL                # float32's one miss
+    p32[1][1:4, 0] = 0.5 * C.QVEL_TOL              # not sharp
+
+    def moved(env):
+        raise AssertionError("no witness is needed")
+
+    out = [p32[0].clone(), p32[1].clone()]
+    out[1][1, 0] = 1.5 * C.QVEL_TOL                # 1 more miss
+    errs, fails = C.gate_big("two", out, p32, p64, moved)
+    assert errs["kernel_misses"] == 2 and errs["plain32_misses"] == 1
+    assert not fails, fails
+    out[1][2:4, 0] = 1.5 * C.QVEL_TOL              # 2 more misses
+    errs, fails = C.gate_big("four", out, p32, p64, moved)
+    assert errs["kernel_misses"] == 4 and len(fails) == 1
+    assert "on 4 envs, the float32 plain version on 1" in fails[0]
+    far = [p32[0].clone(), p32[1].clone()]
+    far[1][2, 0] = 3.0 * C.QVEL_TOL
+    errs, fails = C.gate_big("far", far, p32, p64,
+                             lambda e: [(p64[0][e:e + 1].repeat(2, 1),
+                                         p64[1][e:e + 1].repeat(2, 1))])
+    assert len(fails) == 1 and "env 2" in fails[0]
+
+
 def test_host_k1d_passes_the_gate_on_masterfoot():
     """K1d's source built as host C++ in place of the kernel, through
     gate_big on phase k1d_vs_plain's masterfoot plain-PD draws (256 envs):

@@ -16,7 +16,8 @@ import jax
 import jax.numpy as jnp
 
 from test_torch_big_tree import _states
-from test_torch_helpers import GAIT, close, few_threads, jax_cfg, load_both
+from test_torch_helpers import (GAIT, chain_tree, close, few_threads,
+                                jax_cfg, load_both)
 
 pytestmark = pytest.mark.usefixtures(few_threads.__name__)
 
@@ -215,11 +216,12 @@ def test_env_routes_smplx_to_k2(setup, monkeypatch, env):
     (ControlStepSplit) at PCG-2 whatever UHC_TPU_LANE / UHC_TPU_LANE_BIG
     say (the JAX lane route stops at 52 bodies); explicit RFC, per-joint
     meta-PD and a model library run the plain chain, where the JAX
-    package runs XLA; 25 to 32 bodies still raise."""
+    package runs XLA; a 30-body tree takes the small-tree route, K1 at
+    (1, 2), or K2 at PCG-2 under UHC_TPU_LANE=0."""
     from uhc_tpu_torch.config.config import EXPLICIT, META_JOINT, Config
     from uhc_tpu_torch.envs import humanoid_im as H
+    from uhc_tpu_torch.physics.control_step import ControlStep
     from uhc_tpu_torch.physics.control_step_split import ControlStepSplit
-    from uhc_tpu_torch.physics.model import Topology
 
     _, (tt, _, m, _) = setup
     for k, v in env.items():
@@ -235,10 +237,11 @@ def test_env_routes_smplx_to_k2(setup, monkeypatch, env):
     lib = dataclasses.replace(m, friction=m.friction.expand(3).clone())
     assert H.make_env_step_batched(tt, _cfg(), fused_model=lib).kernel \
         is None
-    t30 = Topology(30, tuple([-1] + list(range(29))),
-                   tuple(f"b{i}" for i in range(30)))
-    with pytest.raises(NotImplementedError, match="30-body"):
-        H.make_env_step_batched(t30, _cfg(), fused_model=m)
+    t30, m30 = chain_tree(30)
+    k = H.make_env_step_batched(t30, _cfg(), fused_model=m30).kernel
+    lane = env.get("UHC_TPU_LANE", "1") == "1"
+    assert type(k) is (ControlStep if lane else ControlStepSplit)
+    assert k.pcg_iters == ((1, 2) if lane else (2, 2))
 
 
 def _host55():

@@ -2,9 +2,10 @@
 interface, loaded with ctypes.
 
 The control-step source is compiled once per tree size: `-DNB=<bodies>`
-fixes the body count (24 for the SMPL humanoid, 48 for masterfoot, 52 for
-SMPL-H, 55 for SMPL-X), so every library holds the same kernels for one
-tree.
+fixes the body count (any tree of up to 32 bodies, such as 24 for the SMPL
+humanoid or 22 for remove_toe's tree, keeps an env's matrices in shared
+memory; 48 for masterfoot, 52 for SMPL-H, 55 for SMPL-X use a device
+workspace), so every library holds the same kernels for one tree.
 `load_library(nb)` compiles `control_step.cu` for sm_90a with nvcc (from
 PATH or $CUDA_HOME/bin) on first use into `uhc_tpu_torch/_build/`, named by
 a hash of the sources and flags so an edit rebuilds it; `build_libraries`
@@ -119,10 +120,10 @@ def _bind(lib, suffix: str, stream: bool):
     library, seq_idx or null, int table, 4 inputs, 2 outputs),
     uhc_control_step_head / _tail (K2) and their _bf16 twins (K2b) take
     10 (the last is Xp/Xf, float32 or bfloat16), then B, act_dim,
-    rfc_rate. On CUDA each of them takes the matrix workspace (null at 24
-    bodies) before Xp/Xf, and after rfc_rate the floats of each of J6 and
-    G by subtree (the int table's I_JROW[6·nb], which size a 24-body
-    block's shared memory) and the stream; the host build keeps its own
+    rfc_rate. On CUDA each of them takes the matrix workspace (null on a
+    tree of up to 32 bodies) before Xp/Xf, and after rfc_rate the floats
+    of each of J6 and G by subtree (the int table's I_JROW[6·nb], which
+    size such a tree's block of shared memory) and the stream; the host build keeps its own
     workspace, sized from the int table. uhc_control_step_f (K1f) takes
     K1's 9 pointers, on CUDA the workspace, the explicit wrench and the
     per-dof gain scales (either null), then B, act_dim, rfc_rate and, on
@@ -179,7 +180,7 @@ def load_host_library(nb: int = 24):
 
 def layout(lib) -> dict:
     """Sizes the C side expects: params floats, table ints, shared-memory
-    floats (at 24 bodies those before J6 and G, see `smem_floats`),
+    floats (up to 32 bodies those before J6 and G, see `smem_floats`),
     threads per block, bodies, action columns it holds, the device
     workspace floats per env (0 where the matrices sit in shared memory),
     and K1f's shared-memory floats (as the other)."""
@@ -207,7 +208,7 @@ OCCUPANCY_ENTRIES = ("step", "k1f", "head", "tail", "step_bf16", "head_bf16",
 
 def occupancy(lib, jg: int = 0) -> dict:
     """What the card makes of each kernel of a CUDA library, with `jg`
-    floats in each of J6 and G (24 bodies; `smem_floats`): {entry:
+    floats in each of J6 and G (up to 32 bodies; `smem_floats`): {entry:
     {"registers", "local_bytes" (a thread's stack frame and spills),
     "smem_bytes" (dynamic),
     "threads", "blocks_per_sm"}} from cudaFuncGetAttributes and

@@ -146,20 +146,10 @@
 // K1d: trees of more than 32 bodies keep their matrices in a per-env
 // workspace in device memory (see the workspace layout below).
 #define BIG_TREE (NB > 32)
-// Threads per block (one block per env) and resident blocks per SM: 512
-// threads on every tree. A big tree's block holds 137 to 174 KB of shared
-// memory, one block per SM (16 warps to hide the workspace's latency;
-// ptxas fits every kernel in 128 registers, K2b's with 28 to 44 bytes of
-// spills). At 24 bodies a block holds 108 to 110 KB on the SMPL tree: two
-// blocks per SM, 64 warps, so ptxas fits a thread in 64 registers with a
-// few spills; in turns on an H100 that ran K1 faster than 256 threads (107
-// registers, no spills) or 384 (PERF.md).
+// Threads per block (one block per env): 512 on every tree. The resident
+// blocks per SM the launch bounds ask for (MINBLOCKS) follow from the
+// build's shared memory, below the shared-memory layout.
 #define NTHREADS 512
-#if BIG_TREE
-#define MINBLOCKS 1
-#else
-#define MINBLOCKS 2
-#endif
 // the blocked exact inverse's panel width; a panel's columns (Cholesky,
 // L⁻¹) or rows (Yᵀ Y) go to the panel (2·NV rows), PB floats in each row
 // of PS: a lane's two 16-byte loads of a row then meet no other lane's
@@ -317,6 +307,25 @@ enum {
 // The inverse's panel (2·NV·PS floats) fits on them.
 #define JG_MIN (6 * (6 * NB + 3 * (NB - 1)))
 static_assert(BIG_TREE || JG_MIN >= NV * PS, "the panel fits on J6, G");
+
+// An SM's shared memory and a block's most (H100: 228 KB and 227 KB, 1 KB
+// of each block's reserved by the system).
+#define SM_SMEM_BYTES (228 * 1024)
+#define BLOCK_SMEM_BYTES (227 * 1024)
+// A small tree's block holds every matrix of its env: K1f's floats with J6
+// and G at their most (a chain of NB bodies, 6·JP_MAX floats each) must
+// fit a block; at 32 bodies that is 220.1 KB.
+static_assert(BIG_TREE || 4 * (SM_JG_F + 12 * JP_MAX) <= BLOCK_SMEM_BYTES,
+              "a small tree's block fits its shared memory");
+// Resident blocks per SM: two where two blocks of K1f with J6 and G at
+// their fewest fit an SM (84.1 KB at 22 bodies, 96.6 KB at 24; up to 26
+// bodies), so ptxas fits a thread in 64 registers for 64 warps an SM (in
+// turns on an H100 that ran K1 at 24 bodies faster than 256 threads at
+// 107 registers or 384, PERF.md); one on a small tree too large for two
+// (154.8 KB at 32 bodies) and on a big tree (137 to 174 KB, 16 warps to
+// hide the workspace's latency, 128 registers).
+#define TWO_BLOCKS_BYTES (2 * (4 * (SM_JG_F + 2 * JG_MIN) + 1024))
+#define MINBLOCKS ((BIG_TREE || TWO_BLOCKS_BYTES > SM_SMEM_BYTES) ? 1 : 2)
 
 // Floats of a block's shared memory: K1f's (ext) or another kernel's, with
 // `jg` floats in each of J6 and G at 24 bodies (the int table's

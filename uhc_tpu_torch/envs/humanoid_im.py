@@ -74,12 +74,13 @@ def state_where(mask, new: EnvState, old: EnvState) -> EnvState:
 PER_SEQ_KEYS = ("len", "height_lb", "head_height_lb", "beta", "gender",
                 "shape_obs", "weight")
 
-# Trees with a control-step kernel, as the JAX package routes them
-# (uhc_tpu/envs/humanoid_im.py:873-877,953-957): the 24-body SMPL humanoid,
-# 33 to 52 bodies on the lane kernel's big-tree path (masterfoot, SMPL-H),
-# and more than 52 (SMPL-X) on the head/tail kernel only. 25 to 32 bodies
-# (the lane kernel's K1 layout at those sizes) are not ported.
-SMPL_BODIES, LANE_BIG_BODIES = 24, range(33, 53)
+# The control-step kernels' trees, as the JAX package routes them
+# (uhc_tpu/envs/humanoid_im.py:873-880,921-957): every tree of up to 32
+# bodies on the lane kernel's small-tree path (the 24-body SMPL humanoid,
+# remove_toe's 22 bodies), 33 to 52 bodies on its big-tree path
+# (masterfoot, SMPL-H), and more than 52 (SMPL-X) on the head/tail kernel
+# only.
+LANE_SMALL_MAX, LANE_BIG_MAX = 32, 52
 
 
 
@@ -623,10 +624,12 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
     library, the episode will simulate) the substeps run through a
     control-step kernel, chosen by the tree's size, the config and
     UHC_TPU_LANE / UHC_TPU_LANE_BIG when the step is built, as in the JAX
-    package (uhc_tpu/envs/humanoid_im.py:853-951):
-    - 24 bodies: "1" (the default) gives K1 (`ControlStep`) with the
-      production (1, 2) PCG schedule, UHC_TPU_LANE=0 gives K2's head/tail
-      split (`ControlStepSplit`) with symmetric PCG-2;
+    package (uhc_tpu/envs/humanoid_im.py:853-951), on every tree it
+    builds (`csrc/build.py`, -DNB):
+    - every tree of up to 32 bodies (the 24-body humanoid, remove_toe's
+      22): "1" (the default) gives K1 (`ControlStep`) with the production
+      (1, 2) PCG schedule, UHC_TPU_LANE=0 gives K2's head/tail split
+      (`ControlStepSplit`) with symmetric PCG-2;
     - 33 to 52 bodies (masterfoot, SMPL-H): K1d, the big-tree build of
       the same kernel, with the symmetric (2, 2) schedule; UHC_TPU_LANE=0
       or UHC_TPU_LANE_BIG=0 gives K2 on the big tree at PCG-2;
@@ -636,14 +639,12 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
       the JAX package runs XLA;
     - explicit RFC or per-joint meta-PD (`meta_pd_joint`) run on the
       lane route only: K1f, the same `ControlStep` with its wrench and
-      per-dof gain operands, at the tree's schedule ((1, 2) on 24 bodies,
-      (2, 2) on 33 to 52). Explicit RFC over a model library and either
-      of them under UHC_TPU_LANE=0 (or UHC_TPU_LANE_BIG=0 on a big tree,
-      or on a tree of more than 52 bodies) run the plain chain, where the
-      JAX package runs XLA (`fused_compatible`; the hull tables are per
-      shape);
-    - 25 to 32 bodies raise NotImplementedError (the JAX lane kernel's K1
-      at those sizes is not ported), as does any tree under 24;
+      per-dof gain operands, at the tree's schedule ((1, 2) up to 32
+      bodies, (2, 2) on 33 to 52). Explicit RFC over a model library and
+      either of them under UHC_TPU_LANE=0 (or UHC_TPU_LANE_BIG=0 on a big
+      tree, or on a tree of more than 52 bodies) run the plain chain,
+      where the JAX package runs XLA (`fused_compatible`; the hull tables
+      are per shape);
     - torque control (action_type "torque", the ball family) runs no
       kernel on any tree: `solver.torque_substeps`, one exact solve a
       substep, batched over the envs, as the JAX package runs its generic
@@ -653,42 +654,35 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
     already projects each body's bias and external wrench in one pass.
     A library takes the per-env variant of the same kernels (K1e, or K2
     over the library: the JAX package runs a library under UHC_TPU_LANE=0
-    on its XLA chain), with each env's seq_idx. Without `fused_model`, or
+    on its XLA chain), with each env's seq_idx; a library with a leaf
+    outside `PE_MODEL_LEAVES` batched (a design population, which batches
+    every leaf) runs the plain chain, as the JAX package runs XLA
+    (uhc_tpu/envs/humanoid_im.py:888-904). Without `fused_model`, or
     where the JAX package runs XLA, the substeps run through the plain PCG
     chain with 5 iterations (the JAX default). The returned step carries
     the kernel wrapper it calls as `step.kernel` (None for the plain
     chain)."""
     kernel = None
     if fused_model is not None and cfg.action_type != "torque":
-        big = topo.nbody in LANE_BIG_BODIES
-        split_only = topo.nbody >= LANE_BIG_BODIES.stop
-        if topo.nbody != SMPL_BODIES and not (big or split_only):
-            raise NotImplementedError(
-                f"no control-step kernel for a {topo.nbody}-body tree (the "
-                f"port has {SMPL_BODIES}, {LANE_BIG_BODIES.start}-"
-                f"{LANE_BIG_BODIES.stop - 1} and more bodies)")
-        library = model_is_batched(fused_model)
-        if library:
-            from uhc_tpu_torch.physics.control_step import PE_MODEL_LEAVES
+        from uhc_tpu_torch.physics.control_step import (PE_MODEL_LEAVES,
+                                                        lane_only)
 
-            axes = model_batch_axes(fused_model)
-            extra = sorted(k for k, a in axes.items()
-                           if a == 0 and k not in PE_MODEL_LEAVES)
-            if extra:
-                raise ValueError(f"model library leaves {extra} differ per "
-                                 "sequence; the per-env kernel takes "
-                                 f"{PE_MODEL_LEAVES}")
+        big = LANE_SMALL_MAX < topo.nbody <= LANE_BIG_MAX
+        split_only = topo.nbody > LANE_BIG_MAX
+        library = model_is_batched(fused_model)
+        per_env_leaves = not library or all(
+            a is None or k in PE_MODEL_LEAVES
+            for k, a in model_batch_axes(fused_model).items())
         lane = not split_only and os.environ.get(
             "UHC_TPU_LANE", "1") == "1" and (
             not big or os.environ.get("UHC_TPU_LANE_BIG", "1") == "1")
-        from uhc_tpu_torch.physics.control_step import lane_only
-
         # where the JAX package runs its XLA chain: explicit RFC or
         # per-joint meta-PD off the lane route, explicit RFC over a
-        # library, a library on the head/tail-only trees
+        # library, a library on the head/tail-only trees, a library with
+        # leaves the per-env kernel does not gather
         on_xla = (lane_only(cfg) and (
             not lane or (library and S.explicit_rfc(cfg)))) or (
-            split_only and library)
+            split_only and library) or not per_env_leaves
         if lane and not on_xla:
             from uhc_tpu_torch.physics.control_step import ControlStep
 

@@ -5,14 +5,16 @@ uhc_tpu/physics/pallas_lane.py:83 make_fused_do_simulation_lane.
 `ControlStep(topo, cfg, model, pcg_iters)` bakes the model into two device
 tables (floats and ints) and is called as
 `step(qpos (B,nq), qvel (B,nv), actions (B,A), target_base (B,ndof),
-rfc_rate) -> (qpos', qvel')`; the 24-body humanoid has nq=76, nv=75. On
-CUDA tensors it launches the kernel (or raises); on CPU tensors it runs
+rfc_rate) -> (qpos', qvel')`; the 24-body humanoid has nq=76, nv=75,
+remove_toe's 22-body tree nq=70, nv=69. On CUDA tensors it launches the
+kernel of the tree's build (or raises); on CPU tensors it runs
 the plain PyTorch version `control_step_reference`, the eager chain of
 physics/engine.py + solver.py with the same schedule: exact inverses at
 substep 0, then warm-started PCG with (pd_iters, fd_iters) iterations.
-On 24 bodies an env's matrices sit in the block's shared memory, J6 and G
-stored by subtree as the int table lays them out (`jacobian_tables`); a
-launch sizes its shared memory from their floats (`jg_floats`).
+On every tree of up to 32 bodies an env's matrices sit in the block's
+shared memory, J6 and G stored by subtree as the int table lays them out
+(`jacobian_tables`); a launch sizes its shared memory from their floats
+(`jg_floats`).
 
 K1e, the per-env variant (pallas_lane.py `per_env`): given a model library
 (leaves with a leading (S,) dim where sequences differ, see
@@ -28,7 +30,8 @@ built for its body count (`csrc/build.py`, -DNB), with A_pd, A_fd and the
 Jacobians in a per-env workspace in device memory that the wrapper
 allocates once for the largest batch it has seen, and the preconditioners
 Xp, Xf in shared memory; the env runs it at PCG (2, 2). A model library
-on a big tree is not ported.
+takes every tree of up to 32 bodies (`LIBRARY_MAX_BODIES`); on a big tree
+it is not ported.
 
 K1f, explicit RFC (`residual_force_mode` other than "implicit") and
 per-joint meta-PD (`meta_pd_joint`) in pallas_lane.py (`VFX`, `MPJ`,
@@ -36,9 +39,9 @@ per-joint meta-PD (`meta_pd_joint`) in pallas_lane.py (`VFX`, `MPJ`,
 `control_step_f_kernel`, K1's physics with two operands the wrapper
 prepares from the actions as the JAX wrapper does, the (B, 9·nb)
 body-frame wrench of `engine.prep_explicit_vf` and the (B, 2, nv) per-dof
-kp / kd scales (ones on the root dofs). On the 24-body tree with a shared
-model or a library (per-joint meta-PD only), and on the big trees with a
-shared model, where it takes K1d's workspace; explicit RFC over a model
+kp / kd scales (ones on the root dofs). On every tree of up to 32 bodies
+with a shared model or a library (per-joint meta-PD only), and on the big
+trees with a shared model, where it takes K1d's workspace; explicit RFC over a model
 library raises ValueError, as pallas_lane.py:143-146 does.
 
 K1g, `refresh_at=k` (pallas_lane.py:104-111, :1151-1181): the exact
@@ -80,8 +83,9 @@ from uhc_tpu_torch.physics.model import (MODEL_BASE_NDIM, Model, Topology,
 from uhc_tpu_torch.smpl.constants import self_collision_pairs
 
 KPTS, SC, MAXPAIR = 16, 3, 64
-# the tree a model library runs on (K1e): the 24-body humanoid
-LIBRARY_BODIES = 24
+# the trees a model library runs on (K1e): every tree of up to 32 bodies,
+# as the JAX lane kernel's per_env path takes them
+LIBRARY_MAX_BODIES = 32
 LIM_K, LIM_D, SC_K, SC_D = 500.0, 20.0, 3000.0, 50.0   # engine defaults
 
 # Model leaves that may differ per sequence in a library the env routes
@@ -290,13 +294,14 @@ class ControlStep:
         self.refresh_at, self.precond_bf16 = refresh_at, precond_bf16
         self.params, self.itab = pack_tables(topo, cfg, model, pcg_iters,
                                              refresh_at)
-        # the floats of each of J6, G by subtree: a 24-body launch's shared
-        # memory grows with them
+        # the floats of each of J6, G by subtree: the shared memory of a
+        # launch on a tree of up to 32 bodies grows with them
         self.jg_floats = int(jacobian_tables(topo)[0][-1])
         # rows of the model library (K1e), None for a shared model (K1)
         self.num_models = (self.params.shape[0] if self.params.ndim == 2
                            else None)
-        if self.num_models is not None and topo.nbody != LIBRARY_BODIES:
+        if self.num_models is not None and \
+                topo.nbody > LIBRARY_MAX_BODIES:
             raise NotImplementedError(f"a model library on a {topo.nbody}-"
                                       f"body tree is not ported")
         # K1f: explicit RFC or per-joint meta-PD
@@ -325,7 +330,7 @@ class ControlStep:
 
     def workspace(self, B: int, device):
         """The matrix workspace of a big tree (B × W_TOTAL float32 on
-        `device`, kept for the largest batch seen), None at 24 bodies."""
+        `device`, kept for the largest batch seen), None up to 32 bodies."""
         from uhc_tpu_torch.csrc import build
 
         per_env = build.layout(self.library())["workspace"]

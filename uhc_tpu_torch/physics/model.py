@@ -221,3 +221,12 @@ def model_to_numpy(m: Model) -> dict:
             v = v.detach().cpu().numpy()
         out[f.name] = np.asarray(v, np.float32)
     return out
+
+
+def numpy_model(m: Model) -> Model:
+    """The model with numpy leaves: `m` itself where it holds no tensor,
+    else its leaves as float32 arrays (`model_to_numpy`)."""
+    if any(isinstance(getattr(m, f.name), torch.Tensor)
+           for f in dataclasses.fields(Model)):
+        return Model(**model_to_numpy(m))
+    return m

@@ -11,6 +11,13 @@ mesh inertia. Here we parse that XML subset directly into engine arrays:
 * per-dof armature (0.01 hinge default from the template), joint ranges,
 * contact candidate points from the mesh convex hulls.
 
+It also reads back what `uhc_tpu_torch.smpl.mjcf_export.export_mjcf`
+writes: local coordinates (coordinate="local": a body's pos is its offset
+from the parent), explicit <inertial> mass properties, the joints'
+armature attribute, contact spheres as contact candidates and the
+self-collision spheres (contype="0") as the sphere chains. A body without
+those keeps the mesh-derived values.
+
 Returns a Model whose fields are numpy arrays;
 `uhc_tpu_torch.physics.model.model_from_numpy` moves it to a device.
 """
@@ -60,6 +67,8 @@ def load_mjcf_humanoid(
             mesh_files[name] = os.path.normpath(os.path.join(base, f))
 
     names, parents, gpos, jranges, mesh_of = [], [], [], [], []
+    # explicit values of an exported file, per body (None where absent)
+    inertials, spheres, sc_spheres, jarm = [], [], [], []
 
     def walk(body, parent_idx):
         idx = len(names)
@@ -68,9 +77,16 @@ def load_mjcf_humanoid(
         gpos.append(_parse_vec(body.get("pos")))
         geom = body.find("geom")
         mesh_of.append(geom.get("mesh") if geom is not None and geom.get("type") == "mesh" else None)
+        inertials.append(body.find("inertial"))
+        spheres.append([_parse_vec(g.get("pos")) for g in body.findall("geom")
+                        if g.get("type") == "sphere" and g.get("contype") != "0"])
+        sc_spheres.append([(_parse_vec(g.get("pos")), float(g.get("size")))
+                           for g in body.findall("geom")
+                           if g.get("type") == "sphere" and g.get("contype") == "0"])
         joints = body.findall("joint")
         if parent_idx == -1:
             jranges.append(None)  # free joint
+            jarm.append(None)
         else:
             rng = []
             for j in joints:  # z, y, x hinges
@@ -79,6 +95,8 @@ def load_mjcf_humanoid(
                     r = np.deg2rad(r)
                 rng.append(r)
             jranges.append(np.array(rng))
+            jarm.append([float(j.get("armature")) for j in joints]
+                        if all(j.get("armature") for j in joints) else None)
         for child in body.findall("body"):
             walk(child, idx)
 
@@ -89,10 +107,12 @@ def load_mjcf_humanoid(
     nbody = len(names)
     gpos = np.array(gpos)
     # local offsets: child global pos minus parent global pos; root keeps its
-    # global pos (mj body_pos[1], used by smpl_to_qpose count_offset)
+    # global pos (mj body_pos[1], used by smpl_to_qpose count_offset). A
+    # local-coordinate file gives the offsets themselves.
     body_pos = gpos.copy()
-    for i in range(1, nbody):
-        body_pos[i] = gpos[i] - gpos[parents[i]]
+    if is_global:
+        for i in range(1, nbody):
+            body_pos[i] = gpos[i] - gpos[parents[i]]
 
     body_mass = np.zeros(nbody)
     body_ipos = np.zeros((nbody, 3))
@@ -124,6 +144,21 @@ def load_mjcf_humanoid(
         cpoints[i, :k] = pts
         cmask[i, :k] = 1.0
 
+    # an exported file's explicit mass properties and contact spheres
+    for i in range(nbody):
+        el = inertials[i]
+        if el is not None:
+            body_mass[i] = float(el.get("mass"))
+            body_ipos[i] = _parse_vec(el.get("pos", "0 0 0"))
+            body_iquat[i] = _parse_vec(el.get("quat", "1 0 0 0"), 4)
+            body_inertia[i] = _parse_vec(el.get("diaginertia"))
+        if spheres[i]:
+            pts = np.asarray(spheres[i])[:K]
+            cpoints[i] = 0.0
+            cmask[i] = 0.0
+            cpoints[i, :len(pts)] = pts
+            cmask[i, :len(pts)] = 1.0
+
     topo = Topology(nbody=nbody, parents=tuple(parents), body_names=tuple(names))
 
     # self-collision sphere chains: SC spheres along each body's bone axis
@@ -152,9 +187,15 @@ def load_mjcf_humanoid(
                 np.mean(np.linalg.norm(perp, axis=1)), 0.02, 0.45 * max(blen, 0.05))
         else:
             sc_radius[i] = 0.03
+        if sc_spheres[i]:
+            sc_point[i] = [p for p, _ in sc_spheres[i][:SC]]
+            sc_radius[i] = sc_spheres[i][0][1]
 
     armature = np.zeros(topo.nv)
     armature[6:] = armature_hinge
+    for i in range(1, nbody):
+        if jarm[i] is not None:
+            armature[6 + 3 * (i - 1):6 + 3 * i] = jarm[i]
     jnt_range = np.concatenate([r for r in jranges if r is not None], axis=0)
 
     from uhc_tpu_torch.smpl.constants import default_jkp_jkd_torque
