@@ -54,7 +54,14 @@ held against its plain versions and driven by the env's rollout of 512
 envs × 32 steps), with K1 on the capsule and box_feet variants; K2's head
 state is held on every tree -- checks their output, and times the kernels
 at B=2048 (and the big trees' at B=512). A 32-body build is compiled and
-sized only, the largest tree of the small-tree layout.
+sized only, the largest tree of the small-tree layout. Then the native
+mesh toolkit (built with g++, the stand-in's meshes read and weighed both
+ways), the kinematic-policy stack (one kin env step on the card held
+against its plain versions, `cli/train --cfg uhm_1 --agent uhm` at 256
+envs × 24 steps and `cli/eval_relive` of its checkpoint; the exact chain,
+no kernel) and scene objects (a 512 × 32 rollout through K1 over a
+library with an object track, K1 on its states, a dynamic box's control
+step held against its plain versions, a box drop).
 Whatever the phases write goes to temporary directories.
 
 Usage: python3 chip_smoke.py [--parent SRC] (needs one CUDA card).
@@ -370,7 +377,7 @@ def draw_lib_states(lib, B, gen, dev):
             si.to(torch.int32).contiguous())
 
 
-def gate(name, out, plain32, plain64) -> tuple:
+def gate(name, out, plain32, plain64, moved=None) -> tuple:
     """A kernel's (qpos, qvel) against its float32 and float64 plain
     versions at the kernel bounds -> (errors, failures).
 
@@ -383,7 +390,18 @@ def gate(name, out, plain32, plain64) -> tuple:
     the side it lands on: to the float32 plain version, or, where it
     misses that one, to the float64 one (printed as
     `edge_held_to_plain64` with both distances). Edge envs are counted and
-    printed; more than one in eight fails."""
+    printed; more than one in eight fails.
+
+    With `moved` (env -> the float64 and float32 plain steps from its
+    state moved by 1-2 float32 ulps, as `gate_big` takes it), an edge env
+    where the kernel lands on neither side passes only by a witness: one
+    of those moved steps lands within the bounds of the kernel's answer
+    (printed as `edge_witnessed`, with the nearest moved step in units of
+    the bounds and how many land within them). Without `moved`, or with
+    no witness, such an env fails. A steep contact term does this, where
+    float32 rounding of the state moves the step along a continuum
+    rather than across one switch (the dynamic box's face normal,
+    tests/test_torch_box_gate.py)."""
     import torch
 
     def per_env(a, b):
@@ -393,16 +411,36 @@ def gate(name, out, plain32, plain64) -> tuple:
     k32 = [per_env(a, b) for a, b in zip(out, plain32)]
     p64 = [per_env(a, b) for a, b in zip(plain32, plain64)]
     edge = (p64[0] > QPOS_TOL) | (p64[1] > QVEL_TOL)
+    off32 = (k32[0] > QPOS_TOL) | (k32[1] > QVEL_TOL)
+    off64 = (k64[0] > QPOS_TOL) | (k64[1] > QVEL_TOL)
     # edge envs where the kernel lands with float64 and not with float32
-    held64 = (edge & ((k32[0] > QPOS_TOL) | (k32[1] > QVEL_TOL))
-              & (k64[0] <= QPOS_TOL) & (k64[1] <= QVEL_TOL))
+    held64 = edge & off32 & ~off64
+    witnessed, rows, fails = torch.zeros_like(edge), [], []
+    neither = edge & off32 & off64
+    for e in torch.nonzero(neither if moved is not None
+                           else torch.zeros_like(edge))[:, 0].tolist():
+        nearest, within = witness(out, e, moved)
+        rows.append({"env": e, "kernel_vs_plain64": [k64[0][e].item(),
+                                                     k64[1][e].item()],
+                     "kernel_vs_plain32": [k32[0][e].item(),
+                                           k32[1][e].item()],
+                     "plain32_vs_plain64": [p64[0][e].item(),
+                                            p64[1][e].item()],
+                     "nearest_moved_step": nearest,
+                     "moved_steps_within_bounds": within})
+        witnessed[e] = within > 0
+        if not within:
+            fails.append(f"{name}: edge env {e} lands on neither side "
+                         f"({rows[-1]}), and no plain step from its state "
+                         f"moved by {ULP_MOVES} float32 ulps lands there")
 
     def mx(x, mask):
         return x[mask].max().item() if bool(mask.any()) else 0.0
 
     every = torch.ones_like(edge)
+    held = ~(held64 | witnessed)
     errs = {"kernel_vs_plain64": [mx(k64[0], ~edge), mx(k64[1], ~edge)],
-            "kernel_vs_plain32": [mx(k32[0], ~held64), mx(k32[1], ~held64)],
+            "kernel_vs_plain32": [mx(k32[0], held), mx(k32[1], held)],
             "plain32_vs_plain64": [mx(p64[0], every), mx(p64[1], every)],
             "edge_envs": int(edge.sum()),
             "edge_kernel_vs_plain64": [mx(k64[0], edge), mx(k64[1], edge)],
@@ -412,7 +450,8 @@ def gate(name, out, plain32, plain64) -> tuple:
                                                  k64[1][e].item()],
                  "kernel_vs_plain32": [k32[0][e].item(), k32[1][e].item()]}
                 for e in torch.nonzero(held64)[:, 0].tolist()]}
-    fails = []
+    if moved is not None:
+        errs["edge_witnessed"] = rows
     for yardstick in ("kernel_vs_plain64", "kernel_vs_plain32"):
         dq, dv = errs[yardstick]
         if not (dq <= QPOS_TOL and dv <= QVEL_TOL):
@@ -423,6 +462,21 @@ def gate(name, out, plain32, plain64) -> tuple:
                      "have the float32 plain version outside the bounds of "
                      "the float64 one")
     return errs, fails
+
+
+def witness(out, e, moved) -> tuple:
+    """How near the plain steps `moved(e)` (from env e's state moved by
+    1-2 float32 ulps) come to the kernel's answer `out` on env e -> (the
+    nearest, in units of the bounds; how many land within them)."""
+    import torch
+
+    def per_env(a, b):
+        return (a.double() - b.double()).abs().amax(1)
+
+    ratio = torch.cat([torch.maximum(per_env(q, out[0][e:e + 1]) / QPOS_TOL,
+                                     per_env(v, out[1][e:e + 1]) / QVEL_TOL)
+                       for q, v in moved(e)])
+    return ratio.min().item(), int((ratio <= 1).sum())
 
 
 def on_tree(env_cfg, family: str):
@@ -517,6 +571,30 @@ ULP_MOVES, MOVES = (1, 2), 32
 MOVED_CHUNK = 8
 
 
+def ulp_moved(ins, env, dtype, moved=(0, 1), seed=0) -> list:
+    """Copies of env `env` of `ins`, or of each env of a list one after
+    another, in `dtype`: len(ULP_MOVES) * MOVES copies of each env, the
+    inputs at indices `moved` moved by ULP_MOVES float32 ulps (random
+    signs per entry, from `seed`), the others repeated."""
+    import torch
+
+    envs = [env] if isinstance(env, int) else list(env)
+    n = len(ULP_MOVES) * MOVES
+    gen = torch.Generator().manual_seed(seed)
+    rel = torch.tensor([u * 2.0 ** -23 for u in ULP_MOVES
+                        for _ in range(MOVES)], dtype=dtype)[:, None]
+    rel = rel.repeat(len(envs), 1)
+    out = []
+    for k, x in enumerate(ins):
+        c = x[envs].to(dtype).repeat_interleave(n, 0).contiguous()
+        if k in moved:
+            sign = 2 * torch.randint(0, 2, (len(rel), x.shape[1]),
+                                     generator=gen) - 1
+            c = (c * (1 + (rel * sign).to(c))).contiguous()
+        out.append(c)
+    return out
+
+
 def moved_steps(topo, env_cfg, model, ins, env, dtype, seed=0, trace=None,
                 pcg_iters=(2, 2), refresh_at=None, precond_bf16=False,
                 inverses=None, stop=None):
@@ -526,35 +604,20 @@ def moved_steps(topo, env_cfg, model, ins, env, dtype, seed=0, trace=None,
     first `stop` substeps alone where given, the head's 1) of env `env`
     of `ins` (qpos, qvel, actions, target_base), or of each env of a list
     one after another, from copies of its state moved by ULP_MOVES float32
-    ulps -> (qpos', qvel') of the len(ULP_MOVES) * MOVES copies of each
-    env; `trace` receives each substep's ground-contact sets."""
+    ulps (`ulp_moved`) -> (qpos', qvel') of the len(ULP_MOVES) * MOVES
+    copies of each env; `trace` receives each substep's ground-contact
+    sets."""
     import torch
 
     from uhc_tpu_torch.physics import solver
 
-    envs = [env] if isinstance(env, int) else list(env)
-    qpos, qvel, act, tb = [x[envs].to(dtype) for x in ins]
-    n = len(ULP_MOVES) * MOVES
-    gen = torch.Generator().manual_seed(seed)
-    rel = torch.tensor([u * 2.0 ** -23 for u in ULP_MOVES
-                        for _ in range(MOVES)], dtype=dtype)[:, None]
-    rel = rel.repeat(len(envs), 1)
-
-    def copies(x):
-        return x.repeat_interleave(n, 0).contiguous()
-
-    def move(x):
-        sign = 2 * torch.randint(0, 2, (len(rel), x.shape[1]),
-                                 generator=gen) - 1
-        return (copies(x) * (1 + (rel * sign).to(x))).contiguous()
-
     m = model if dtype == torch.float32 else double_model(model)
-    given = None if inverses is None else (
-        copies(inverses[envs, 0].to(dtype)),
-        copies(inverses[envs, 1].to(dtype)))
+    given = None if inverses is None else [
+        x.contiguous() for x in ulp_moved(
+            (inverses[:, 0], inverses[:, 1]), env, dtype, moved=())]
     return solver.substeps(
-        topo, env_cfg, m, move(qpos), move(qvel), copies(act), copies(tb),
-        1.0, pcg_iters, 0, env_cfg.frame_skip if stop is None else stop,
+        topo, env_cfg, m, *ulp_moved(ins, env, dtype, seed=seed), 1.0,
+        pcg_iters, 0, env_cfg.frame_skip if stop is None else stop,
         inverses=given, trace=trace, refresh_at=refresh_at,
         precond_bf16=precond_bf16)[:2]
 
@@ -621,12 +684,8 @@ def gate_big(name, out, plain32, plain64, moved) -> tuple:
                 and k64[1][e] <= worst32[1]:
             row["passed_by"] = "float32_worst_miss"
         else:
-            ratio = torch.cat([torch.maximum(
-                per_env(q, out[0][e:e + 1]) / QPOS_TOL,
-                per_env(v, out[1][e:e + 1]) / QVEL_TOL)
-                for q, v in moved(e)])
-            row["nearest_moved_step"] = ratio.min().item()
-            row["moved_steps_within_bounds"] = int((ratio <= 1).sum())
+            (row["nearest_moved_step"],
+             row["moved_steps_within_bounds"]) = witness(out, e, moved)
             if row["moved_steps_within_bounds"]:
                 row["passed_by"] = "witness"
             else:
@@ -2461,6 +2520,439 @@ def toe_rows(src, k2_src, errs, rollouts, t) -> list:
     return out
 
 
+# the kinematic-policy stack, scene objects and the mesh toolkit (phases
+# meshtools, uhm, objects): the native toolkit against its numpy path at
+# the CPU test's bounds (tests/test_torch_meshtools.py: the native sums of
+# float32 coordinates); the run of tools/train_queue_r3c.sh:22-25 (256
+# envs × 24 steps) cut in depth to 2 epochs and eval_relive to the clips'
+# first UHM_EVAL_FRAMES frames (the exact chain takes ~1.3 s a control
+# step on the card, launch-bound: PERF.md §6); a 512 × 32 rollout
+# over a library with an object track, and the exact chain's batch of the
+# kin env and of a dynamic box at B_CHECK
+MESH_MASS_RTOL, MESH_COM_ATOL, MESH_INERTIA_RTOL = 1e-12, 1e-6, 1e-3
+UHM_TRAIN_ARGS = ["--cfg", "uhm_1", "--agent", "uhm", "--num-envs", "256",
+                  "--horizon", "24"]
+UHM_EPOCHS, UHM_EVAL_FRAMES = 2, 16
+OBJ_ROLLOUT = (512, 32)
+OBJ_BOX = {"kind": "box", "size": [0.15, 0.15, 0.15], "mass": 2.0}
+
+
+def meshtools_phase() -> dict:
+    """Phase meshtools: build the native toolkit (g++), read the
+    stand-in's meshes both ways (triangles equal) and compare the mass
+    properties with the numpy path at the CPU test's bounds; the stand-in
+    built on the native path."""
+    import tempfile
+
+    import numpy as np
+
+    from uhc_tpu_torch.native import meshtools
+    from uhc_tpu_torch.smpl import mesh
+    from uhc_tpu_torch.smpl.fixture_humanoid import write_fixture_humanoid
+    from uhc_tpu_torch.smpl.mjcf import load_mjcf_humanoid
+
+    t0 = time.perf_counter()
+    meshtools.load()
+    build_s = time.perf_counter() - t0
+    worst = {"mass_rel": 0.0, "com_m": 0.0, "inertia_rel": 0.0}
+    with tempfile.TemporaryDirectory() as d:
+        xml = write_fixture_humanoid(d)
+        files = sorted(f for f in os.listdir(d) if f.endswith(".stl"))
+        tris_n = 0
+        for f in files:
+            path = os.path.join(d, f)
+            tris = mesh.load_stl(path)
+            if not np.array_equal(tris, mesh.load_stl(path, native=False)):
+                raise RuntimeError(f"meshtools: {f} reads differently")
+            tris_n += len(tris)
+            m, com, inertia = mesh.mesh_mass_properties(tris)
+            m0, com0, inertia0 = mesh.mesh_mass_properties(tris,
+                                                           native=False)
+            worst["mass_rel"] = max(worst["mass_rel"], abs(m - m0) / m0)
+            worst["com_m"] = max(worst["com_m"],
+                                 float(np.abs(com - com0).max()))
+            worst["inertia_rel"] = max(worst["inertia_rel"], float(
+                np.abs(inertia - inertia0).max() / np.abs(inertia0).max()))
+        t0 = time.perf_counter()
+        _, native_model = load_mjcf_humanoid(xml)
+        load_s = time.perf_counter() - t0
+    if not (worst["mass_rel"] <= MESH_MASS_RTOL
+            and worst["com_m"] <= MESH_COM_ATOL
+            and worst["inertia_rel"] <= MESH_INERTIA_RTOL):
+        raise RuntimeError(f"meshtools: native vs numpy {worst}")
+    if not np.isfinite(native_model.body_inertia).all():
+        raise RuntimeError("meshtools: the native stand-in is not finite")
+    return {"build_s": build_s, "files": len(files), "triangles": tris_n,
+            "native_vs_numpy": worst, "native_stand_in_s": load_s,
+            "bounds": [MESH_MASS_RTOL, MESH_COM_ATOL, MESH_INERTIA_RTOL]}
+
+
+def seeded_cc_checkpoint(cfg, seed: int = 41) -> dict:
+    """A frozen copycat at the config's full width (MCP 8 × (784 → 512 →
+    256 → 75)) with seeded running statistics, as a checkpoint dict."""
+    import numpy as np
+    import torch
+
+    from uhc_tpu_torch.learn import nets
+
+    pol = nets.make_policy(cfg, 784, 75, torch.Generator().manual_seed(seed),
+                           "cpu")
+    rng = np.random.default_rng(seed)
+    return {"policy_params": nets.policy_to_numpy(pol),
+            "running_stats": {
+                "n": np.float32(1e4),
+                "mean": (0.1 * rng.standard_normal(784)).astype(np.float32),
+                "m2": (1e4 * (0.5 + rng.random(784))).astype(np.float32)}}
+
+
+def kin_step_check(dev) -> tuple:
+    """Phase uhm (a): one kin_env_step of B_CHECK envs at clip frames
+    (seeded qvel noise), the actions of a seeded full-width kin net
+    (KinNetSpecs of uhm_1, carried by kin_net_from_numpy) on their AR obs
+    plus its noise, the frozen copycat a seeded full-width MCP through
+    make_cc_policy_fn: the card in float32 against the same step on the
+    host in float32 and on the card in float64, by `gate` at the exact
+    chain's bounds; the step timed -> (numbers, failures)."""
+    import dataclasses
+
+    import torch
+
+    from uhc_tpu_torch.config.config import Config
+    from uhc_tpu_torch.data.dataset import (build_expert_library,
+                                            load_motion_file)
+    from uhc_tpu_torch.envs import humanoid_kin as K
+    from uhc_tpu_torch.learn import kin_net as KN
+    from uhc_tpu_torch.learn.agent_uhm import (kin_config, kin_net_specs,
+                                               make_cc_policy_fn)
+    from uhc_tpu_torch.physics.model import model_from_numpy
+    from uhc_tpu_torch.smpl.constants import default_diff_weights
+    from uhc_tpu_torch.smpl.fixture_humanoid import load_fixture_humanoid
+
+    cfg = Config.preset("uhm_1")
+    kc, specs = kin_config(cfg), kin_net_specs(cfg)
+    topo, model_np = load_fixture_humanoid()
+    ck = seeded_cc_checkpoint(cfg)
+    gen = torch.Generator().manual_seed(42)
+    net = KN.kin_net_init(topo, specs, gen, "cpu")
+    net = KN.kin_net_from_numpy(KN.kin_net_to_numpy(net), specs, dev)
+    jpw = torch.as_tensor(default_diff_weights()[0])
+
+    def setup(device, dtype):
+        model = model_from_numpy(model_np, device)
+        lib = build_expert_library(topo, model, load_motion_file(
+            "sample_data/gait_clips.pkl"))[0]
+        if dtype == torch.float64:
+            model = double_model(model)
+            lib = {k: v.double() if v.is_floating_point() else v
+                   for k, v in lib.items()}
+        return model, lib, make_cc_policy_fn(ck, cfg, device, dtype)
+
+    model, lib, cc = setup(dev, torch.float32)
+    S = lib["len"].shape[0]
+    seq = torch.randint(0, S, (B_CHECK,), generator=gen)
+    t = (torch.rand(B_CHECK, generator=gen)
+         * (lib["len"][seq].cpu() - 2)).long()
+    qvel_noise = 0.05 * torch.randn((B_CHECK, topo.nv), generator=gen)
+    act_noise = torch.randn((B_CHECK, 80), generator=gen)
+
+    def states(model, lib, device):
+        st = K.kin_env_reset(topo, model, kc, seq.to(device), lib)
+        s, tt = seq.to(device), t.to(device)
+        q = lib["qpos"][s, tt]
+        return dataclasses.replace(
+            st, qpos=q, prev_qpos=q, target_qpos=q, start_ind=tt,
+            qvel=lib["qvel"][s, tt] + qvel_noise.to(device, q.dtype))
+
+    st = states(model, lib, dev)
+    with torch.no_grad():
+        obs = K.get_ar_obs_v1(topo, model, cfg.env, st, lib)
+        mean, _ = net(obs, torch.zeros((B_CHECK, specs.rnn_hdim),
+                                       device=dev))
+        act = mean + torch.exp(net.log_std) * act_noise.to(dev)
+        out = K.kin_env_step(topo, model, kc, cfg.env, st, act, lib, cc,
+                             jpw.to(dev))
+        step_ms = cuda_ms(lambda: K.kin_env_step(
+            topo, model, kc, cfg.env, st, act, lib, cc, jpw.to(dev)), 1)
+        t0 = time.perf_counter()
+        ref = {}
+        for name, device, dtype in (("plain32", "cpu", torch.float32),
+                                    ("plain64", dev, torch.float64)):
+            m_, l_, c_ = setup(device, dtype)
+            s_ = states(m_, l_, device)
+            ref[name] = K.kin_env_step(
+                topo, m_, kc, cfg.env, s_, act.to(device, dtype), l_, c_,
+                jpw.to(device, dtype))
+    errs, fails = gate("kin_env_step", (out[0].qpos, out[0].qvel),
+                       [ref["plain32"][0].qpos.to(dev),
+                        ref["plain32"][0].qvel.to(dev)],
+                       [ref["plain64"][0].qpos, ref["plain64"][0].qvel])
+    plain_s = time.perf_counter() - t0
+    reward_err = (out[2].double() - ref["plain64"][2]).abs().max().item()
+    if not all(bool(torch.isfinite(x).all()) for x in (
+            out[0].qpos, out[0].qvel, *out[1:4])):
+        fails.append("kin_env_step: output not finite")
+    return {**errs, "reward_vs_plain64": reward_err, "step_ms": step_ms,
+            "plain_steps_s": plain_s, "num_envs": B_CHECK,
+            "done": int(out[4].sum())}, fails
+
+
+def uhm_phase(dev) -> tuple:
+    """Phase uhm: (a) `kin_step_check`; (b) cli/train --cfg uhm_1 --agent
+    uhm at 256 envs × 24 steps (tools/train_queue_r3c.sh:22-25), 2 epochs
+    with rl_update and full_update, a seeded frozen copycat (the trained
+    one stays off the card), no kernel launched (the exact chain, as in the
+    JAX package), finite stats, the checkpoint reloading to the same kin
+    net; (c) cli/eval_relive of that checkpoint over the six gait clips'
+    first UHM_EVAL_FRAMES frames -> (numbers, failures)."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from uhc_tpu_torch.cli import eval_relive, train
+    from uhc_tpu_torch.config.config import Config
+    from uhc_tpu_torch.learn import kin_net as KN
+
+    step, fails = kin_step_check(dev)
+    with tempfile.TemporaryDirectory() as out:
+        cc_path = os.path.join(out, "cc.p")
+        with open(cc_path, "wb") as f:
+            pickle.dump(seeded_cc_checkpoint(Config.preset("uhm_1")), f)
+        reset_counts()
+        agent, hist = train.main(UHM_TRAIN_ARGS + [
+            "--epochs", str(UHM_EPOCHS), "--results-dir", out,
+            "--cc-checkpoint", cc_path])
+        torch.cuda.synchronize()
+        if counts() != expect(0):
+            fails.append(f"uhm train: launches {counts()}, expected none")
+        for i, st in enumerate(hist):
+            if not all(np.isfinite(v) for v in st.values()):
+                fails.append(f"uhm train: epoch {i} stats {st}")
+        ck = KN.kin_net_to_numpy(agent.net)
+        with open(agent.checkpoint_path(UHM_EPOCHS), "rb") as f:
+            saved = pickle.load(f)["params"]
+        x = torch.randn((agent.num_envs, 640),
+                        generator=torch.Generator().manual_seed(5)).to(dev)
+        h = torch.zeros((agent.num_envs, 512), device=dev)
+        with torch.no_grad():
+            same = all(torch.equal(a, b) for a, b in zip(
+                KN.kin_net_from_numpy(saved, agent.specs, dev)(x, h),
+                agent.net(x, h)))
+        finite = all(bool(np.isfinite(np.asarray(v)).all())
+                     for v in _flat(ck))
+        if not (same and finite):
+            fails.append(f"uhm train: checkpoint reload equal {same}, "
+                         f"finite {finite}")
+        reset_counts()
+        res = eval_relive.main([
+            "--epoch", str(UHM_EPOCHS), "--results-dir", out,
+            "--cc-checkpoint", cc_path, "--max-seq-len",
+            str(UHM_EVAL_FRAMES)])
+        if counts() != expect(0) or not all(
+                np.isfinite(v) for v in res["summary"].values()) or tuple(
+                res["traj"]["pred_qpos"].shape) != (6, UHM_EVAL_FRAMES - 1,
+                                                    76):
+            fails.append(f"eval_relive: launches {counts()}, summary "
+                         f"{res['summary']}")
+    return {"kin_step": step, "epochs": len(hist),
+            "num_envs": agent.num_envs, "horizon": agent.horizon,
+            "rollout_env_steps_per_s": [st["rollout_steps_per_sec"]
+                                        for st in hist],
+            "rl_update_ms": [1e3 * st["T_rl_update"] for st in hist],
+            "full_update_ms": [1e3 * st["T_full_update"] for st in hist],
+            "epoch_s": [st["T_total"] for st in hist],
+            "reward_mean": [st["reward_mean"] for st in hist],
+            "supervised_loss": [st["supervised_loss"] for st in hist],
+            "checkpoint_finite": finite, "checkpoint_equal": same,
+            "eval_control_steps": res["control_steps"],
+            "eval_ms_per_step": res["ms_per_step"],
+            "eval_summary": res["summary"]}, fails
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _flat(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _flat(v)]
+    return [tree]
+
+
+def obj_library(topo, model):
+    """The gait clips, the first three with a box sliding along +x at
+    0.25 m (a free-joint track) -> (expert library, keys)."""
+    import numpy as np
+
+    from uhc_tpu_torch.data.dataset import (build_expert_library,
+                                            load_motion_file)
+
+    seqs = load_motion_file("sample_data/gait_clips.pkl")
+    for k in list(seqs)[:3]:
+        T = len(np.asarray(seqs[k]["pose_aa"]))
+        track = np.zeros((T, 7), np.float32)
+        track[:, 0] = np.linspace(0.5, 1.5, T)
+        track[:, 2], track[:, 3] = 0.25, 1.0
+        seqs[k]["obj_pose"] = track
+    return build_expert_library(topo, model, seqs)
+
+
+def objects_phase(topo, model, model_np, dev) -> tuple:
+    """Phase objects: (a) learn/rollout.py's rollout of OBJ_ROLLOUT envs ×
+    steps over a library with an object track, a seeded full-width MCP:
+    one K1 launch a step, the carried track equal to the library's at each
+    env's frame; (b) K1 on B_CHECK of the rollout's final states against
+    its plain versions by `gate`; (c) a dynamic box on the exact chain:
+    one control step of B_CHECK envs (a box at each left thigh) on the card
+    against the host's float32 and the card's float64 step by `gate`, the
+    box's dofs part of the state held, the step timed with and without
+    the box; a box dropped from 0.5 m settling in 2 s -> (numbers,
+    failures, K1 launches). The box step's `gate` takes witnesses: a
+    humanoid sphere whose center sits within a few μm outside a box face
+    meets the face normal's steep part (q / sqrt(q² + 1e-12), as in the
+    JAX package), where float32 rounding of the state moves the contact
+    force along a continuum, and the card's step can land on neither
+    plain version (tests/test_torch_box_gate.py: such an env of this
+    draw); there a host plain step from the state moved by 1-2 float32
+    ulps must land on the card's answer."""
+    import numpy as np
+    import torch
+
+    from uhc_tpu_torch.config.config import Config
+    from uhc_tpu_torch.data.dataset import neutral_from_library
+    from uhc_tpu_torch.envs import humanoid_im as H
+    from uhc_tpu_torch.learn import nets, running_norm as RN
+    from uhc_tpu_torch.learn.rollout import init_env_states, make_rollout_fn
+    from uhc_tpu_torch.physics import control_step as CS
+    from uhc_tpu_torch.physics import engine as E
+    from uhc_tpu_torch.physics import objects as O
+    from uhc_tpu_torch.physics.model import model_from_numpy
+    from uhc_tpu_torch.smpl.constants import default_diff_weights
+
+    cfg = Config.uhc_implicit()
+    env = cfg.env
+    lib, keys = obj_library(topo, model)
+    jpw, bdw = default_diff_weights()
+    nq, nv = neutral_from_library(lib)
+    aux = {"neutral_qpos": nq, "neutral_qvel": nv,
+           "jpos_diffw": torch.as_tensor(jpw, device=dev),
+           "body_diffw": torch.as_tensor(bdw, device=dev)}
+    gen = torch.Generator(device=dev).manual_seed(43)
+    pol = nets.make_policy(cfg, H.obs_dim(topo, env), 75,
+                           torch.Generator().manual_seed(43), dev)
+    B, T = OBJ_ROLLOUT
+    states = init_env_states(topo, env, model, lib, aux, gen, B)
+    rollout = make_rollout_fn(topo, env, pol, T, fused_model=model)
+    reset_counts()
+    t0 = time.perf_counter()
+    states, _, traj, _ = rollout(model, lib, aux, torch.full((75,), -2.3,
+                                                             device=dev),
+                                 RN.init(H.obs_dim(topo, env), dev), states,
+                                 gen, 1.0, 1.0, torch.zeros(len(keys),
+                                                            device=dev))
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t0
+    launched("objects rollout", expect(T, "k1"),
+             (states.qpos, states.qvel, traj.rewards))
+    k1_launches = counts()["k1"]
+    frame = torch.minimum(states.start_ind + states.cur_t,
+                          lib["len"][states.seq_idx] - 1)
+    track_equal = torch.equal(states.obj_qpos,
+                              lib["obj_pose"][states.seq_idx, frame])
+    fails = [] if track_equal else ["objects rollout: the carried track is "
+                                    "not the library's"]
+    moving = int((lib["obj_pose"][states.seq_idx, 0, 0]
+                  != states.obj_qpos[:, 0]).sum())
+
+    # (b) K1 on the rollout's states
+    sel = slice(0, B_CHECK)
+    qpos, qvel = states.qpos[sel].contiguous(), states.qvel[sel].contiguous()
+    tb = lib["qpos"][states.seq_idx[sel], torch.minimum(
+        frame[sel] + 1, lib["len"][states.seq_idx[sel]] - 1), 7:].contiguous()
+    g = torch.Generator().manual_seed(44)
+    act = (0.02 * torch.randn((B_CHECK, 75), generator=g)).to(dev)
+    step = CS.ControlStep(topo, env, model, pcg_iters=(1, 2))
+    out = step(qpos, qvel, act, tb, 1.0)
+    plain32 = [x.to(dev) for x in CS.control_step_reference(
+        topo, env, model_from_numpy(model_np, "cpu"), qpos.cpu(),
+        qvel.cpu(), act.cpu(), tb.cpu(), 1.0, (1, 2))]
+    plain64 = CS.control_step_reference(
+        topo, env, double_model(model), qpos.double(), qvel.double(),
+        act.double(), tb.double(), 1.0, (1, 2))
+    k1_errs, f = gate("objects K1", out, plain32, plain64)
+    fails += f
+
+    # (c) a dynamic box at each thigh on the exact chain; the box's dofs
+    # join the state that the gate holds (the reference appends them to
+    # the sim's qpos / qvel)
+    kin = E.fk(topo, model, qpos)
+    oq = torch.cat([kin["xpos"][:, 1] + torch.tensor([0.05, 0.0, 0.0],
+                                                     device=dev),
+                    torch.tensor([1.0, 0, 0, 0], device=dev).expand(
+                        B_CHECK, 4)], 1)
+    ov = torch.zeros((B_CHECK, 6), device=dev)
+    box_ins = (qpos, qvel, act, tb, oq, ov)
+    models = {(dev, torch.float32): model,
+              ("cpu", torch.float32): model_from_numpy(model_np, "cpu"),
+              (dev, torch.float64): double_model(model)}
+    models["cpu", torch.float64] = double_model(models["cpu", torch.float32])
+
+    def box_step(ins, device, dtype, obj=True):
+        m = models[str(device) if device == "cpu" else device, dtype]
+        qp, qv, a, t, q, v = (x.to(device, dtype) for x in ins)
+        with torch.no_grad():
+            if not obj:
+                return H.do_simulation(topo, m, env, qp, qv, a, t, 1.0)
+            out = H.do_simulation(
+                topo, m, env, qp, qv, a, t, 1.0,
+                obj=(O.make_obj_model([OBJ_BOX], device, dtype), q, v))
+        return (torch.cat([out[0], out[2]], 1).to(dev),
+                torch.cat([out[1], out[3]], 1).to(dev))
+
+    obj_out = box_step(box_ins, dev, torch.float32)
+    obj_ms = cuda_ms(lambda: box_step(box_ins, dev, torch.float32), 1)
+    exact_ms = cuda_ms(lambda: box_step(box_ins, dev, torch.float32, False),
+                       1)
+    t0 = time.perf_counter()
+    ref32 = box_step(box_ins, "cpu", torch.float32)
+    ref64 = box_step(box_ins, dev, torch.float64)
+
+    def moved(e):
+        """The host's float64 and float32 steps of env e from its state
+        (body and box) moved by 1-2 float32 ulps."""
+        return [box_step(ulp_moved(box_ins, e, dtype, moved=(0, 1, 4, 5)),
+                         "cpu", dtype)
+                for dtype in (torch.float64, torch.float32)]
+
+    obj_errs, f = gate("dynamic box step", obj_out, ref32, ref64, moved)
+    plain_s = time.perf_counter() - t0
+    fails += f
+    box = {"boxes_moved": int(((obj_out[0][:, -7:] - oq).abs().amax(1)
+                               > 1e-4).sum())}
+    if not all(bool(torch.isfinite(x).all()) for x in obj_out):
+        fails.append("dynamic box step: not finite")
+
+    qp = torch.tensor([[[0.0, 0.0, 0.5, 1.0, 0.0, 0.0, 0.0]]], device=dev)
+    qv = torch.zeros((1, 1, 6), device=dev)
+    z3 = torch.zeros((1, 1, 3), device=dev)
+    box_om = O.make_obj_model([OBJ_BOX], dev)
+    for _ in range(900):
+        qp, qv = O.obj_substep(model, box_om, qp, qv, z3, z3)
+    qp, qv = qp[0, 0].cpu().numpy(), qv[0, 0].cpu().numpy()
+    settled = bool(abs(qp[2] - 0.15) < 0.02 and np.all(np.abs(qv) < 0.05)
+                   and np.all(np.abs(qp[:2]) < 0.01) and qp[3] > 0.99)
+    if not settled:
+        fails.append(f"box drop: rest {qp}, velocity {qv}")
+    return {"rollout": {"num_envs": B, "steps": T, "k1_launches": k1_launches,
+                        "env_steps_per_s": B * T / rollout_s,
+                        "track_equal": track_equal,
+                        "envs_on_a_moved_box": moving},
+            "k1": k1_errs, "box_step": {**obj_errs, **box},
+            "box_step_ms": obj_ms, "exact_step_ms": exact_ms,
+            "box_plain_and_witness_s": plain_s,
+            "num_envs": B_CHECK, "box_drop_rest": qp.tolist(),
+            "box_drop_settled": settled}, fails, k1_launches
+
+
 def run(parent=None) -> int:
     """Every phase; `parent` is --parent's source, or None."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3199,6 +3691,32 @@ def run(parent=None) -> int:
     if fails or vfails:
         raise RuntimeError("; ".join(fails + vfails))
 
+    # this slice: the native mesh toolkit, the kinematic-policy stack and
+    # scene objects
+    phase("meshtools", "(g++ build of uhc_tpu_torch/native/meshtools.cpp; "
+                       "the stand-in's meshes read and weighed both ways)")
+    done("meshtools", **meshtools_phase(), card=smi)
+    phase("uhm", f"(one kin_env_step at B={B_CHECK} vs its plain versions "
+                 "by gate; cli/train " + " ".join(UHM_TRAIN_ARGS)
+          + f", {UHM_EPOCHS} epochs; cli/eval_relive of its checkpoint "
+          f"over {UHM_EVAL_FRAMES} frames; the exact chain, no kernel)")
+    uhm_numbers, fails = uhm_phase(dev)
+    done("uhm", **uhm_numbers, qpos_tol=QPOS_TOL, qvel_tol=QVEL_TOL,
+         card=smi)
+    if fails:
+        raise RuntimeError("; ".join(fails))
+    phase("objects", f"(learn/rollout.py {OBJ_ROLLOUT[0]} envs × "
+                     f"{OBJ_ROLLOUT[1]} steps over a library with an object "
+                     f"track through K1; K1 on its states by gate, "
+                     f"B={B_CHECK}; a dynamic box on the exact chain by "
+                     "gate, box dofs held, an edge env on neither side "
+                     "passing only by a witness; a box drop)")
+    obj_numbers, fails, obj_k1 = objects_phase(topo, model, model_np, dev)
+    done("objects", **obj_numbers, qpos_tol=QPOS_TOL, qvel_tol=QVEL_TOL,
+         card=smi)
+    if fails:
+        raise RuntimeError("; ".join(fails))
+
     phase("kernel_bench", "(python -m uhc_tpu_torch.cli.kernel_bench, "
                           "B=2048, STEPS=20: " + " ".join(KERNEL_BENCH_ROWS)
           + ")")
@@ -3831,7 +4349,7 @@ def run(parent=None) -> int:
         {"name": "control_step", "route": "cuda", "source": src,
          "replaces": "uhc_tpu/physics/pallas_lane.py:83",
          "launches": (launches + train_counts["train_lane"]["k1"]
-                      + protocol_k1),
+                      + protocol_k1 + obj_k1),
          "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None},
         {"name": "control_step_head", "route": "cuda", "source": src,

@@ -1,9 +1,11 @@
 """Shared set-up of the PyTorch-port parity tests (no tests here).
 
 Both packages load the same stand-in humanoid files: the port with its own
-MJCF loader, the JAX package with `uhc_tpu.smpl.mjcf.load_mjcf_humanoid`
-on its numpy/scipy mesh path (the native mesh toolkit is switched off for
-that one call, so both sides compute mass properties the same way).
+MJCF loader, the JAX package with `uhc_tpu.smpl.mjcf.load_mjcf_humanoid`,
+both on their numpy/scipy mesh path (the port's `native=False`, the JAX
+package's native mesh toolkit switched off for that one call), the path
+of the port's `load_fixture_humanoid`, so both sides compute mass
+properties the same way.
 Inputs are made from a seed with numpy and handed to both sides.
 """
 import dataclasses
@@ -46,7 +48,7 @@ def load_both(directory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(native, "_load", lambda: None)
         jt, jm = jax_load(xml)
-    tt, tm = port_load(xml)
+    tt, tm = port_load(xml, native=False)
     return (jt, model_to_dtype(jm, jnp.float32)), (tt, tm)
 
 
@@ -213,3 +215,76 @@ def batched_steps_both(jax_tree, port_tree, cfg, seq, start, actions,
         jout.append((jst, jobs, jrew))
         tout.append((st, obs, rew))
     return step, jout, tout
+
+
+def jax_library(lib):
+    """The port's expert library as JAX arrays (the JAX package builds the
+    same one, tests/test_torch_env.py; this skips its slower build)."""
+    import jax.numpy as jnp
+
+    return {k: jnp.asarray(v.numpy()) for k, v in lib.items()}
+
+
+def kin_setup(directory, frames=12, seqs=None):
+    """The kin stack's set-up on both sides: the stand-in, the gait clips'
+    first `frames` frames (with `seqs`, those motion dicts instead), the
+    uhm_1 config, each package's KinConfig, a seeded small MCP copycat
+    (784 → (64, 32) × 3 primitives → 75) with running statistics as a
+    checkpoint dict, each package's make_cc_policy_fn of it, and the diff
+    weights."""
+    import jax.numpy as jnp
+
+    from uhc_tpu.config.config import Config as JConfig
+    from uhc_tpu.envs import humanoid_kin as JK
+    from uhc_tpu.learn.agent_uhm import make_cc_policy_fn as jax_cc
+    from uhc_tpu_torch.config.config import UHM_1, Config
+    from uhc_tpu_torch.data.dataset import (build_expert_library,
+                                            load_motion_file)
+    from uhc_tpu_torch.learn import nets
+    from uhc_tpu_torch.learn.agent_uhm import kin_config, make_cc_policy_fn
+    from uhc_tpu_torch.physics.model import model_from_numpy
+    from uhc_tpu_torch.smpl.constants import default_diff_weights
+
+    (jt, jm), (tt, tm) = load_both(directory)
+    m = model_from_numpy(tm, "cpu")
+    lib, keys = build_expert_library(
+        tt, m, load_motion_file(GAIT) if seqs is None else seqs,
+        max_len=frames)
+    cfg = Config.preset("uhm_1")
+    jcfg = JConfig.from_dict("uhm_1", UHM_1)
+    kc = kin_config(cfg)
+    jkc = JK.KinConfig(**dataclasses.asdict(kc))
+    rng = np.random.default_rng(11)
+    pol = nets.policy_mcp_init(784, 75, (64, 32), (16, 8), 3,
+                               torch.Generator().manual_seed(12), "relu",
+                               "cpu")
+    ck = {"policy_params": nets.policy_to_numpy(pol),
+          "running_stats": {
+              "n": np.float32(50.0),
+              "mean": (0.1 * rng.standard_normal(784)).astype(np.float32),
+              "m2": (50 * (0.5 + rng.random(784))).astype(np.float32)}}
+    jpw, _ = default_diff_weights()
+    return dict(jt=jt, jm=jm, tt=tt, m=m, lib=lib, jlib=jax_library(lib),
+                keys=keys, cfg=cfg, jcfg=jcfg, kc=kc, jkc=jkc, ck=ck,
+                cc=make_cc_policy_fn(ck, cfg, "cpu"),
+                jcc=jax_cc(ck, jcfg, 784, 75),
+                jpw=torch.as_tensor(jpw), jjpw=jnp.asarray(jpw))
+
+
+def jax_kin_state(st):
+    """A port KinEnvState as the JAX package's (B-leading pytree)."""
+    import jax
+    import jax.numpy as jnp
+
+    from uhc_tpu.envs import humanoid_kin as JK
+
+    def j(x):
+        if x is None:
+            return None
+        x = x.detach().numpy()
+        return jnp.asarray(x.astype(np.int32) if x.dtype == np.int64 else x)
+
+    B = st.qpos.shape[0]
+    return JK.KinEnvState(**{f.name: j(getattr(st, f.name))
+                             for f in dataclasses.fields(st)},
+                          rng=jax.random.split(jax.random.PRNGKey(0), B))

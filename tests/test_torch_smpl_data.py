@@ -3,8 +3,8 @@ package: load_smplh_data on a 52-joint file written from synthetic data
 (the real model files are not redistributable, as in tests/test_smplh.py),
 the exact bone offsets and the 52- and 55-body models built from them, the
 agent taking those offsets, SMPL-H vertex metrics, the exact hull mass
-properties of model_from_betas_exact (the JAX side on its numpy mesh path,
-the native toolkit switched off), an exact-mass shaped library, and one
+properties of model_from_betas_exact (both packages on their native mesh
+toolkit, the default of each), an exact-mass shaped library, and one
 SMPL-H control step on the data-built model."""
 import dataclasses
 import pickle
@@ -37,10 +37,9 @@ def _write_npz(path, sd):
 
 @pytest.fixture(scope="module")
 def both(tmp_path_factory):
-    """The stand-in on both sides, the native mesh toolkit off on the JAX
-    side for the whole module (its mass properties on the numpy path the
-    port follows), and 52- and 55-joint model files."""
-    import uhc_tpu.native.meshtools as native
+    """The stand-in on both sides (`load_both`), and 52- and 55-joint
+    model files. The hull mass properties of the exact-mass tests run on
+    each package's native mesh toolkit, the default of both."""
     from uhc_tpu_torch.physics.model import model_from_numpy
     from uhc_tpu_torch.smpl.lbs import synthetic_smpl_data
 
@@ -48,10 +47,8 @@ def both(tmp_path_factory):
     (jt, jm), (tt, tm) = load_both(d)
     files = {nj: _write_npz(d / f"model{nj}.npz", synthetic_smpl_data(nj=nj))
              for nj in (24, 52, 55)}
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native, "_load", lambda: None)
-        yield dict(jt=jt, jm=jm, tt=tt, tm=tm, m=model_from_numpy(tm, "cpu"),
-                   files=files, dir=d)
+    yield dict(jt=jt, jm=jm, tt=tt, tm=tm, m=model_from_numpy(tm, "cpu"),
+               files=files, dir=d)
 
 
 @pytest.mark.parametrize("nj", [52, 55])
@@ -216,7 +213,7 @@ def test_smplh_vertex_metrics_match_jax_lbs(both):
 def test_model_from_betas_exact_matches_jax(both):
     """Exact hull mass properties on the stand-in with 2048-vertex
     synthetic data (80-95 vertices a body, every body hulled), zero and
-    seeded betas, vs the JAX function on its numpy mesh path: mass and
+    seeded betas, vs the JAX function, both on the native toolkit: mass and
     moments within 1e-6 relative, COM within 1e-6, the principal-frame
     quaternion within 1e-5 (float32 vertices one ulp apart on the two
     sides move the moments by ~1e-7 relative, and an eigenvector by that

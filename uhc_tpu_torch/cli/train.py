@@ -1,5 +1,6 @@
 """Training CLI (PyTorch twin of uhc_tpu.cli.train): PPO training of a
-copycat controller on the stand-in humanoid.
+copycat controller on the stand-in humanoid, or (`--agent uhm`) of a
+kinematic policy over a frozen copycat.
 
 Usage:
   python -m uhc_tpu_torch.cli.train [--cfg uhc_implicit]
@@ -10,6 +11,9 @@ Usage:
       [--robot-model {smpl,smplh}] [--smpl-data SMPL.pkl]
       [--dr-variants N [--dr-friction-scale F] [--dr-contact-scale C]
       [--dr-mass-scale M]]
+  python -m uhc_tpu_torch.cli.train --cfg uhm_1 --agent uhm
+      [--cc-checkpoint results/uhc_implicit/models/iter_best.p]
+      [--num-envs 256] [--horizon 24] [--epochs N] ...
 
 --cfg names a preset (`uhc_implicit`, `uhc_implicit_shape`) or a YAML
 config `<name>.yml` in config/ or uhc_tpu_torch/config/: `explicit`
@@ -27,6 +31,15 @@ Each epoch logs `R= succ= eps= len= sps= T=`; scalars go to
 <results-dir>/metrics.jsonl, checkpoints to <results-dir>/models/, and the
 eval at each checkpoint to <results-dir>/eval_NNNN.json. UHC_TPU_LANE=0
 routes the physics through K2 in place of K1, as in the JAX package.
+
+--agent uhm (`learn.agent_uhm.UHMAgent`, with --cfg uhm_1, the preset of
+config/uhm_1.yml) trains the kinematic policy through the kin env: the
+frozen copycat of --cc-checkpoint (a seeded one without it) tracks the
+policy's integrated targets on the exact chain (no kernel, as in the JAX
+package), PPO over the rollout and a supervised epoch on GT windows per
+epoch, as its policy_specs say. It logs `R= sup= T=`, keeps checkpoints
+in <results-dir>/models/ (default results/uhm_<cfg>_torch), and runs no
+eval at checkpoints (cli/eval_relive does).
 """
 from __future__ import annotations
 
@@ -47,7 +60,8 @@ def _positive_int(v):
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m uhc_tpu_torch.cli.train")
     p.add_argument("--cfg", default="uhc_implicit",
-                   help="config preset (uhc_implicit, uhc_implicit_shape) "
+                   help="config preset (uhc_implicit, uhc_implicit_shape, "
+                        "uhm_1) "
                         "or <name>.yml in config/ or uhc_tpu_torch/config/ "
                         "(explicit, meta_joint)")
     p.add_argument("--motion-file", default="sample_data/gait_clips.pkl")
@@ -81,6 +95,10 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--dr-friction-scale", type=float, default=1.5)
     p.add_argument("--dr-contact-scale", type=float, default=2.0)
     p.add_argument("--dr-mass-scale", type=float, default=1.15)
+    p.add_argument("--agent", choices=("copycat", "uhm"), default="copycat",
+                   help="copycat controller, or the kinematic policy (UHM)")
+    p.add_argument("--cc-checkpoint", default=None,
+                   help="frozen copycat checkpoint for --agent uhm")
     return p
 
 
@@ -123,19 +141,38 @@ def main(argv=None):
         cfg = dataclasses.replace(
             cfg, env=dataclasses.replace(cfg.env,
                                          robot_model=args.robot_model))
-    agent = CopycatAgent(cfg, args.motion_file, num_envs=args.num_envs,
-                         horizon=args.horizon, seed=args.seed,
+    uhm = args.agent == "uhm"
+    if uhm:
+        from uhc_tpu_torch.learn.agent_uhm import UHMAgent
+
+        agent = UHMAgent(cfg, args.motion_file,
+                         cc_checkpoint_path=args.cc_checkpoint,
+                         num_envs=args.num_envs, horizon=args.horizon,
+                         seed=cfg.seed if args.seed is None else args.seed,
                          max_seq_len=args.max_seq_len,
-                         results_dir=args.results_dir, device=device,
-                         smpl_data=args.smpl_data,
-                         dr_variants=args.dr_variants,
-                         dr_friction_scale=args.dr_friction_scale,
-                         dr_contact_scale=args.dr_contact_scale,
-                         dr_mass_scale=args.dr_mass_scale)
+                         results_dir=args.results_dir, device=device)
+    else:
+        agent = CopycatAgent(cfg, args.motion_file, num_envs=args.num_envs,
+                             horizon=args.horizon, seed=args.seed,
+                             max_seq_len=args.max_seq_len,
+                             results_dir=args.results_dir, device=device,
+                             smpl_data=args.smpl_data,
+                             dr_variants=args.dr_variants,
+                             dr_friction_scale=args.dr_friction_scale,
+                             dr_contact_scale=args.dr_contact_scale,
+                             dr_mass_scale=args.dr_mass_scale)
     log = _logger(agent.results_dir)
-    log.info(f"cfg {cfg.cfg_id}: obs_dim={agent.obs_dim} "
-             f"action_dim={agent.action_dim} seqs={len(agent.seq_keys)} "
-             f"device={device}")
+    if uhm:
+        from uhc_tpu_torch.learn.kin_net import kin_obs_dim
+
+        log.info(f"cfg {cfg.cfg_id}: agent uhm, kin obs_dim="
+                 f"{kin_obs_dim(agent.topo)} cc obs_dim={agent.cc_obs_dim} "
+                 f"cc action_dim={agent.cc_action_dim} "
+                 f"seqs={len(agent.seq_keys)} device={device}")
+    else:
+        log.info(f"cfg {cfg.cfg_id}: obs_dim={agent.obs_dim} "
+                 f"action_dim={agent.action_dim} seqs={len(agent.seq_keys)} "
+                 f"device={device}")
     if args.warm_start_from:
         agent.load_checkpoint_file(args.warm_start_from, warm_start=True)
         log.info(f"warm-started from {args.warm_start_from}")
@@ -144,6 +181,9 @@ def main(argv=None):
 
     sink = MetricsSink(agent.results_dir, resume=args.epoch > 0)
     epochs = args.epochs if args.epochs is not None else cfg.num_epoch
+    if uhm:
+        # the gt_rate anneal runs over the planned epochs, as in JAX
+        agent.total_epochs = epochs
     save_n = (args.save_n_epochs if args.save_n_epochs is not None
               else cfg.save_n_epochs)
     history = []
@@ -153,16 +193,25 @@ def main(argv=None):
             history.append(stats)
             sink.log(i, {k: v for k, v in stats.items()
                          if isinstance(v, (int, float))})
-            log.info(f"epoch {i}: R={stats['reward_mean']:.4f} "
-                     f"succ={stats['success_rate']:.3f} "
-                     f"eps={int(stats['episodes'])} "
-                     f"len={stats['avg_eps_len']:.1f} "
-                     f"sps={stats['steps_per_sec']:.0f} "
-                     f"T={stats['T_total']:.2f}s")
+            if uhm:
+                log.info(" ".join(
+                    [f"epoch {i}:"]
+                    + ([f"R={stats['reward_mean']:.4f}"]
+                       if "reward_mean" in stats else [])
+                    + ([f"sup={stats['supervised_loss']:.4f}"]
+                       if "supervised_loss" in stats else [])
+                    + [f"T={stats['T_total']:.2f}s"]))
+            else:
+                log.info(f"epoch {i}: R={stats['reward_mean']:.4f} "
+                         f"succ={stats['success_rate']:.3f} "
+                         f"eps={int(stats['episodes'])} "
+                         f"len={stats['avg_eps_len']:.1f} "
+                         f"sps={stats['steps_per_sec']:.0f} "
+                         f"T={stats['T_total']:.2f}s")
             if (i + 1) % save_n == 0 or i + 1 == epochs:
                 agent.save_checkpoint(i + 1)
                 log.info(f"saved checkpoint @ {i + 1}")
-                if not args.no_train_eval:
+                if not uhm and not args.no_train_eval:
                     s = agent.eval_policy()["summary"]
                     log.info(f"eval @ {i + 1}: coverage={s['coverage']}/"
                              f"{s['num_seqs']} succ={s['succ']:.3f} "

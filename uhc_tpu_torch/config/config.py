@@ -5,7 +5,7 @@ uhc/utils/config_utils/copycat_config.py:16-149) so reference experiment
 files load unchanged. The env-side subset is a frozen dataclass, fixed per
 experiment. `Config.uhc_implicit()` and `Config.uhc_implicit_shape()`
 build the release configs without YAML; `Config.preset(name)` looks them
-up by name, and `Config.named(name)`, the CLIs' --cfg, takes a preset or
+(and `uhm_1`, the kinematic-policy config) up by name, and `Config.named(name)`, the CLIs' --cfg, takes a preset or
 `<name>.yml` from config/ or this package's directory, which holds the
 explicit-RFC (`explicit.yml`, `EXPLICIT`), per-joint meta-PD
 (`meta_joint.yml`, `META_JOINT`) and ball-joint (`ball.yml`, `BALL`)
@@ -392,8 +392,44 @@ UHC_IMPLICIT_SHAPE = {
     "log_std": -2.3, "fix_std": True,
 }
 
+# config/uhm_1.yml, the kinematic-policy (UHM) stack on the frozen
+# uhc_implicit controller: its copycat sections are UHC_IMPLICIT's (the
+# YAML says so itself), plus its data_specs, model names, model_specs and
+# policy_specs. Its joint_params / body_params tables are left out: the
+# port reads the gains from the MJCF and the diff weights from
+# smpl.constants, as the JAX package does. tests/test_torch_agent_uhm.py
+# holds the preset against yaml.safe_load of the file.
+UHM_1 = {
+    **UHC_IMPLICIT,
+    "policy_optimizer": "Adam", "policy_momentum": 0.0,
+    "policy_weightdecay": 0.0, "value_optimizer": "Adam",
+    "value_momentum": 0.0, "value_weightdecay": 0.0,
+    "data_specs": {**UHC_IMPLICIT["data_specs"],
+                   "file_path": "sample_data/amass_copycat_take5_train.pkl",
+                   "test_file_path":
+                       "sample_data/amass_copycat_take5_test_small.pkl",
+                   "state_file_path":
+                       "sample_data/amass_copycat_take3_states.pkl",
+                   "neutral_path": "sample_data/standing_neutral.pkl"},
+    "mujoco_model": "humanoid_smpl_neutral_mesh",
+    "vis_model": "humanoid_smpl_neutral_mesh_vis",
+    "model_specs": {"model_v": 1, "mlp_htype": "relu",
+                    "mlp_hsize": [1024, 512], "rnn_hdim": 512,
+                    "pose_delta": False, "env_obs": True},
+    "policy_specs": {"rl_update": True, "full_update": True,
+                     "init_update": False,
+                     "reward_id": "dynamic_supervision_v1", "gt_rate": 0.3,
+                     "window": 64, "batch": 32,
+                     "reward_weights": {"w_p": 0.5, "w_v": 0.05, "w_e": 0.2,
+                                        "w_rp": 0.1, "w_rv": 0.05,
+                                        "k_p": 2.0, "k_v": 0.005,
+                                        "k_e": 5.0, "k_rp": 5.0,
+                                        "k_rv": 0.1}},
+}
+
 PRESETS = {"uhc_implicit": UHC_IMPLICIT,
-           "uhc_implicit_shape": UHC_IMPLICIT_SHAPE}
+           "uhc_implicit_shape": UHC_IMPLICIT_SHAPE,
+           "uhm_1": UHM_1}
 
 # uhc_implicit with explicit residual force control: a [cp|f|τ] slot per
 # body (9 · 24 RFC columns, A = 69 + 216 = 285), the contact point

@@ -26,6 +26,7 @@ EXPERT_KEYS = ["qpos", "qvel", "wbpos", "wbquat", "bquat", "body_com",
                "rlinv", "rlinv_local", "rangv", "bangvel", "ee_wpos",
                "ee_pos", "com"]
 GENDER_NUM = {"neutral": 0.0, "male": 1.0, "female": 2.0}
+OPTIONAL_TRACKS = ("obj_pose",)
 
 
 def load_motion_file(path: str) -> Dict[str, dict]:
@@ -37,7 +38,8 @@ def load_motion_file(path: str) -> Dict[str, dict]:
     if "pose_aa" in raw and isinstance(raw["pose_aa"], dict):
         keys = list(raw["pose_aa"].keys())
         return {k: {f: (raw[f][k] if f in raw and k in raw[f] else None)
-                    for f in ("pose_aa", "trans", "beta", "gender")}
+                    for f in ("pose_aa", "trans", "beta", "gender",
+                              "obj_pose", "obj_info")}
                 for k in keys}
     return raw
 
@@ -125,11 +127,19 @@ def _pose_to_qpose(topo: Topology, model: Model, pose_aa, trans, device):
 
 
 def _stack_library(feats) -> dict:
-    """Pad (repeating the last frame) and stack per-sequence features."""
+    """Pad (repeating the last frame) and stack per-sequence features. An
+    optional track (obj_pose) that some sequences lack is zero-filled
+    there."""
     dev = feats[0]["qpos"].device
     Tmax = max(f["len"] for f in feats)
     lib = {}
-    for key in EXPERT_KEYS + ["head_pos"]:
+    extra = [k for k in OPTIONAL_TRACKS if any(k in f for f in feats)]
+    for key in extra:
+        width = next(f[key].shape[-1] for f in feats if key in f)
+        for f in feats:
+            if key not in f:
+                f[key] = torch.zeros((f["len"], width), device=dev)
+    for key in EXPERT_KEYS + ["head_pos"] + extra:
         lib[key] = torch.stack([
             torch.cat([f[key], f[key][-1:].expand(
                 (Tmax - f["len"],) + f[key].shape[1:])], 0)
@@ -147,13 +157,24 @@ def build_expert_library(topo: Topology, model: Model,
                          base_root_offset=None):
     """Featurize, pad (repeating the last frame) and stack sequences:
     returns (lib dict of (S, Tmax, ...) tensors + per-sequence len and
-    height bounds, list of keys), on the model's device. For a widened
+    height bounds, list of keys), on the model's device; a clip's obj_pose
+    track (scene objects) rides as lib["obj_pose"]. For a widened
     tree (masterfoot) pass its SMPLConverter and the 24-body model's root
     offset."""
     keys = list(seqs.keys())
-    return _stack_library([_featurize(topo, model, seqs[k], fps, max_len,
-                                      converter, base_root_offset)
-                           for k in keys]), keys
+    feats = []
+    for k in keys:
+        feat = _featurize(topo, model, seqs[k], fps, max_len, converter,
+                          base_root_offset)
+        # the scene objects' free-joint poses per frame
+        # (dataset_smpl_obj.py; uhc_tpu/data/dataset.py:112-115), (T, 7·NO)
+        op = seqs[k].get("obj_pose")
+        if op is not None:
+            feat["obj_pose"] = torch.as_tensor(
+                np.asarray(op, np.float32)[:feat["len"]],
+                device=feat["qpos"].device)
+        feats.append(feat)
+    return _stack_library(feats), keys
 
 
 def stack_models(models, device) -> Model:

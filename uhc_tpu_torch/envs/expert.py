@@ -1,5 +1,6 @@
-"""Expert motion featurization (PyTorch twin of uhc_tpu.envs.expert.qpos_fk):
-per reference frame, every feature the env and reward read."""
+"""Expert motion featurization (PyTorch twin of uhc_tpu.envs.expert
+qpos_fk and qpos_fk_frame): per reference frame, every feature the env and
+reward read, and the single-frame targets of the kin env."""
 from __future__ import annotations
 
 import torch
@@ -59,4 +60,27 @@ def qpos_fk(topo: Topology, model: Model, qpos_seq: torch.Tensor,
         "height_lb": qpos_seq[:, 2].min(),
         "head_height_lb": wbpos[:, hi, 2].min(),
         "len": T,
+    }
+
+
+def qpos_fk_frame(topo: Topology, model: Model, qpos: torch.Tensor) -> dict:
+    """Single-frame FK targets of a batch of poses (B, nq) (twin of
+    uhc_tpu.envs.expert.qpos_fk_frame, the kin env's target of
+    humanoid_kin_v1.py:307): no velocity fields. `model` is shared or per
+    env."""
+    B = qpos.shape[0]
+    kin = E.fk(topo, model, qpos)
+    jq = quat_from_euler_zyx(qpos[:, 7:].reshape(B, -1, 3))
+    bquat = torch.cat([qpos[:, None, 3:7], jq], 1)
+    ee_idx = torch.as_tensor(ee_indices(topo).astype("int64"),
+                             device=qpos.device)
+    hi = head_index(topo)
+    return {
+        "qpos": qpos,
+        "wbpos": kin["xpos"].reshape(B, -1),
+        "wbquat": kin["xquat"].reshape(B, -1),
+        "bquat": bquat.reshape(B, -1),
+        "body_com": kin["xipos"].reshape(B, -1),
+        "ee_wpos": kin["xpos"][:, ee_idx].reshape(B, -1),
+        "head_pose": torch.cat([kin["xpos"][:, hi], kin["xquat"][:, hi]], 1),
     }

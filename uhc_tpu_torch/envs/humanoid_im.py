@@ -21,7 +21,10 @@ Ported: obs v0 to v6 (v1, v2, v4 to v6 with the shape observation) and
 the ball family's v2_quat, every reward family of
 `rewards.reward_function`, implicit and explicit RFC, plain, meta-PD and
 per-joint meta-PD, direct torque control (action_type "torque", the ball
-family's; no kernel, as in the JAX package), body-diff termination.
+family's; no kernel, as in the JAX package), body-diff termination, and
+scene objects: the library's obj_pose track played back by every step
+(the batched step keeps its kernel), or dynamic bodies on the exact
+chain (`env_step(obj_model=)`, `physics.objects`).
 """
 from __future__ import annotations
 
@@ -58,17 +61,28 @@ class EnvState:
     fail: Any          # (B,) bool
     end: Any           # (B,) bool
     percent: Any       # (B,) float
+    # scene objects (the library's obj_pose track, dataset_smpl_obj.py):
+    # (B, 7·NO) free-joint poses, kinematic playback of the clip, or
+    # dynamic bodies stepped by do_simulation when env_step gets an
+    # obj_model (then obj_qvel (B, 6·NO)); None without a track
+    obj_qpos: Any = None
+    obj_qvel: Any = None
 
 
-def state_where(mask, new: EnvState, old: EnvState) -> EnvState:
-    """Per-env select between two states: `new` where the (B,) mask is
-    true."""
+def state_where(mask, new, old):
+    """Per-env select between two states of one dataclass (EnvState, or
+    the kin env's KinEnvState): `new` where the (B,) mask is true. A field
+    that is None in both stays None, as a pytree's None leaf does in the
+    JAX package."""
     out = {}
-    for f in dataclasses.fields(EnvState):
+    for f in dataclasses.fields(new):
         a, b = getattr(new, f.name), getattr(old, f.name)
+        if a is None and b is None:
+            out[f.name] = None
+            continue
         m = mask.reshape((-1,) + (1,) * (a.dim() - 1))
         out[f.name] = torch.where(m, a, b)
-    return EnvState(**out)
+    return type(new)(**out)
 
 
 PER_SEQ_KEYS = ("len", "height_lb", "head_height_lb", "beta", "gender",
@@ -102,21 +116,32 @@ def action_dims(topo: Topology, cfg: EnvConfig):
 
 
 def do_simulation(topo: Topology, model: Model, cfg: EnvConfig, qpos, qvel,
-                  action, target_base, rfc_rate):
-    """One control step with an exact factorization at every substep (the
-    reference path; `make_env_step_batched` uses the PCG chain). `model`
-    is shared or per env. Torque control is `solver.torque_substeps`,
-    exact on either path."""
-    from uhc_tpu_torch.physics import linalg as LA
+                  action, target_base, rfc_rate, obj=None):
+    """One control step with an exact factorization at every substep
+    (`engine.substep`, the reference path; `make_env_step_batched` uses
+    the PCG chain). `model` is shared or per env. Torque control is
+    `solver.torque_substeps`, exact on either path.
 
+    `obj` = (ObjModel, obj_qpos (B, 7·NO), obj_qvel (B, 6·NO)) steps
+    dynamic scene objects with the body (uhc_tpu/envs/humanoid_im.py:
+    121-221); the step then returns (qpos, qvel, obj_qpos, obj_qvel).
+    Under torque control the objects are returned as they came, as the
+    JAX package's torque substep leaves them."""
     S.check_supported(cfg)
     if cfg.action_type == "torque":
-        return S.torque_substeps(topo, cfg, model, qpos, qvel, action,
-                                 rfc_rate)
-    model = model_per_env(model, qpos.shape[0])
+        qpos, qvel = S.torque_substeps(topo, cfg, model, qpos, qvel, action,
+                                       rfc_rate)
+        return (qpos, qvel) if obj is None else (qpos, qvel, obj[1], obj[2])
+    B = qpos.shape[0]
+    model = model_per_env(model, B)
     ndof, vf_dim, _ = S.action_dims(topo, cfg)
     kp_scale, kd_scale = S.gain_scales(cfg, action, ndof, vf_dim)
     vf_body = S.explicit_wrench(topo, cfg, model, action, ndof, vf_dim)
+    if obj is not None:
+        om, obj_qpos, obj_qvel = obj
+        qp_shape, qv_shape = obj_qpos.shape, obj_qvel.shape
+        obj_qpos, obj_qvel = obj_qpos.reshape(B, -1, 7), obj_qvel.reshape(
+            B, -1, 6)
     for i in range(cfg.frame_skip):
         if cfg.action_v == 1:
             base = qpos[:, 7:] + wrap_to_pi(target_base - qpos[:, 7:])
@@ -126,17 +151,16 @@ def do_simulation(topo: Topology, model: Model, cfg: EnvConfig, qpos, qvel,
         qfrc = S.implicit_rfc(cfg, qpos, action, ndof, rfc_rate)
         kp = model.jkp * kp_scale[:, i]
         kd = model.jkd * kd_scale[:, i]
-        out = E.assemble(topo, model, qpos, qvel, target_pos, kp, kd, qfrc,
-                         cfg.self_collision, vf_body, S.vf_gate_mode(cfg))
-        qacc_des = LA.blocked_cho_solve(LA.blocked_cholesky(out["A_pd"]),
-                                        out["pd_rhs"])
-        tau = E.pd_torque_from_accel(model, qvel, out["qpos_err"], kp, kd,
-                                     qacc_des)
-        rhs = out["rhs_base"].clone()
-        rhs[:, 6:] += tau
-        qacc = LA.blocked_cho_solve(LA.blocked_cholesky(out["A_fd"]), rhs)
-        qpos, qvel = E.integrate(model, qpos, qvel, qacc)
-    return qpos, qvel
+        out = E.substep(topo, model, qpos, qvel, target_pos, kp, kd, qfrc,
+                        cfg.self_collision, vf_body, S.vf_gate_mode(cfg),
+                        None if obj is None else (om, obj_qpos, obj_qvel))
+        qpos, qvel = out[0], out[1]
+        if obj is not None:
+            obj_qpos, obj_qvel = out[3]
+    if obj is None:
+        return qpos, qvel
+    return (qpos, qvel, obj_qpos.reshape(qp_shape),
+            obj_qvel.reshape(qv_shape))
 
 
 # ---------------------------------------------------------------------------
@@ -602,18 +626,32 @@ def env_post_step(topo: Topology, model: Model, cfg: EnvConfig,
 
 def env_step(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
              action, expert_lib, jpos_diffw, body_diffw, rfc_rate=1.0,
-             train: bool = True):
+             train: bool = True, obj_model=None):
     """One 30 Hz control step with the exact per-substep solver; `model`
-    is shared or a library."""
+    is shared or a library. With `obj_model` (physics.objects.ObjModel)
+    the scene objects are dynamic bodies stepped with the humanoid
+    (uhc_tpu/envs/humanoid_im.py:812-835); otherwise obj_qpos plays the
+    library's track back."""
     model = env_models(model, state.seq_idx)
     prev_bquat = get_body_quat(state.qpos)
     tgt = expert_at(expert_lib, state.seq_idx,
                     state.start_ind + state.cur_t + 1)
-    qpos, qvel = do_simulation(topo, model, cfg, state.qpos, state.qvel,
-                               action, tgt["qpos"][:, 7:], rfc_rate)
+    if obj_model is not None and state.obj_qpos is not None:
+        obj_qvel = (state.obj_qvel if state.obj_qvel is not None
+                    else zero_obj_qvel(state.obj_qpos))
+        qpos, qvel, obj_qpos, obj_qvel = do_simulation(
+            topo, model, cfg, state.qpos, state.qvel, action,
+            tgt["qpos"][:, 7:], rfc_rate,
+            obj=(obj_model, state.obj_qpos, obj_qvel))
+    else:
+        qpos, qvel = do_simulation(topo, model, cfg, state.qpos, state.qvel,
+                                   action, tgt["qpos"][:, 7:], rfc_rate)
+        obj_qpos = tgt.get("obj_pose", state.obj_qpos)
+        obj_qvel = state.obj_qvel
     state = dataclasses.replace(state, qpos=qpos, qvel=qvel,
                                 prev_qpos=state.qpos, cur_t=state.cur_t + 1,
-                                prev_bquat=prev_bquat)
+                                prev_bquat=prev_bquat, obj_qpos=obj_qpos,
+                                obj_qvel=obj_qvel)
     return env_post_step(topo, model, cfg, state, action, expert_lib,
                          jpos_diffw, body_diffw, train)
 
@@ -715,9 +753,11 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
                         states.start_ind + states.cur_t + 1)
         qpos, qvel = sim(m, states, actions,
                          tgt["qpos"][:, 7:].contiguous(), rfc_rate)
+        # kinematic playback of the library's object track
         states = dataclasses.replace(
             states, qpos=qpos, qvel=qvel, prev_qpos=states.qpos,
-            cur_t=states.cur_t + 1, prev_bquat=prev_bquat)
+            cur_t=states.cur_t + 1, prev_bquat=prev_bquat,
+            obj_qpos=tgt.get("obj_pose", states.obj_qpos))
         return env_post_step(topo, m, cfg, states, actions, expert_lib,
                              jpos_diffw, body_diffw, train)
 
@@ -734,12 +774,22 @@ def match_heading_and_pos(qpos_1, qpos_2, base_rot):
                       qpos_2[:, 7:]], 1)
 
 
+def zero_obj_qvel(obj_qpos):
+    """Objects at rest: (B, 6·NO) zeros for (B, 7·NO) poses."""
+    return obj_qpos.new_zeros(obj_qpos.shape[:-1]
+                              + (obj_qpos.shape[-1] // 7 * 6,))
+
+
 def env_reset(topo: Topology, model: Model, cfg: EnvConfig, seq_idx,
               expert_lib, neutral_qpos, neutral_qvel, start_ind=None,
-              train: bool = True, generator: torch.Generator = None):
+              train: bool = True, generator: torch.Generator = None,
+              dynamic_obj: bool = False):
     """reset_model for a batch of sequences `seq_idx` (B,): the expert
     window-start frame, plus (train only) joint noise and, with
-    reactive_v=1, the heading-matched neutral pose with prob reactive_rate."""
+    reactive_v=1, the heading-matched neutral pose with prob reactive_rate.
+    A library with an object track starts the objects at that frame's
+    poses, at rest when `dynamic_obj` (obj_qvel zeros), else without
+    velocities (kinematic playback)."""
     dev = expert_lib["len"].device
     seq_idx = torch.as_tensor(seq_idx, dtype=torch.int64, device=dev)
     B = seq_idx.shape[0]
@@ -768,8 +818,11 @@ def env_reset(topo: Topology, model: Model, cfg: EnvConfig, seq_idx,
                                 init_qvel)
     zero = torch.zeros(B, dtype=torch.int64, device=dev)
     false = torch.zeros(B, dtype=torch.bool, device=dev)
+    obj_qpos = exp0.get("obj_pose")
     return EnvState(
         qpos=init_qpos, qvel=init_qvel, prev_qpos=init_qpos, cur_t=zero,
         start_ind=start_ind, seq_idx=seq_idx,
         prev_bquat=get_body_quat(init_qpos), done=false, fail=false.clone(),
-        end=false.clone(), percent=init_qpos.new_zeros(B))
+        end=false.clone(), percent=init_qpos.new_zeros(B), obj_qpos=obj_qpos,
+        obj_qvel=(zero_obj_qvel(obj_qpos)
+                  if dynamic_obj and obj_qpos is not None else None))

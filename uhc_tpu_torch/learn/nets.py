@@ -1,7 +1,8 @@
 """Policy and value networks (PyTorch twin of uhc_tpu.learn.nets: the MLP
 trunk, the Gaussian policy mean, the multiplicative compositional (MCP)
 policy mean, the transformer policy mean over per-body tokens, the value
-head and the diagonal Gaussian's log-density and KL).
+head, the GRU cell of the kinematic policy and the diagonal Gaussian's
+log-density and KL).
 
 Weights use the JAX package's (in, out) layout so a checkpoint's parameter
 tree carries across unchanged: `policy_from_numpy` / `value_from_numpy`
@@ -330,6 +331,61 @@ def gaussian_kl(mean0, log_std0, mean1, log_std1):
     kl = (log_std1 - log_std0
           + (var0 + (mean0 - mean1) ** 2) / (2.0 * var1) - 0.5)
     return kl.sum(-1)
+
+
+class GRU(nn.Module):
+    """One GRU cell step in torch nn.GRUCell's gate order (reset, update,
+    new) with the JAX package's (in, 3H) weights (uhc_tpu.learn.nets
+    gru_apply): r = σ(x W_ir + b_ir + h W_hr + b_hr), z likewise,
+    n = tanh(x W_in + b_in + r ⊙ (h W_hn + b_hn)), h' = (1 - z) n + z h."""
+
+    def __init__(self, in_dim: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.w_ih = nn.Parameter(torch.zeros(in_dim, 3 * hidden))
+        self.w_hh = nn.Parameter(torch.zeros(hidden, 3 * hidden))
+        self.b_ih = nn.Parameter(torch.zeros(3 * hidden))
+        self.b_hh = nn.Parameter(torch.zeros(3 * hidden))
+
+    def forward(self, x, h):
+        H = self.hidden
+        gi = x @ self.w_ih + self.b_ih
+        gh = h @ self.w_hh + self.b_hh
+        r = torch.sigmoid(gi[..., :H] + gh[..., :H])
+        z = torch.sigmoid(gi[..., H:2 * H] + gh[..., H:2 * H])
+        n = torch.tanh(gi[..., 2 * H:] + r * gh[..., 2 * H:])
+        return (1.0 - z) * n + z * h
+
+
+GRU_LEAVES = ("w_ih", "w_hh", "b_ih", "b_hh")
+
+
+def gru_from_numpy(params, device="cuda") -> GRU:
+    """A checkpoint's GRU leaves {w_ih (in, 3H), w_hh (H, 3H), b_ih, b_hh}
+    -> GRU on `device`."""
+    in_dim, h3 = np.shape(params["w_ih"])
+    m = GRU(in_dim, h3 // 3)
+    for k in GRU_LEAVES:
+        _set(getattr(m, k), params[k])
+    return m.to(device)
+
+
+def gru_to_numpy(m: GRU) -> dict:
+    return {k: getattr(m, k).detach().cpu().numpy().copy()
+            for k in GRU_LEAVES}
+
+
+@torch.no_grad()
+def gru_init(in_dim: int, hidden: int, generator: torch.Generator,
+             device="cuda") -> GRU:
+    """Seeded random GRU: every leaf U(±1/√H) (uhc_tpu.learn.nets
+    gru_init, torch nn.GRUCell's init)."""
+    m = GRU(in_dim, hidden)
+    lim = 1.0 / np.sqrt(hidden)
+    for k in GRU_LEAVES:
+        p = getattr(m, k)
+        p.copy_(_uniform(p.shape, lim, generator))
+    return m.to(device)
 
 
 def _uniform(shape, lim, gen):

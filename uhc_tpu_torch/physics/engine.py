@@ -12,9 +12,9 @@ products; contacts are penalty springs with velocity-implicit damping.
 All contractions run in float32 (TF32 is off, see the package docstring).
 
 Per substep (450 Hz): FK -> velocities -> Jacobians -> M and bias force ->
-ground contact, self-collision and joint-limit terms -> the two SPD
-systems of stable PD and forward dynamics (`assemble`) -> semi-implicit
-integration.
+ground contact, self-collision, joint-limit and scene-object terms ->
+the two SPD systems of stable PD and forward dynamics (`assemble`) ->
+semi-implicit integration (`substep`, the exact chain).
 
 Joints are three z-y-x hinges (`joint_kind="euler"`) or one quaternion
 each (`"ball"`, the reference's robot.ball family): a ball joint's dofs
@@ -458,7 +458,7 @@ def vf_contact_gate(model: Model, kin: dict, mode: str):
 
 def assemble(topo: Topology, model: Model, qpos, qvel, target_pos, kp, kd,
              qfrc_applied, self_collision: bool = False, vf_body=None,
-             vf_gate=None) -> dict:
+             vf_gate=None, obj=None) -> dict:
     """Everything of a substep except the linear solves: the stable-PD
     system A_pd = M + dt·Kd, the forward-dynamics system
     A_fd = M + dt·(CD + limit damping), the PD right-hand side and the
@@ -468,7 +468,11 @@ def assemble(topo: Topology, model: Model, qpos, qvel, target_pos, kp, kd,
     (B, nb, 9) body-frame wrench of explicit RFC (`prep_explicit_vf`):
     rotated into the world by each body's current orientation, gated by
     `vf_gate` (None, "height" or "ground"), and applied at the body
-    origin + cp (uhc_tpu/physics/engine.py:635-647)."""
+    origin + cp (uhc_tpu/physics/engine.py:635-647). `obj` = (ObjModel,
+    obj_qpos (B, NO, 7), obj_qvel (B, NO, 6)) adds the dynamic scene
+    objects' contacts (`physics.objects`): the humanoid's side joins the
+    contact forces before the projection, the objects' side is returned
+    as "obj_wrench" for `objects.obj_substep`."""
     model = model_per_env(model, qpos.shape[0])
     kin = fk(topo, model, qpos)
     vel = velocities(topo, kin, qvel)
@@ -482,6 +486,16 @@ def assemble(topo: Topology, model: Model, qpos, qvel, target_pos, kp, kd,
     if self_collision:
         Fsc, Tsc = self_collision_terms(topo, model, kin, vel)
         qfrc_con = qfrc_con + project(Jlin, Jang, Fsc, Tsc)
+    obj_wrench = None
+    if obj is not None:
+        from uhc_tpu_torch.physics import objects as OBJ
+
+        om, obj_qpos, obj_qvel = obj
+        Fob, Tob, F_obj, T_obj = OBJ.humanoid_obj_contacts(
+            topo, model, kin, vel, om, obj_qpos[..., :3],
+            obj_qpos[..., 3:7], obj_qvel[..., :3], obj_qvel[..., 3:6])
+        qfrc_con = qfrc_con + project(Jlin, Jang, Fob, Tob)
+        obj_wrench = (F_obj, T_obj)
     qfrc_lim, lim_damp = limit_qfrc(model, qpos, qvel)
 
     B, nb, _, nv = Jlin.shape
@@ -517,7 +531,38 @@ def assemble(topo: Topology, model: Model, qpos, qvel, target_pos, kp, kd,
         rhs_base = rhs_base + project(Jlin, Jang, f_w, T)
     return dict(A_pd=A_pd, A_fd=A_fd, pd_rhs=pd_rhs, qpos_err=qpos_err,
                 rhs_base=rhs_base,
-                contact_active=W.abs().sum((-1, -2)) > 0)
+                contact_active=W.abs().sum((-1, -2)) > 0,
+                obj_wrench=obj_wrench)
+
+
+def substep(topo: Topology, model: Model, qpos, qvel, target_pos, kp, kd,
+            qfrc_applied, self_collision: bool = False, vf_body=None,
+            vf_gate=None, obj=None):
+    """One 450 Hz stable-PD substep of the exact chain
+    (uhc_tpu/physics/engine.py:677 substep): `assemble`, the q̈_des system
+    and the forward-dynamics system each factored exactly (blocked
+    Cholesky), the PD torque between them, semi-implicit integration ->
+    (qpos', qvel', tau), and with `obj` the objects' step
+    (obj_qpos', obj_qvel') as a fourth item."""
+    from uhc_tpu_torch.physics import linalg as LA
+
+    model = model_per_env(model, qpos.shape[0])
+    out = assemble(topo, model, qpos, qvel, target_pos, kp, kd, qfrc_applied,
+                   self_collision, vf_body, vf_gate, obj)
+    qacc_des = LA.blocked_cho_solve(LA.blocked_cholesky(out["A_pd"]),
+                                    out["pd_rhs"])
+    tau = pd_torque_from_accel(model, qvel, out["qpos_err"], kp, kd, qacc_des)
+    rhs = out["rhs_base"].clone()
+    rhs[:, 6:] += tau
+    qacc = LA.blocked_cho_solve(LA.blocked_cholesky(out["A_fd"]), rhs)
+    qpos_n, qvel_n = integrate(model, qpos, qvel, qacc)
+    if obj is None:
+        return qpos_n, qvel_n, tau
+    from uhc_tpu_torch.physics import objects as OBJ
+
+    om, obj_qpos, obj_qvel = obj
+    return qpos_n, qvel_n, tau, OBJ.obj_substep(
+        model, om, obj_qpos, obj_qvel, *out["obj_wrench"])
 
 
 def substep_torque(topo: Topology, model: Model, qpos, qvel, tau,

@@ -220,8 +220,18 @@ def write_fixture_humanoid(directory: str) -> str:
 def load_fixture_humanoid():
     """Write the stand-in into a temporary directory, load it with the
     port's MJCF loader and delete the files: returns (Topology, Model of
-    numpy arrays)."""
+    numpy arrays).
+
+    The stand-in's mass properties come from the float64 numpy path of
+    `smpl.mesh` (`load_mjcf_humanoid(native=False)`). The native toolkit,
+    the MJCF loader's default, sums vertex coordinates in float32, and the
+    stand-in's meshes sit in global coordinates: there its COMs move by up
+    to 5e-7 m and its small bodies' inertias by up to 6e-4 relative, and
+    where a prism's principal moments are near-equal its principal frame
+    (body_iquat) turns by up to a right angle. Every recorded number of
+    the port (kernel digests, times, parity bounds) was taken on the
+    numpy-built stand-in."""
     from uhc_tpu_torch.smpl.mjcf import load_mjcf_humanoid
 
     with tempfile.TemporaryDirectory(prefix="uhc_standin_") as d:
-        return load_mjcf_humanoid(write_fixture_humanoid(d))
+        return load_mjcf_humanoid(write_fixture_humanoid(d), native=False)

@@ -1,9 +1,16 @@
-"""Host-side mesh utilities (numpy/scipy twin of uhc_tpu.smpl.mesh).
+"""Host-side mesh utilities (twin of uhc_tpu.smpl.mesh).
 
 * binary/ASCII STL reading,
 * exact solid mass properties of a closed triangle mesh (divergence
   theorem), standing in for MuJoCo's inertiafromgeom at density 1000,
 * contact points: farthest-point-sampled convex-hull vertices.
+
+`load_stl` and `mesh_mass_properties` run the native C++ toolkit
+(`uhc_tpu_torch.native.meshtools`, built on first use), as the JAX
+package's do; its build raises on failure. Their numpy versions are the
+plain ones, run where the caller asks (`native=False`). An ASCII STL,
+which the native reader does not parse, goes to the numpy reader, as in
+JAX.
 
 Runs once at model-build time.
 """
@@ -11,9 +18,14 @@ from __future__ import annotations
 
 import numpy as np
 
-
-def load_stl(path: str) -> np.ndarray:
+def load_stl(path: str, native: bool = True) -> np.ndarray:
     """Read an STL file -> (n_tri, 3, 3) float64 triangle vertices."""
+    if native:
+        from uhc_tpu_torch.native import meshtools
+
+        tris = meshtools.load_stl(path)
+        if tris is not None:
+            return tris
     with open(path, "rb") as f:
         head = f.read(80)
         rest = f.read()
@@ -46,8 +58,14 @@ def write_stl(path: str, tris: np.ndarray) -> None:
         f.write(rec.tobytes())
 
 
-def mesh_mass_properties(tris: np.ndarray, density: float = 1000.0):
-    """(mass, com (3,), inertia about the COM (3,3)) of a closed mesh."""
+def mesh_mass_properties(tris: np.ndarray, density: float = 1000.0,
+                         native: bool = True):
+    """(mass, com (3,), inertia about the COM (3,3)) of a closed mesh; the
+    native toolkit rounds the triangles to float32 first."""
+    if native:
+        from uhc_tpu_torch.native import meshtools
+
+        return meshtools.mass_properties(tris, density)
     v0, v1, v2 = tris[:, 0], tris[:, 1], tris[:, 2]
     vol6 = np.einsum("ij,ij->i", v0, np.cross(v1, v2))
     volume = vol6.sum() / 6.0

@@ -47,9 +47,12 @@ def load_mjcf_humanoid(
     contact_vreg: float = 0.01,
     friction: float = 1.0,
     armature_hinge: float = 0.01,
+    native: bool = True,
 ):
     """Parse an MJCF humanoid (global-coordinate, mesh-geom subset used by the
-    reference assets) into (Topology, Model as numpy dict)."""
+    reference assets) into (Topology, Model as numpy dict), its meshes on
+    the native toolkit of `smpl.mesh`, or on its numpy path (`native`
+    False)."""
     tree = ET.parse(path)
     root = tree.getroot()
     compiler = root.find("compiler")
@@ -128,8 +131,8 @@ def load_mjcf_humanoid(
             body_mass[i] = 1.0
             body_inertia[i] = 0.01
             continue
-        tris = meshlib.load_stl(mesh_files[mname])
-        m, com, I = meshlib.mesh_mass_properties(tris, density)
+        tris = meshlib.load_stl(mesh_files[mname], native)
+        m, com, I = meshlib.mesh_mass_properties(tris, density, native)
         diag, iq = meshlib.principal_inertia(I)
         # mesh vertices are in global zero-pose coords; body frame = global
         # frame translated to the body origin (identity body quats).
@@ -180,7 +183,8 @@ def load_mjcf_humanoid(
         mname = mesh_of[i]
         if mname is not None and mname in mesh_files:
             verts = np.unique(
-                meshlib.load_stl(mesh_files[mname]).reshape(-1, 3), axis=0)
+                meshlib.load_stl(mesh_files[mname], native).reshape(-1, 3),
+                axis=0)
             v = verts - (gpos[i] if is_global else 0.0)
             perp = v - np.outer(v @ axis, axis)
             sc_radius[i] = np.clip(
