@@ -61,7 +61,19 @@ against its plain versions, `cli/train --cfg uhm_1 --agent uhm` at 256
 envs × 24 steps and `cli/eval_relive` of its checkpoint; the exact chain,
 no kernel) and scene objects (a 512 × 32 rollout through K1 over a
 library with an object track, K1 on its states, a dynamic box's control
-step held against its plain versions, a box drop).
+step held against its plain versions, a box drop), and the
+data-preparation and inspection tools (phase `tools`: a synthetic AMASS
+directory of the gait clips, three corpora for the three splits, through
+data/process_amass with grounding on the card, every clip's 30 Hz pose
+equal to the gait clip's; `cli/eval --dump` over the train split through
+K1 with the seeded full-width copycat; `cli/replay --list` and
+`--dump-states`, whose arrays equal the dump's; render_eval_result's FK,
+CameraFit's four losses, gradients and a 50-step descent over one gait
+clip, and the model zoo at full width (SimpleCNN, ResNet features and
+MobileNet at 224×224, VideoRegNet over 32 frames, TCN, ERD, CMLP, the
+discriminator, the discrete policy), each held against the port on the
+CPU; gather_windows on the device library; nothing is rendered on the
+card, which has no matplotlib).
 Whatever the phases write goes to temporary directories.
 
 Usage: python3 chip_smoke.py [--parent SRC] (needs one CUDA card).
@@ -1595,20 +1607,27 @@ def k1e_check(topo, env_cfg, lib_model, ins, name):
 
 # the ball phase: its torque step timed at the training batch; its eval
 # cut to the clips' first frames (the eager torque route takes ~0.33 s a
-# control step at 6 envs on the card, 80 s for the full 239)
-B_BALL_TIME, BALL_EVAL_FRAMES = 1024, 120
+# control step at 6 envs on the card, 80 s for the full 239); one training
+# epoch and 30 eval frames (2 and 120 before the tools phase came) keep
+# the whole run inside DEADLINE_S on a slow host (PERF.md §5: host-bound
+# phases up to 25 % slower than on another)
+B_BALL_TIME, BALL_EVAL_FRAMES, BALL_EPOCHS = 1024, 30, 1
 
 
 def model_data_file(directory, nj: int) -> str:
     """A seeded nj-joint model file (`synthetic_smpl_data(nj=nj)`, whose
     random regressor gives a skeleton of centimetre bones) in the layout
     of the SMPL-H / SMPL-X releases, written to `directory`."""
-    import numpy as np
-
     from uhc_tpu_torch.smpl.lbs import synthetic_smpl_data
 
-    sd = synthetic_smpl_data(nj=nj)
-    path = os.path.join(directory, f"model{nj}.npz")
+    return save_model_file(synthetic_smpl_data(nj=nj),
+                           os.path.join(directory, f"model{nj}.npz"))
+
+
+def save_model_file(sd, path: str) -> str:
+    """SMPLData -> an npz in the layout of the SMPL releases."""
+    import numpy as np
+
     np.savez(path, v_template=sd.v_template.numpy(),
              shapedirs=sd.shapedirs.numpy(),
              J_regressor=sd.j_regressor.numpy(), weights=sd.weights.numpy())
@@ -1771,8 +1790,8 @@ def exact_shape_phase(topo, model, dev) -> tuple:
 
 def ball_phase(topo, model_np, dev) -> tuple:
     """The ball family on the card (`--cfg ball`: one quaternion per
-    joint, direct torques, obs v2_quat): cli/train, 2 epochs of 1024 × 48,
-    and the six-clip eval over the clips' first BALL_EVAL_FRAMES frames,
+    joint, direct torques, obs v2_quat): cli/train, BALL_EPOCHS of 1024 ×
+    48, and the six-clip eval over the clips' first BALL_EVAL_FRAMES frames,
     neither launching a kernel (the torque route, as in the JAX package);
     its control step on the card in
     float32 against the plain step in float32 on the host and in float64
@@ -1790,8 +1809,8 @@ def ball_phase(topo, model_np, dev) -> tuple:
     from uhc_tpu_torch.physics import solver
     from uhc_tpu_torch.physics.model import model_from_numpy
 
-    run_train(None, 2, "train_ball", dev, ["--cfg", "ball"] + TRAIN_ARGS,
-              routed=())
+    run_train(None, BALL_EPOCHS, "train_ball", dev,
+              ["--cfg", "ball"] + TRAIN_ARGS, routed=())
     reset_counts()
     res = run_eval("sample_data/gait_clips.pkl", device=dev, seed=0,
                    cfg="ball", max_seq_len=BALL_EVAL_FRAMES)
@@ -1841,7 +1860,10 @@ DYN19_EPOCH = 4000
 GAIT_EXT = "sample_data/gait_clips_ext.pkl"
 FIT_KEY = "0-SYN_walk_turn_sharp"
 # obs family, reward, config of phase obs_families (local_rfc_explicit
-# under the explicit config, through K1f)
+# under the explicit config, through K1f); one epoch of 1024 envs ×
+# OBS_HORIZON steps each (48 before the tools phase came: the whole run's
+# time on a slow host)
+OBS_HORIZON = 24
 OBS_FAMILIES = ((0, "world_rfc_implicit_v1_mul", "uhc_implicit"),
                 (3, "world_rfc_implicit_v2", "uhc_implicit"),
                 (4, "local_rfc_implicit", "uhc_implicit"),
@@ -1899,8 +1921,9 @@ def eval_singles(dev, out_dir) -> dict:
 
 def fit_phase(dev, out_dir) -> dict:
     """Phase fit: cli/fit on FIT_KEY, warm-started from a copy of
-    iter_4000.p in out_dir, at most 2 epochs of 512 envs × 48 steps with
-    the protocol's criterion, then once more from the same copy for one
+    iter_4000.p in out_dir, one epoch of 512 envs × 48 steps with the
+    protocol's criterion (at most 2 before the tools phase came: the whole
+    run's time on a slow host), then once more from the same copy for one
     epoch with --succ-threshold 0 --eval-every 1, so that the
     full-sequence eval over the 19 clips runs; K1 launches one per control
     step of the epochs and of each full-sequence eval; the snapshot
@@ -1937,7 +1960,7 @@ def fit_phase(dev, out_dir) -> dict:
                 raise RuntimeError(f"fit: stats not finite: {st}")
         return res, got["k1"], eval_steps
 
-    res, launches, eval_steps = run("--max-epochs", "2")
+    res, launches, eval_steps = run("--max-epochs", "1")
     agent, hist = res["agent"], res["history"]
     d = joblib_compat.load(res["path"])
     policy = nets.policy_from_numpy(d["policy_params"], "relu", dev)
@@ -2037,10 +2060,10 @@ def trpo_phase(agent, batch) -> dict:
 
 
 def obs_families(dev) -> tuple:
-    """Phase obs_families: one epoch at 1024 × 48 for each obs family and
-    reward of OBS_FAMILIES (K1, K1f under the explicit config), then the
-    transformer actor's forward and backward on the v4 agent's normalized
-    observations. Returns (counts by family, numbers)."""
+    """Phase obs_families: one epoch at 1024 × OBS_HORIZON for each obs
+    family and reward of OBS_FAMILIES (K1, K1f under the explicit config),
+    then the transformer actor's forward and backward on the v4 agent's
+    normalized observations. Returns (counts by family, numbers)."""
     import dataclasses
 
     import torch
@@ -2060,12 +2083,12 @@ def obs_families(dev) -> tuple:
 
         def make(out, cfg=cfg, fam=fam):
             agents[fam] = CopycatAgent(cfg, "sample_data/gait_clips.pkl",
-                                       num_envs=1024, horizon=48,
+                                       num_envs=1024, horizon=OBS_HORIZON,
                                        results_dir=out, device=dev)
             return agents[fam]
 
         phase(f"obs_families_{fam}", f"(obs v{obs_v}, {reward}, {name}: "
-                                     f"1 epoch of 1024 × 48)")
+                                     f"1 epoch of 1024 × {OBS_HORIZON})")
         got[fam] = run_train(None, 1, f"obs_families_{fam}", dev,
                              routed=("k1f",) if name == "explicit"
                              else ("k1",), agent_fn=make)
@@ -2524,7 +2547,7 @@ def toe_rows(src, k2_src, errs, rollouts, t) -> list:
 # meshtools, uhm, objects): the native toolkit against its numpy path at
 # the CPU test's bounds (tests/test_torch_meshtools.py: the native sums of
 # float32 coordinates); the run of tools/train_queue_r3c.sh:22-25 (256
-# envs × 24 steps) cut in depth to 2 epochs and eval_relive to the clips'
+# envs × 24 steps) cut in depth to UHM_EPOCHS and eval_relive to the clips'
 # first UHM_EVAL_FRAMES frames (the exact chain takes ~1.3 s a control
 # step on the card, launch-bound: PERF.md §6); a 512 × 32 rollout
 # over a library with an object track, and the exact chain's batch of the
@@ -2532,7 +2555,9 @@ def toe_rows(src, k2_src, errs, rollouts, t) -> list:
 MESH_MASS_RTOL, MESH_COM_ATOL, MESH_INERTIA_RTOL = 1e-12, 1e-6, 1e-3
 UHM_TRAIN_ARGS = ["--cfg", "uhm_1", "--agent", "uhm", "--num-envs", "256",
                   "--horizon", "24"]
-UHM_EPOCHS, UHM_EVAL_FRAMES = 2, 16
+# one epoch and 8 eval frames (2 and 16 before the tools phase came): the
+# whole run's time on a slow host
+UHM_EPOCHS, UHM_EVAL_FRAMES = 1, 8
 OBJ_ROLLOUT = (512, 32)
 OBJ_BOX = {"kind": "box", "size": [0.15, 0.15, 0.15], "mass": 2.0}
 
@@ -2698,7 +2723,7 @@ def kin_step_check(dev) -> tuple:
 
 def uhm_phase(dev) -> tuple:
     """Phase uhm: (a) `kin_step_check`; (b) cli/train --cfg uhm_1 --agent
-    uhm at 256 envs × 24 steps (tools/train_queue_r3c.sh:22-25), 2 epochs
+    uhm at 256 envs × 24 steps (tools/train_queue_r3c.sh:22-25), UHM_EPOCHS
     with rl_update and full_update, a seeded frozen copycat (the trained
     one stays off the card), no kernel launched (the exact chain, as in the
     JAX package), finite stats, the checkpoint reloading to the same kin
@@ -2951,6 +2976,410 @@ def objects_phase(topo, model, model_np, dev) -> tuple:
             "box_plain_and_witness_s": plain_s,
             "num_envs": B_CHECK, "box_drop_rest": qp.tolist(),
             "box_drop_settled": settled}, fails, k1_launches
+
+
+# phase tools: the data-preparation and inspection tools. AMASS corpora, one
+# per split (train, vald, test); clip i of the gait clips goes to corpus
+# i % 3, repeated AMASS_REPEAT times in time at AMASS_FR, so the 30 Hz
+# resampling gives the clip back
+AMASS_CORPORA = ("CMU", "HumanEva", "Transitions_mocap")
+AMASS_REPEAT, AMASS_FR = 4, 120
+TOOLS_EVAL_SPLIT = "train"
+# CameraFit over one gait clip: its first CAMFIT_FRAMES frames, a camera
+# CAMFIT_DEPTH m in front of the body looking along +y, plain gradient
+# steps from a seeded perturbation of the true pose
+CAMFIT_CLIP, CAMFIT_FRAMES, CAMFIT_STEPS = "0-SYN_walk_forward", 239, 50
+CAMFIT_LR, CAMFIT_DEPTH, CAMFIT_NOISE = 8.0, 4.0, 0.05
+# the card against the port on the CPU: losses relative to the loss,
+# gradients relative to the largest entry (float32 sums in either order
+# over 239 frames)
+CAMFIT_LOSS_RTOL, CAMFIT_GRAD_RTOL = 1e-4, 1e-3
+# the zoo on the card against the port on the CPU, relative to the
+# output's largest entry (float32 convolutions in another order, TF32 off)
+ZOO_RTOL = 1e-4
+ZOO_IMAGE, ZOO_BATCH, ZOO_FRAMES, ZOO_OBS = 224, 8, 32, 784
+# FK of the dump's trajectories, card against CPU (m)
+FK_ATOL = 1e-5
+WINDOW, WINDOW_BATCH = 32, 256
+
+
+def amass_raw(clips, seed: int = 31) -> tuple:
+    """The synthetic AMASS sequences: {(corpus, subject, action): npz
+    fields} of the clips (poses repeated AMASS_REPEAT× in time at
+    AMASS_FR, padded to SMPL-H's 156 with seeded hand dofs, trans
+    repeated, the clip's 16 betas), and {processed key: clip key}."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    raw, keys = {}, {}
+    for i, (key, d) in enumerate(clips.items()):
+        corpus = AMASS_CORPORA[i % len(AMASS_CORPORA)]
+        pose = np.repeat(np.asarray(d["pose_aa"], np.float64),
+                         AMASS_REPEAT, 0)
+        hands = 0.1 * rng.standard_normal((len(pose), 156 - pose.shape[1]))
+        action = key.split("-", 1)[-1]
+        raw[corpus, f"s{i}", action] = {
+            "poses": np.concatenate([pose, hands], 1),
+            "trans": np.repeat(np.asarray(d["trans"], np.float64),
+                               AMASS_REPEAT, 0),
+            "betas": np.asarray(d["beta"], np.float64).reshape(16),
+            "mocap_framerate": np.asarray(float(AMASS_FR)),
+            "gender": np.asarray("neutral")}
+        keys[f"0-{corpus}_s{i}_{action}"] = key
+    return raw, keys
+
+
+def write_amass_dir(directory, raw) -> None:
+    """AMASS's layout: <corpus>/<subject>/<action>.npz."""
+    import numpy as np
+
+    for (corpus, subject, action), fields in raw.items():
+        os.makedirs(os.path.join(directory, corpus, subject), exist_ok=True)
+        np.savez(os.path.join(directory, corpus, subject, f"{action}.npz"),
+                 **fields)
+
+
+def stand_in_smpl_file(directory) -> str:
+    """A seeded SMPL model file consistent with the stand-in's skeleton
+    (`synthetic_smpl_data_like`): grounding with it keeps the gait clips'
+    pelvis near 0.9 m (the random `synthetic_smpl_data` regresses every
+    joint near its mean vertex and sinks the pelvis to 0.49 m)."""
+    from uhc_tpu_torch.smpl.fixture_humanoid import load_fixture_humanoid
+    from uhc_tpu_torch.smpl.lbs import synthetic_smpl_data_like
+
+    return save_model_file(
+        synthetic_smpl_data_like(*load_fixture_humanoid(), rng_seed=32),
+        os.path.join(directory, "smpl_stand_in.npz"))
+
+
+def amass_check(paths, keys, clips, cpu_trans) -> list:
+    """Each split holds its corpus' clips; the 30 Hz pose_aa[:, :72] is
+    the clip's exactly, the pose 156 wide; x, y of trans exact, z moved by
+    one constant, equal to the grounding on the CPU within 1e-6 m."""
+    import numpy as np
+
+    from uhc_tpu_torch.data.dataset import load_motion_file
+    from uhc_tpu_torch.data.process_amass import AMASS_SPLIT_DICT
+
+    fails = []
+    for split, path in paths.items():
+        db = load_motion_file(path)
+        want = {k for k in keys if AMASS_SPLIT_DICT.get(
+            k[2:].split("_s")[0]) == split}
+        if set(db) != want:
+            fails.append(f"process_amass {split}: {sorted(db)} != "
+                         f"{sorted(want)}")
+        for k in set(db) & want:
+            d, c = db[k], clips[keys[k]]
+            dz = d["trans"][:, 2] - np.asarray(c["trans"], np.float32)[:, 2]
+            if not (np.array_equal(d["pose_aa"][:, :72], c["pose_aa"])
+                    and d["pose_aa"].shape[1] == 156
+                    and d["pose_6d"].shape == (len(c["pose_aa"]), 52, 6)
+                    and np.array_equal(d["trans"][:, :2],
+                                       np.asarray(c["trans"], np.float32)[
+                                           :, :2])
+                    and np.ptp(dz) < 1e-5
+                    and np.abs(d["trans"] - cpu_trans[k]).max() < 1e-6):
+                fails.append(f"process_amass {k}: not the clip's frames")
+    return fails
+
+
+def camfit_setup(dev, clip):
+    """CameraFit on the stand-in's offsets over a gait clip's first
+    CAMFIT_FRAMES frames: targets are the true pose's projection (all
+    inliers); returns (fit, true input_vec, seeded start)."""
+    import numpy as np
+    import torch
+
+    from uhc_tpu_torch.smpl import humanoid_batch as HB
+    from uhc_tpu_torch.smpl.fixture_humanoid import load_fixture_humanoid
+
+    _, model = load_fixture_humanoid()
+    K = np.array([[1000.0, 0, 960], [0, 1000.0, 540], [0, 0, 1]])
+    R = np.array([[1.0, 0, 0], [0, 0, -1], [0, 1, 0]])   # +y forward, z up
+    smpl2op = np.array([24, 12, 17, 19, 21, 16, 18, 20, 0, 2, 5, 8, 1, 4,
+                        7, 25, 26, 27, 28])
+    fit = HB.CameraFit(offsets=model.body_pos, full_R=R,
+                       full_t=[0.0, 1.0, CAMFIT_DEPTH], K=K, img_w=1920,
+                       img_h=1080, smpl2op_map=smpl2op, device=dev)
+    T = CAMFIT_FRAMES
+    true = torch.as_tensor(np.concatenate(
+        [clip["trans"][:T], clip["pose_aa"][:T]], 1), dtype=torch.float32,
+        device=dev)
+    with torch.no_grad():
+        gt = fit.proj2d(HB.fk_batch(fit.offsets, true[:, 3:],
+                                    true[:, :3])["wbpos"])
+    fit.update_tgt_joints(gt, torch.ones_like(gt, dtype=torch.bool))
+    rng = np.random.default_rng(33)
+    start = true + torch.as_tensor(
+        CAMFIT_NOISE * rng.standard_normal(true.shape), dtype=torch.float32,
+        device=dev)
+    return fit, true, start
+
+
+def camfit_run(dev, clip) -> dict:
+    """The four losses and their gradients at the start, and the descent
+    of proj_2d_loss, on `dev` (line loss: targets of the projected subset's
+    14 joints, as the loss needs)."""
+    import torch
+
+    from uhc_tpu_torch.smpl import humanoid_batch as HB
+
+    fit, true, x0 = camfit_setup(dev, clip)
+    out = {"loss": {}, "grad": {}}
+    for name in ("proj_2d_loss", "proj_2d_body_loss"):
+        out["loss"][name], out["grad"][name] = HB.loss_and_grad(
+            getattr(fit, name), x0)
+    out["loss"]["proj_2d_root_loss"], out["grad"]["proj_2d_root_loss"] = \
+        HB.loss_and_grad(fit.proj_2d_root_loss, x0[0, :6])
+    line = HB.CameraFit(offsets=fit.offsets, full_R=fit.full_R,
+                        full_t=fit.full_t, K=fit.K, img_w=fit.img_w,
+                        img_h=fit.img_h, smpl2op_map=fit.smpl2op_map,
+                        device=dev)
+    with torch.no_grad():
+        _, cam = line.proj2d(HB.fk_batch(line.offsets, true[:, 3:],
+                                         true[:, :3])["wbpos"],
+                             return_cam_3d=True)
+    pix = cam @ line.K.T
+    pix = pix[..., :2] / pix[..., 2:]
+    line.update_tgt_joints(pix, torch.ones_like(pix, dtype=torch.bool))
+    out["loss"]["proj_2d_line_loss"], out["grad"]["proj_2d_line_loss"] = \
+        HB.loss_and_grad(line.proj_2d_line_loss, x0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["losses"], out["grads"], out["x"] = HB.descend(
+        fit.proj_2d_loss, x0, CAMFIT_LR, CAMFIT_STEPS)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["ms_per_step"] = 1e3 * (time.perf_counter() - t0) / CAMFIT_STEPS
+    return out
+
+
+def camfit_check(card, cpu) -> tuple:
+    """The card's losses and gradients against the CPU's -> (errors,
+    failures)."""
+    import torch
+
+    def rel(a, b, scale):
+        return float((a.cpu() - b).abs().max() / scale)
+
+    errs, fails = {}, []
+    for name in card["loss"]:
+        le = rel(card["loss"][name], cpu["loss"][name],
+                 cpu["loss"][name].abs())
+        ge = rel(card["grad"][name], cpu["grad"][name],
+                 cpu["grad"][name].abs().max())
+        errs[name] = {"loss_rel": le, "grad_rel": ge}
+        if not (le <= CAMFIT_LOSS_RTOL and ge <= CAMFIT_GRAD_RTOL):
+            fails.append(f"camfit {name}: {errs[name]}")
+    lc, lh = card["losses"].cpu(), cpu["losses"]
+    errs["descent_loss_rel"] = float(((lc - lh).abs() / lh.abs()).max())
+    errs["descent_grad_rel"] = max(
+        rel(card["grads"][i], cpu["grads"][i],
+            cpu["grads"][i].abs().max()) for i in (0, CAMFIT_STEPS - 1))
+    if not (errs["descent_loss_rel"] <= CAMFIT_LOSS_RTOL
+            and errs["descent_grad_rel"] <= CAMFIT_GRAD_RTOL):
+        fails.append(f"camfit descent: {errs}")
+    if not (bool(torch.isfinite(lc).all()) and lc[-1] < 0.5 * lc[0]
+            and bool(torch.all(lc[1:] <= lc[:-1]))):
+        fails.append(f"camfit: the loss did not fall: {lc.tolist()}")
+    return errs, fails
+
+
+def zoo_nets(gen):
+    """The zoo at full width, seeded: {name: (module on the CPU, inputs on
+    the CPU, forward(module, *inputs))}."""
+    import torch
+
+    from uhc_tpu_torch.learn import nets as N
+
+    def init(m):
+        return N.zoo_init(m, gen, "cpu")
+
+    def x(*shape):
+        return torch.randn(shape, generator=gen)
+
+    img = x(ZOO_BATCH, 3, ZOO_IMAGE, ZOO_IMAGE)
+    frames = x(ZOO_FRAMES, 3, ZOO_IMAGE, ZOO_IMAGE)
+    feats = x(ZOO_BATCH, 128, 120)
+    obs = x(256, ZOO_OBS)
+    call = lambda m, *a: m(*a)  # noqa: E731
+    return {
+        "simple_cnn": (init(N.SimpleCNN(128)), (img,), call),
+        "resnet_feat": (init(N.ResNetFeat(128)), (img,), call),
+        "mobile_net": (init(N.MobileNet(128)), (img,), call),
+        "video_reg_net": (init(N.VideoRegNet(72, 128, 128, "mobile", "gru",
+                                              (300, 200))), (frames,), call),
+        "tcn": (init(N.TCN(128, (64, 128))), (feats,), call),
+        "tcn_causal": (init(N.TCN(128, (64, 128))), (feats,),
+                       lambda m, a: m(a, True)),
+        "erd": (init(N.ERD(72)), (x(60, 64, 72),), lambda m, a: m(a)[0]),
+        "cmlp": (init(N.CMLP(ZOO_OBS, 64, (512, 256))),
+                 (x(256, 64), obs), call),
+        "discriminator": (init(N.Discriminator(ZOO_OBS, (512, 256))),
+                          (obs,), call),
+        "policy_discrete": (init(N.PolicyDiscrete(ZOO_OBS, 16, (512, 256))),
+                            (obs,), lambda m, a: N.categorical_log_prob(
+                                m(a), torch.argmax(m(a), -1))),
+    }
+
+
+def zoo_phase(dev) -> tuple:
+    """Every zoo net on the card against the port on the CPU (the same
+    seeded weights and inputs); forward ms on the card -> (numbers,
+    failures)."""
+    import copy
+
+    import torch
+
+    if torch.backends.cudnn.allow_tf32 or \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("zoo: TF32 is on")
+    numbers, fails = {}, []
+    for name, (m, ins, fwd) in zoo_nets(torch.Generator().manual_seed(
+            34)).items():
+        with torch.no_grad():
+            want = fwd(m, *ins)
+            mc = copy.deepcopy(m).to(dev)
+            ic = tuple(t.to(dev) for t in ins)
+            got = fwd(mc, *ic)
+            torch.cuda.synchronize()
+            ms = cuda_ms(lambda: fwd(mc, *ic), 3)
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        numbers[name] = {"max_abs_err": float((got.cpu() - want).abs()
+                                              .max()), "rel_err": err,
+                         "ms": ms, "shape": list(got.shape)}
+        if not (err <= ZOO_RTOL and bool(torch.isfinite(got).all())):
+            fails.append(f"zoo {name}: {numbers[name]}")
+    if torch.backends.cudnn.allow_tf32 or \
+            torch.backends.cuda.matmul.allow_tf32:
+        fails.append("zoo: TF32 was switched on while the zoo ran")
+    return numbers, fails
+
+
+def tools_phase(topo, model, model_np, dev) -> tuple:
+    """Phase tools: (a) a synthetic AMASS directory (the gait clips in
+    three corpora, one per split) through `data/process_amass` on the card
+    with grounding, checked against the clips and the grounding on the CPU;
+    (b) `cli/eval --dump` over the train split through K1 with the seeded
+    full-width copycat, then `cli/replay --list` and `--dump-states`
+    (pred_jpos equal to the dump's); (c) `fk_jpos` (render_eval_result's
+    FK) on the dump's qpos, card against CPU; (d) CameraFit over one gait
+    clip, card against CPU; (e) the zoo; (f) `gather_windows` on the
+    device library -> (numbers, failures, K1 launches)."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from uhc_tpu_torch.cli import eval as eval_cli
+    from uhc_tpu_torch.cli import replay
+    from uhc_tpu_torch.data import process_amass as PA
+    from uhc_tpu_torch.data.dataset import (build_expert_library,
+                                            load_motion_file)
+    from uhc_tpu_torch.data.windows import WindowSampler, gather_windows
+    from uhc_tpu_torch.smpl.lbs import load_smpl_data
+    from uhc_tpu_torch.utils.visualizer import fk_jpos
+
+    numbers, fails = {"rendering": "none on the card (no matplotlib, cv2 "
+                      "or joblib there); tests/test_torch_viz_tools.py "
+                      "renders on the CPU"}, []
+    clips = load_motion_file("sample_data/gait_clips.pkl")
+    with tempfile.TemporaryDirectory() as d:
+        raw, keys = amass_raw(clips)
+        write_amass_dir(os.path.join(d, "amass"), raw)
+        smpl = stand_in_smpl_file(d)
+        t0 = time.perf_counter()
+        paths = PA.main(["--dir", os.path.join(d, "amass"), "--out_dir",
+                         os.path.join(d, "out"), "--smpl", smpl,
+                         "--device", str(dev)])
+        numbers["process_amass_s"] = time.perf_counter() - t0
+        cpu_db = PA.process_amass_db(PA.read_amass_dir(
+            os.path.join(d, "amass")), None, load_smpl_data(smpl),
+            device="cpu")
+        fails += amass_check(paths, keys, clips,
+                             {k: v["trans"] for k, v in cpu_db.items()})
+        dump = os.path.join(d, "dump.pkl")
+        reset_counts()
+        res = eval_cli.main(["--motion", paths[TOOLS_EVAL_SPLIT], "--dump",
+                             dump, "--seed", "0", "--device", str(dev)])
+        torch.cuda.synchronize()
+        steps = res["control_steps"]
+        if counts() != expect(steps, "k1"):
+            fails.append(f"tools eval: launches {counts()}, expected "
+                         f"{steps} of K1")
+        k1_launches = counts()["k1"]
+        with open(dump, "rb") as f:
+            dumped = pickle.load(f)
+        listed = replay.main(["--data", dump, "--list"])
+        key = next(iter(dumped))
+        npz = os.path.join(d, "states.npz")
+        replay.main(["--data", dump, "--take", key, "--dump-states", npz,
+                     "--no-render"])
+        states = np.load(npz)
+        replay_equal = (set(listed) == set(dumped) and all(
+            np.array_equal(states[f], dumped[key][f])
+            for f in ("pred_jpos", "gt_jpos", "pred_qpos", "gt_qpos")))
+        if not replay_equal:
+            fails.append("replay: --dump-states differs from the dump")
+        summary = res["summary"]
+        if not all(np.isfinite(v) for v in summary.values()):
+            fails.append(f"tools eval: summary {summary}")
+        numbers["eval"] = {"split": TOOLS_EVAL_SPLIT, "clips": len(dumped),
+                           "control_steps": steps, "k1_launches": k1_launches,
+                           "ms_per_step": res["ms_per_step"],
+                           "summary": summary, "replay_equal": replay_equal}
+
+        # render_eval_result's FK, card against CPU
+        q = dumped[key]["pred_qpos"]
+        fk_card = fk_jpos(topo, model, q, dev)
+        fk_cpu = fk_jpos(topo, model_np, q, "cpu")
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fk_jpos(topo, model, q, dev)
+        fk_ms = 1e2 * (time.perf_counter() - t0)
+        fk_err = float(np.abs(fk_card - fk_cpu).max())
+        numbers["fk"] = {"frames": len(q), "max_abs_err": fk_err,
+                         "ms": fk_ms, "tol": FK_ATOL}
+        if not fk_err <= FK_ATOL:
+            fails.append(f"fk_jpos: card vs CPU {fk_err}")
+
+    # CameraFit, card against CPU
+    clip = clips[CAMFIT_CLIP]
+    card = camfit_run(dev, clip)
+    cpu = camfit_run(torch.device("cpu"), clip)
+    errs, f = camfit_check(card, cpu)
+    fails += f
+    numbers["camfit"] = {
+        "frames": CAMFIT_FRAMES, "steps": CAMFIT_STEPS, "lr": CAMFIT_LR,
+        "loss_first_last": [float(card["losses"][0]),
+                            float(card["losses"][-1])],
+        "losses_at_start": {k: float(v) for k, v in card["loss"].items()},
+        "ms_per_step": card["ms_per_step"],
+        "cpu_ms_per_step": cpu["ms_per_step"], "vs_cpu": errs,
+        "tols": [CAMFIT_LOSS_RTOL, CAMFIT_GRAD_RTOL]}
+
+    numbers["zoo"], f = zoo_phase(dev)
+    fails += f
+
+    # gather_windows over the device library, against a CPU copy
+    lib, _ = build_expert_library(topo, model, clips)
+    keys_w = ["qpos", "qvel", "wbpos", "wbquat"]
+    seq, start = WindowSampler(lib["len"].cpu().numpy(), WINDOW,
+                               seed=35).sample(WINDOW_BATCH)
+    got = gather_windows(lib, keys_w, seq, start, WINDOW)
+    want = gather_windows({k: lib[k].cpu() for k in keys_w}, keys_w, seq,
+                          start, WINDOW)
+    equal = all(torch.equal(got[k].cpu(), want[k]) for k in keys_w)
+    ms = cuda_ms(lambda: gather_windows(lib, keys_w, seq, start, WINDOW), 10)
+    numbers["windows"] = {"batch": WINDOW_BATCH, "window": WINDOW,
+                          "equal": equal, "ms": ms,
+                          "device": str(got["qpos"].device)}
+    if not (equal and got["qpos"].device.type == "cuda"):
+        fails.append(f"gather_windows: {numbers['windows']}")
+    return numbers, fails, k1_launches
 
 
 def run(parent=None) -> int:
@@ -3480,7 +3909,9 @@ def run(parent=None) -> int:
          summary=res_x["summary"])
 
     train_counts = {}
-    for train_phase, lane, epochs in (("train_lane", None, 3),
+    # train_lane: 2 epochs (3 before the tools phase came: the whole run's
+    # time on a slow host)
+    for train_phase, lane, epochs in (("train_lane", None, 2),
                                       ("train_split", "0", 2)):
         phase(train_phase, f"(cli/train, 1024 envs × 48 steps, {epochs} "
                            f"epochs, UHC_TPU_LANE={lane or 'unset'})")
@@ -3556,7 +3987,10 @@ def run(parent=None) -> int:
             ("train_smplh_explicit_plain", "explicit", 1, "0")):
         args = ["--cfg", name] + SMPLH_TRAIN_ARGS + (
             [] if train_phase == "train_smplh_explicit"
-            else ["--no-train-eval"])
+            else ["--no-train-eval"]) + (
+            # the plain chain's epoch (no kernel) at half the horizon: the
+            # run's time on a slow host
+            ["--horizon", "16"] if lane_big else [])
         phase(train_phase, f"(cli/train {' '.join(args)}, {epochs} epochs, "
                            f"UHC_TPU_LANE_BIG={lane_big or 'unset'}: "
                            f"{'the plain chain' if lane_big else 'K1f'})")
@@ -3595,8 +4029,8 @@ def run(parent=None) -> int:
         done("eval_imitation", summary_equal=True,
              num_seqs=rescored["summary"]["num_seqs"])
         phase("fit", f"(cli/fit --key {FIT_KEY}, warm start from a copy of "
-                     f"iter_{DYN19_EPOCH:04d}.p, at most 2 epochs of 512 × "
-                     "48, then 1 epoch and the full-sequence eval, K1)")
+                     f"iter_{DYN19_EPOCH:04d}.p, 1 epoch of 512 × 48, then "
+                     "1 epoch and the full-sequence eval, K1)")
         fit_numbers = fit_phase(dev, os.path.join(proto_dir, "fit"))
         done("fit", **fit_numbers)
     phase("train_fix_std", "(uhc_implicit with fix_std=False, 1 epoch of "
@@ -3609,8 +4043,8 @@ def run(parent=None) -> int:
     del fix_std_agent, fix_std_batch
     done("trpo", **trpo_numbers)
     phase("obs_families", "(obs v0, v3, v4, v5, v6 with the new rewards, 1 "
-                          "epoch each at 1024 × 48; the transformer actor "
-                          "on the v4 tokens)")
+                          f"epoch each at 1024 × {OBS_HORIZON}; the "
+                          "transformer actor on the v4 tokens)")
     family_counts, family_numbers = obs_families(dev)
     done("obs_families", **family_numbers, card=smi)
     protocol_k1 = (singles["launches"] + fit_numbers["launches"]
@@ -3660,7 +4094,8 @@ def run(parent=None) -> int:
          qpos_tol=QPOS_TOL, qvel_tol=QVEL_TOL)
     if fails:
         raise RuntimeError("; ".join(fails))
-    phase("ball", "(--cfg ball: cli/train 1024 envs × 48 steps, 2 epochs, "
+    phase("ball", f"(--cfg ball: cli/train 1024 envs × 48 steps, "
+                  f"{BALL_EPOCHS} epoch(s), "
                   f"and the six-clip eval over {BALL_EVAL_FRAMES} frames on "
                   "the torque route, no kernel; "
                   f"the card's step vs its plain versions by gate, "
@@ -3714,6 +4149,20 @@ def run(parent=None) -> int:
     obj_numbers, fails, obj_k1 = objects_phase(topo, model, model_np, dev)
     done("objects", **obj_numbers, qpos_tol=QPOS_TOL, qvel_tol=QVEL_TOL,
          card=smi)
+    if fails:
+        raise RuntimeError("; ".join(fails))
+
+    # this slice: the data-preparation and inspection tools and the zoo
+    phase("tools", f"(a synthetic AMASS directory of the gait clips in "
+                   f"{', '.join(AMASS_CORPORA)} through data/process_amass "
+                   f"with grounding; cli/eval --dump over its "
+                   f"{TOOLS_EVAL_SPLIT} split through K1, cli/replay --list "
+                   f"and --dump-states; render_eval_result's FK; CameraFit "
+                   f"over {CAMFIT_FRAMES} frames, {CAMFIT_STEPS} steps; the "
+                   f"zoo at {ZOO_IMAGE}×{ZOO_IMAGE}; gather_windows; each "
+                   "against the port on the CPU; no rendering on the card)")
+    tools_numbers, fails, tools_k1 = tools_phase(topo, model, model_np, dev)
+    done("tools", **tools_numbers, card=smi)
     if fails:
         raise RuntimeError("; ".join(fails))
 
@@ -4349,7 +4798,7 @@ def run(parent=None) -> int:
         {"name": "control_step", "route": "cuda", "source": src,
          "replaces": "uhc_tpu/physics/pallas_lane.py:83",
          "launches": (launches + train_counts["train_lane"]["k1"]
-                      + protocol_k1 + obj_k1),
+                      + protocol_k1 + obj_k1 + tools_k1),
          "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None},
         {"name": "control_step_head", "route": "cuda", "source": src,
