@@ -73,7 +73,14 @@ clip, and the model zoo at full width (SimpleCNN, ResNet features and
 MobileNet at 224×224, VideoRegNet over 32 frames, TCN, ERD, CMLP, the
 discriminator, the discrete policy), each held against the port on the
 CPU; gather_windows on the device library; nothing is rendered on the
-card, which has no matplotlib).
+card, which has no matplotlib), and data-parallel training (phase
+`data_parallel`: `cli/train --data-parallel`'s run as two ranks on one
+card over gloo, 96 K1 launches a rank, every rank's parameters,
+statistics and sampler equal bit for bit each epoch, rank 0's checkpoint
+in a single-process agent; one PPO update of a fixed batch over the ranks
+against one process; `cli/train --data-parallel` itself over NCCL where
+there are two cards or more; a `--profile` run whose trace names
+control_step_kernel).
 Whatever the phases write goes to temporary directories.
 
 Usage: python3 chip_smoke.py [--parent SRC] (needs one CUDA card).
@@ -1608,10 +1615,11 @@ def k1e_check(topo, env_cfg, lib_model, ins, name):
 # the ball phase: its torque step timed at the training batch; its eval
 # cut to the clips' first frames (the eager torque route takes ~0.33 s a
 # control step at 6 envs on the card, 80 s for the full 239); one training
-# epoch and 30 eval frames (2 and 120 before the tools phase came) keep
-# the whole run inside DEADLINE_S on a slow host (PERF.md §5: host-bound
-# phases up to 25 % slower than on another)
-B_BALL_TIME, BALL_EVAL_FRAMES, BALL_EPOCHS = 1024, 30, 1
+# epoch of BALL_HORIZON steps and 15 eval frames (2 epochs of 48 and 120
+# frames before the tools phase came, 48 and 30 before the data_parallel
+# phase) keep the whole run inside DEADLINE_S on a slow host (PERF.md §5:
+# host-bound phases up to 25 % slower than on another)
+B_BALL_TIME, BALL_EVAL_FRAMES, BALL_EPOCHS, BALL_HORIZON = 1024, 15, 1, 24
 
 
 def model_data_file(directory, nj: int) -> str:
@@ -1791,7 +1799,8 @@ def exact_shape_phase(topo, model, dev) -> tuple:
 def ball_phase(topo, model_np, dev) -> tuple:
     """The ball family on the card (`--cfg ball`: one quaternion per
     joint, direct torques, obs v2_quat): cli/train, BALL_EPOCHS of 1024 ×
-    48, and the six-clip eval over the clips' first BALL_EVAL_FRAMES frames,
+    BALL_HORIZON, and the six-clip eval over the clips' first
+    BALL_EVAL_FRAMES frames,
     neither launching a kernel (the torque route, as in the JAX package);
     its control step on the card in
     float32 against the plain step in float32 on the host and in float64
@@ -1810,7 +1819,8 @@ def ball_phase(topo, model_np, dev) -> tuple:
     from uhc_tpu_torch.physics.model import model_from_numpy
 
     run_train(None, BALL_EPOCHS, "train_ball", dev,
-              ["--cfg", "ball"] + TRAIN_ARGS, routed=())
+              ["--cfg", "ball"] + TRAIN_ARGS
+              + ["--horizon", str(BALL_HORIZON)], routed=())
     reset_counts()
     res = run_eval("sample_data/gait_clips.pkl", device=dev, seed=0,
                    cfg="ball", max_seq_len=BALL_EVAL_FRAMES)
@@ -2554,10 +2564,11 @@ def toe_rows(src, k2_src, errs, rollouts, t) -> list:
 # kin env and of a dynamic box at B_CHECK
 MESH_MASS_RTOL, MESH_COM_ATOL, MESH_INERTIA_RTOL = 1e-12, 1e-6, 1e-3
 UHM_TRAIN_ARGS = ["--cfg", "uhm_1", "--agent", "uhm", "--num-envs", "256",
-                  "--horizon", "24"]
-# one epoch and 8 eval frames (2 and 16 before the tools phase came): the
-# whole run's time on a slow host
-UHM_EPOCHS, UHM_EVAL_FRAMES = 1, 8
+                  "--horizon", "12"]
+# one epoch of 12 steps and 4 eval frames (2 epochs of 24 and 16 frames
+# before the tools phase, 24 steps and 8 frames before the data_parallel
+# phase came): the whole run's time on a slow host
+UHM_EPOCHS, UHM_EVAL_FRAMES = 1, 4
 OBJ_ROLLOUT = (512, 32)
 OBJ_BOX = {"kind": "box", "size": [0.15, 0.15, 0.15], "mass": 2.0}
 
@@ -3382,6 +3393,326 @@ def tools_phase(topo, model, model_np, dev) -> tuple:
     return numbers, fails, k1_launches
 
 
+# phase data_parallel: the global run of `cli/train --data-parallel`
+# (uhc_implicit at full width, 1024 envs × 48 steps, 2 epochs) as DP_RANKS
+# ranks on one card over gloo (a rehearsal: the ranks' contexts time-slice
+# the card), the PPO update of one fixed batch of DP_PPO (steps, envs a
+# rank) over the ranks against one process, and a --profile run
+DP_RANKS, DP_EPOCHS, DP_HORIZON = 2, 2, 48
+DP_TRAIN_ARGS = ["--num-envs", "1024", "--horizon", str(DP_HORIZON),
+                 "--no-train-eval", "--epochs", str(DP_EPOCHS)]
+DP_PPO = (8, 512)
+# the --profile run: envs, horizon, epochs (the trace covers epochs 2-4)
+DP_PROFILE = (64, 8, 5)
+DP_PROFILE_ARGS = ["--num-envs", str(DP_PROFILE[0]), "--horizon",
+                   str(DP_PROFILE[1]), "--epochs", str(DP_PROFILE[2]),
+                   "--no-train-eval"]
+DP_TIMEOUT_S = 300.0
+# (b): a net's change over the ranks against one process's, in norm
+DP_MOVED = 0.1
+
+
+def dp_batch(obs_dim: int, act_dim: int, world: int, shape=DP_PPO):
+    """Phase data_parallel's fixed PPO batch, (T, W·B) for `shape` (T, B)
+    from a seed, rows flattened time-major as the agent's: advantages
+    large enough that the clip is exercised."""
+    import torch
+
+    T, B = shape
+    g = torch.Generator().manual_seed(31)
+    shape = (T, world * B)
+    return {"states": torch.randn((*shape, obs_dim), generator=g),
+            "actions": 0.3 * torch.randn((*shape, act_dim), generator=g),
+            "advantages": 10.0 * torch.randn(shape, generator=g),
+            "returns": 2.0 + torch.randn(shape, generator=g),
+            "exps": (torch.rand(shape, generator=g) < 0.7).float()}
+
+
+def dp_nets(cfg, obs_dim, act_dim, dev) -> tuple:
+    """The seeded full-width (policy, value) of phase data_parallel's PPO
+    update."""
+    import torch
+
+    from uhc_tpu_torch.learn import nets
+
+    gen = torch.Generator().manual_seed(32)
+    return (nets.make_policy(cfg, obs_dim, act_dim, gen, dev),
+            nets.value_init(obs_dim, cfg.value_hsize, gen, cfg.value_htype,
+                            dev))
+
+
+def dp_ppo(cfg, obs_dim, act_dim, dev, dist=None, shape=DP_PPO) -> tuple:
+    """One PPO update (2 passes, minibatch half the global batch) of
+    seeded full-width nets on phase data_parallel's batch: ppo_update over
+    the whole batch, or ppo_update_dist on this rank's envs; the shuffle
+    generator on the card, seeded 0 -> (policy, value numpy, stats)."""
+    import torch
+
+    from uhc_tpu_torch.learn import nets
+    from uhc_tpu_torch.learn.ppo import ppo_update, ppo_update_dist
+
+    T, B = shape
+    batch = dp_batch(obs_dim, act_dim, DP_RANKS, shape)
+    if dist is not None:
+        cols = slice(dist.rank * B, (dist.rank + 1) * B)
+        batch = {k: v[:, cols] for k, v in batch.items()}
+    batch = {k: v.reshape(-1, *v.shape[2:]).contiguous().to(dev)
+             for k, v in batch.items()}
+    policy, value = dp_nets(cfg, obs_dim, act_dim, dev)
+    log_std = torch.full((act_dim,), cfg.log_std, device=dev)
+    popt = torch.optim.Adam(policy.parameters(), lr=cfg.policy_lr)
+    vopt = torch.optim.Adam(value.parameters(), lr=cfg.value_lr)
+    shuffle = torch.Generator(device=dev).manual_seed(0)
+    mb = T * B * DP_RANKS // 2
+    if dist is None:
+        stats = ppo_update(policy, value, popt, vopt, log_std, batch,
+                           shuffle, cfg.clip_epsilon, 2, mb)
+    else:
+        stats = ppo_update_dist(policy, value, popt, vopt, log_std, batch,
+                                shuffle, cfg.clip_epsilon, 2, mb, dist, B)
+    return (nets.policy_to_numpy(policy), nets.value_to_numpy(value),
+            {k: float(v) for k, v in stats.items()})
+
+
+def dp_rank(d, out: str, train_args, ppo_shape) -> dict:
+    """One rank of phase data_parallel's rehearsal: `cli/train
+    --data-parallel`'s run of `train_args` (cli/train.run as this rank),
+    its launches, its policy's mean on a seeded probe, then the
+    fixed-batch PPO update of `ppo_shape`."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from uhc_tpu_torch.cli import train
+
+    args = train.parser().parse_args(train_args + ["--results-dir", out])
+    reset_counts()
+    agent, hist = train.run(args, d.device, d)
+    got = counts()
+    probe = torch.randn((64, agent.obs_dim),
+                        generator=torch.Generator().manual_seed(5)).to(
+        d.device)
+    with torch.no_grad():
+        mean = agent.policy(probe).cpu().numpy()
+    c0 = d.seconds
+    pol, val, ppo_stats = dp_ppo(agent.cfg, agent.obs_dim, agent.action_dim,
+                                 d.device, d, ppo_shape)
+    h = hashlib.sha256()
+    for leaf in _flat([pol, val]):
+        h.update(np.ascontiguousarray(leaf).tobytes())
+    return {"launches": got, "history": hist,
+            "digests": agent.replica_digests, "mean": mean,
+            "ppo": (pol, val, ppo_stats) if d.rank == 0 else None,
+            "ppo_digest": h.hexdigest(), "ppo_collective_s": d.seconds - c0,
+            "env_steps": agent.local_envs * agent.horizon}
+
+
+def dp_check_run(name, results, out, want_k1, dev) -> tuple:
+    """The checks of a data-parallel run's ranks: K1 launches `want_k1` on
+    every rank and no other kernel, every epoch's replica digest the same
+    on every rank, finite stats, the value loss falling, and rank 0's
+    checkpoint loaded in a single-process agent on the card with the
+    ranks' digest -> (the loaded agent, failures)."""
+    import numpy as np
+
+    from uhc_tpu_torch.learn.agent import CopycatAgent
+    from uhc_tpu_torch.config.config import Config
+
+    fails = []
+    for r, res in enumerate(results):
+        if res["launches"] != want_k1:
+            fails.append(f"{name}: rank {r} launched {res['launches']}, "
+                         f"expected {want_k1}")
+        if res["digests"] != results[0]["digests"] or \
+                len(res["digests"]) != DP_EPOCHS:
+            fails.append(f"{name}: rank {r}'s digests {res['digests']} "
+                         f"against rank 0's {results[0]['digests']}")
+        for i, st in enumerate(res["history"]):
+            if not all(np.all(np.isfinite(v)) for v in st.values()):
+                fails.append(f"{name}: rank {r} epoch {i} stats not "
+                             f"finite: {st}")
+            if not st["value_loss"] < st["value_loss_before"]:
+                fails.append(f"{name}: rank {r} epoch {i}: value loss did "
+                             f"not fall")
+    agent = CopycatAgent(Config.uhc_implicit(), "sample_data/gait_clips.pkl",
+                         num_envs=64, horizon=8, results_dir=out,
+                         device=dev)
+    agent.load_checkpoint(DP_EPOCHS)
+    if agent.replica_digest() != results[0]["digests"][-1]:
+        fails.append(f"{name}: rank 0's checkpoint loads to another digest "
+                     f"than the ranks'")
+    return agent, fails
+
+
+def dp_rates(results) -> list:
+    """Each rank's per-epoch rollout env-steps/s (its own envs), PPO ms
+    and collective ms."""
+    return [{"rollout_env_steps_per_s": [st["rank_rollout_steps_per_sec"]
+                                         for st in r["history"]],
+             "ppo_update_ms": [1e3 * st["T_update"] for st in r["history"]],
+             "collectives_ms": [1e3 * st["T_collectives"]
+                                for st in r["history"]],
+             "epoch_s": [st["T_total"] for st in r["history"]]}
+            for r in results]
+
+
+def dp_rehearsal(dev, backend: str = "gloo") -> tuple:
+    """Phase data_parallel's (a) and (b): DP_RANKS ranks of `cli/train
+    --data-parallel`'s run on `dev` over `backend` (checks in
+    dp_check_run; rank 0's checkpoint's policy mean equal to the ranks'),
+    then the fixed-batch PPO update over the ranks against ppo_update on
+    one process with the same permutations: params within 2·lr per Adam
+    step, losses within 1e-5 relative (tests/test_torch_train.py's
+    bounds), each net's change within DP_MOVED of the one process's
+    change in norm (Adam hides a gradient's scale, not its direction; a
+    few steps that flip sign stay well inside), the ranks' results bit
+    for bit alike -> (numbers, failures, K1 launches)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from uhc_tpu_torch.learn import data_parallel as DP, nets
+
+    numbers = {"backend": backend, "ranks": DP_RANKS}
+    steps = DP_EPOCHS * DP_HORIZON
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        # every rank on this one device ("cuda" alone is a card a rank)
+        shared = (f"cuda:{torch.cuda.current_device()}"
+                  if dev.type == "cuda" and dev.index is None else str(dev))
+        res = DP.spawn(dp_rank, DP_RANKS, shared, backend,
+                       args=(out, DP_TRAIN_ARGS, DP_PPO),
+                       wait=DP_TIMEOUT_S)
+        numbers["seconds"] = time.perf_counter() - t0
+        agent, fails = dp_check_run("rehearsal", res, out,
+                                    expect(steps, "k1"), dev)
+        probe = torch.randn((64, agent.obs_dim),
+                            generator=torch.Generator().manual_seed(5)).to(
+            dev)
+        with torch.no_grad():
+            if not np.array_equal(agent.policy(probe).cpu().numpy(),
+                                  res[0]["mean"]):
+                fails.append("rehearsal: the checkpoint's policy mean is not "
+                             "the ranks'")
+    numbers["launches"] = [r["launches"]["k1"] for r in res]
+    numbers["rank"] = dp_rates(res)
+    numbers["reward_mean"] = [st["reward_mean"] for st in res[0]["history"]]
+    numbers["digests"] = res[0]["digests"]
+    # (b) the fixed batch: the ranks' update against one process's
+    pol, val, stats = res[0]["ppo"]
+    spol, sval, sstats = dp_ppo(agent.cfg, agent.obs_dim, agent.action_dim,
+                                dev, shape=DP_PPO)
+    pol0, val0 = dp_nets(agent.cfg, agent.obs_dim, agent.action_dim, dev)
+    pol0, val0 = nets.policy_to_numpy(pol0), nets.value_to_numpy(val0)
+    errs = {}
+    adam_steps = 2 * 2          # 2 passes × 2 minibatches
+    for tag, a, b, a0, lr in (
+            ("policy", spol, pol, pol0, agent.cfg.policy_lr),
+            ("value", sval, val, val0, agent.cfg.value_lr)):
+        errs[tag] = max(float(np.abs(np.asarray(x) - np.asarray(y)).max())
+                        for x, y in zip(_flat(a), _flat(b)))
+        if errs[tag] > 2 * lr * adam_steps:
+            fails.append(f"ppo: {tag} params {errs[tag]} from one "
+                         f"process's, over 2·lr per Adam step")
+        moved = [np.concatenate([(np.asarray(x, np.float64) - y).ravel()
+                                 for x, y in zip(_flat(t), _flat(a0))])
+                 for t in (a, b)]
+        errs[f"{tag}_moved"] = float(np.linalg.norm(moved[1] - moved[0])
+                                     / np.linalg.norm(moved[0]))
+        if errs[f"{tag}_moved"] > DP_MOVED:
+            fails.append(f"ppo: {tag}'s change {errs[f'{tag}_moved']} "
+                         f"from one process's in norm, over {DP_MOVED}")
+    for k in ("value_loss_before", "value_loss", "policy_loss"):
+        errs[k] = abs(stats[k] - sstats[k]) / max(abs(sstats[k]), 1e-30)
+        if errs[k] > 1e-5:
+            fails.append(f"ppo: {k} {stats[k]} against {sstats[k]}")
+    if len({r["ppo_digest"] for r in res}) != 1:
+        fails.append("ppo: the ranks' updated params differ")
+    numbers["ppo_vs_one_process"] = errs
+    numbers["ppo_collectives_ms"] = [1e3 * r["ppo_collective_s"]
+                                     for r in res]
+    return numbers, fails, sum(numbers["launches"])
+
+
+def dp_multi_card(dev) -> tuple:
+    """Phase data_parallel's (c): `cli/train --data-parallel` itself, a
+    card a rank over NCCL on every visible card, with dp_check_run's
+    checks -> (numbers, failures, K1 launches)."""
+    import tempfile
+
+    import torch
+
+    from uhc_tpu_torch.cli import train
+
+    steps = DP_EPOCHS * DP_HORIZON
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        _, res = train.main(["--data-parallel"] + DP_TRAIN_ARGS
+                            + ["--results-dir", out])
+        seconds = time.perf_counter() - t0
+        for r in res:           # control_step.LAUNCHES of each rank
+            r["launches"] = {k: v for k, v in r["launches"].items() if v}
+        _, fails = dp_check_run("multi_card", res, out,
+                                {("step", 24, False): steps}, dev)
+    launches = [r["launches"].get(("step", 24, False), 0) for r in res]
+    return {"ran": True, "cards": torch.cuda.device_count(),
+            "seconds": seconds, "launches": launches,
+            "rank": dp_rates(res)}, fails, sum(launches)
+
+
+def dp_profile(dev) -> tuple:
+    """Phase data_parallel's (d): `cli/train --profile` at DP_PROFILE_ARGS:
+    K1 once a control step and the trace's epoch spans 2 to 4 and
+    control_step_kernel -> (numbers, failures, K1 launches)."""
+    import re
+    import tempfile
+
+    from uhc_tpu_torch.cli import train
+
+    fails = []
+    with tempfile.TemporaryDirectory() as out:
+        prof = os.path.join(out, "prof")
+        reset_counts()
+        t0 = time.perf_counter()
+        train.main(DP_PROFILE_ARGS + ["--results-dir", out, "--profile", prof]
+                   + ([] if dev.type == "cuda" else ["--device", "cpu"]))
+        seconds = time.perf_counter() - t0
+        got = counts()
+        if got != expect(DP_PROFILE[1] * DP_PROFILE[2], "k1"):
+            fails.append(f"profile: launches {got}")
+        path = os.path.join(prof, "trace.json")
+        with open(path) as fh:
+            text = fh.read()
+    spans = sorted(set(re.findall(r'"name": "(epoch \d+)"', text)))
+    kernel = "control_step_kernel" in text
+    if spans != ["epoch 2", "epoch 3", "epoch 4"]:
+        fails.append(f"profile: spans {spans}")
+    if not kernel:
+        fails.append("profile: the trace names no control_step_kernel")
+    return {"seconds": seconds, "spans": spans,
+            "names_control_step_kernel": kernel, "trace_bytes": len(text),
+            "launches": got["k1"]}, fails, got["k1"]
+
+
+def data_parallel_phase(dev) -> tuple:
+    """Phase data_parallel: (a) and (b) `dp_rehearsal` on the card over
+    gloo, (c) `dp_multi_card` where there are two cards or more, (d)
+    `dp_profile` -> (numbers, failures, K1 launches)."""
+    import torch
+
+    numbers, fails, k1 = dp_rehearsal(dev)
+    numbers = {"rehearsal": numbers,
+               "multi_card": {"ran": False,
+                              "cards": torch.cuda.device_count()}}
+    if torch.cuda.device_count() >= 2:
+        numbers["multi_card"], f, n = dp_multi_card(dev)
+        fails, k1 = fails + f, k1 + n
+    numbers["profile"], f, n = dp_profile(dev)
+    return numbers, fails + f, k1 + n
+
+
 def run(parent=None) -> int:
     """Every phase; `parent` is --parent's source, or None."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3909,15 +4240,17 @@ def run(parent=None) -> int:
          summary=res_x["summary"])
 
     train_counts = {}
-    # train_lane: 2 epochs (3 before the tools phase came: the whole run's
-    # time on a slow host)
+    # train_lane: 2 epochs (3 before the tools phase came), train_split 1
+    # (2 before the data_parallel phase came): the whole run's time on a
+    # slow host
     for train_phase, lane, epochs in (("train_lane", None, 2),
-                                      ("train_split", "0", 2)):
+                                      ("train_split", "0", 1)):
         phase(train_phase, f"(cli/train, 1024 envs × 48 steps, {epochs} "
                            f"epochs, UHC_TPU_LANE={lane or 'unset'})")
         train_counts[train_phase] = run_train(lane, epochs, train_phase, dev)
     for train_phase, lane, epochs, args in (
-            ("train_shape", None, 3, SHAPE_TRAIN_ARGS),
+            # 2 epochs (3 before the data_parallel phase came)
+            ("train_shape", None, 2, SHAPE_TRAIN_ARGS),
             ("train_shape_split", "0", 2, SHAPE_TRAIN_ARGS),
             ("train_dr", None, 2, DR_TRAIN_ARGS)):
         phase(train_phase, f"(cli/train {' '.join(args[:-1])}, {epochs} "
@@ -3981,8 +4314,9 @@ def run(parent=None) -> int:
     # eval at the checkpoint), masterfoot through the agent; the other
     # config on each tree for one epoch, and explicit SMPL-H under
     # UHC_TPU_LANE_BIG=0 on the plain chain, where the JAX package runs XLA
+    # train_smplh_explicit: 1 epoch (2 before the data_parallel phase came)
     for train_phase, name, epochs, lane_big in (
-            ("train_smplh_explicit", "explicit", 2, None),
+            ("train_smplh_explicit", "explicit", 1, None),
             ("train_smplh_meta_joint", "meta_joint", 1, None),
             ("train_smplh_explicit_plain", "explicit", 1, "0")):
         args = ["--cfg", name] + SMPLH_TRAIN_ARGS + (
@@ -4094,7 +4428,8 @@ def run(parent=None) -> int:
          qpos_tol=QPOS_TOL, qvel_tol=QVEL_TOL)
     if fails:
         raise RuntimeError("; ".join(fails))
-    phase("ball", f"(--cfg ball: cli/train 1024 envs × 48 steps, "
+    phase("ball", f"(--cfg ball: cli/train 1024 envs × "
+                  f"{BALL_HORIZON} steps, "
                   f"{BALL_EPOCHS} epoch(s), "
                   f"and the six-clip eval over {BALL_EVAL_FRAMES} frames on "
                   "the torque route, no kernel; "
@@ -4163,6 +4498,22 @@ def run(parent=None) -> int:
                    "against the port on the CPU; no rendering on the card)")
     tools_numbers, fails, tools_k1 = tools_phase(topo, model, model_np, dev)
     done("tools", **tools_numbers, card=smi)
+    if fails:
+        raise RuntimeError("; ".join(fails))
+
+    # this slice: data-parallel training and --profile
+    phase("data_parallel", f"((a) cli/train --data-parallel's run as "
+                           f"{DP_RANKS} ranks on cuda:0 over gloo, "
+                           f"uhc_implicit {' '.join(DP_TRAIN_ARGS)}; (b) "
+                           f"one PPO update of a fixed {DP_PPO[0]} × "
+                           f"{DP_RANKS}·{DP_PPO[1]} batch over the ranks vs "
+                           f"one process; (c) cli/train --data-parallel over "
+                           f"NCCL on {torch.cuda.device_count()} card(s), "
+                           + ("run" if torch.cuda.device_count() >= 2
+                              else "not run: one card")
+          + f"; (d) --profile {' '.join(DP_PROFILE_ARGS)})")
+    dp_numbers, fails, dp_k1 = data_parallel_phase(dev)
+    done("data_parallel", **dp_numbers, card=smi)
     if fails:
         raise RuntimeError("; ".join(fails))
 
@@ -4798,7 +5149,7 @@ def run(parent=None) -> int:
         {"name": "control_step", "route": "cuda", "source": src,
          "replaces": "uhc_tpu/physics/pallas_lane.py:83",
          "launches": (launches + train_counts["train_lane"]["k1"]
-                      + protocol_k1 + obj_k1 + tools_k1),
+                      + protocol_k1 + obj_k1 + tools_k1 + dp_k1),
          "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None},
         {"name": "control_step_head", "route": "cuda", "source": src,

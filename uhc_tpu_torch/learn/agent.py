@@ -33,6 +33,19 @@ runs through a control-step kernel (K1, or K2 under UHC_TPU_LANE=0); on
 the CPU, which the caller asks for with device="cpu", through the plain
 PCG-5 chain, as the JAX agent does off the TPU.
 
+Data-parallel (`dist`, a learn/data_parallel.Dist; the JAX agent's
+`mesh`, uhc_tpu/learn/agent.py:10-13,48,265-272): `num_envs` is global
+and each of the W ranks holds num_envs / W envs; every model library and
+tree is replicated. The running statistics, the advantages' whitening,
+PPO's minibatches and gradients, the epoch stats and the sampler's
+telemetry cover the global batch, and the parameters, log-std and
+statistics are broadcast from rank 0 at construction and after every
+checkpoint load. Rollouts draw from a generator of each rank's own, PPO's
+shuffles from one seeded alike on every rank. After each epoch the ranks
+compare a digest of what must stay identical (`replica_digest`) and
+raise if it differs. Checkpoints keep the single-process layout; the
+caller saves them on rank 0.
+
 The reset pose for reactive initialization is the first frame of the
 first clip at rest (the reference's standing_neutral.pkl is not in the
 repository); on the ball family that frame is already in quaternions,
@@ -43,6 +56,7 @@ loads the other's.
 from __future__ import annotations
 
 import glob
+import hashlib
 import json
 import os
 import pickle
@@ -65,7 +79,7 @@ from uhc_tpu_torch.device import resolve_device
 from uhc_tpu_torch.envs import humanoid_im as H
 from uhc_tpu_torch.learn import nets, running_norm as RN
 from uhc_tpu_torch.learn.gae import estimate_advantages
-from uhc_tpu_torch.learn.ppo import ppo_update
+from uhc_tpu_torch.learn.ppo import ppo_update, ppo_update_dist
 from uhc_tpu_torch.learn.rollout import init_env_states, make_rollout_fn
 from uhc_tpu_torch.physics.model import model_from_numpy
 from uhc_tpu_torch.smpl.constants import default_diff_weights
@@ -80,10 +94,18 @@ class CopycatAgent:
                  smpl_data=None, dr_variants: int = 0,
                  dr_friction_scale: float = 1.5,
                  dr_contact_scale: float = 2.0, dr_mass_scale: float = 1.15,
-                 dr_seed: int = 0):
+                 dr_seed: int = 0, dist=None):
         self.cfg, self.env_cfg = cfg, cfg.env
         self.num_envs, self.horizon = num_envs, horizon
-        self.device = dev = resolve_device(device)
+        self.dist = dist
+        world = 1 if dist is None else dist.world_size
+        if num_envs % world:
+            raise ValueError(f"{num_envs} envs do not split over {world} "
+                             f"ranks")
+        # this rank's envs
+        self.local_envs = num_envs // world
+        self.device = dev = (resolve_device(device) if dist is None
+                             else dist.device)
         self.results_dir = results_dir or default_results_dir(cfg)
         os.makedirs(os.path.join(self.results_dir, "models"), exist_ok=True)
 
@@ -113,13 +135,23 @@ class CopycatAgent:
         self.log_std = torch.full((self.action_dim,), cfg.log_std,
                                   device=dev)
         self._make_optimizers()
-        # every draw of rollouts and PPO shuffles, on the device
-        self.gen = torch.Generator(device=dev).manual_seed(seed)
+        if dist is None:
+            # every draw of rollouts and PPO shuffles, on the device
+            self.gen = torch.Generator(device=dev).manual_seed(seed)
+            self.ppo_gen = self.gen
+        else:
+            # rollouts: a stream of each rank's own; shuffles: one stream,
+            # seeded alike, drawn alike on every rank
+            self.gen = torch.Generator(device=dev).manual_seed(int(
+                np.random.SeedSequence([seed, dist.rank]).generate_state(
+                    1, np.uint64)[0] >> np.uint64(1)))
+            self.ppo_gen = torch.Generator(device=dev).manual_seed(seed)
 
         self.rs = RN.init(self.obs_dim, dev)
         self.env_states = init_env_states(self.topo, self.env_cfg,
                                           self.sim_model, self.expert_lib,
-                                          self.aux, self.gen, num_envs)
+                                          self.aux, self.gen,
+                                          self.local_envs)
         self.sampler = FailureFrequencySampler(
             len(self.seq_keys), cfg.sampling_temp, cfg.sampling_freq)
         self.precision_mode = cfg.precision_mode
@@ -127,13 +159,53 @@ class CopycatAgent:
         self._fused_model = self.sim_model if dev.type == "cuda" else None
         self._rollout = make_rollout_fn(
             self.topo, self.env_cfg, lambda x: self.policy(x), horizon,
-            fused_model=self._fused_model)
+            fused_model=self._fused_model, dist=dist)
         self.minibatch = min(cfg.mini_batch_size, num_envs * horizon)
         self.epoch = 0
         # episode-end reward bonus from the previous epoch's average custom
         # reward (agent_copycat.py:333-334)
         self.end_reward = 0.0
         self._eval_fn = None
+        # replica_digest after each epoch (data-parallel runs)
+        self.replica_digests = []
+        self._broadcast_state()
+
+    def _broadcast_state(self):
+        """Rank 0's parameters, log-std and running statistics on every
+        rank (one flat broadcast); nothing without `dist`."""
+        if self.dist is None:
+            return
+        tensors = [*self.policy.parameters(), *self.value.parameters(),
+                   self.log_std, self.rs.n, self.rs.mean, self.rs.m2]
+        with torch.no_grad():
+            flat = self.dist.broadcast(torch.cat(
+                [t.detach().reshape(-1) for t in tensors]))
+            at = 0
+            for t in tensors:
+                t.copy_(flat[at:at + t.numel()].view_as(t))
+                at += t.numel()
+
+    def replica_digest(self) -> str:
+        """SHA-256 of what every rank must hold alike: the parameters, the
+        log-std, the running statistics and the sampler's state."""
+        h = hashlib.sha256()
+        for t in (*self.policy.parameters(), *self.value.parameters(),
+                  self.log_std, self.rs.n, self.rs.mean, self.rs.m2):
+            h.update(t.detach().cpu().numpy().tobytes())
+        h.update(json.dumps(self.sampler.state_dict()).encode())
+        return h.hexdigest()
+
+    def _check_replicas(self):
+        """Append this epoch's digest and raise if any rank's differs."""
+        digest = self.replica_digest()
+        words = torch.tensor(np.frombuffer(bytes.fromhex(digest), np.int64),
+                             device=self.device)
+        rows = self.dist.gather(words)
+        if not bool((rows == rows[0]).all()):
+            raise RuntimeError(f"rank {self.dist.rank}: the ranks' "
+                               f"parameters, statistics or sampler diverged "
+                               f"at epoch {self.epoch}")
+        self.replica_digests.append(digest)
 
     def _make_optimizers(self):
         """Fresh Adam states for the policy and the value net and, with a
@@ -160,6 +232,7 @@ class CopycatAgent:
         (agent_copycat.py:326 optimize_policy / :279 per_epoch_update)."""
         cfg, dev = self.cfg, self.device
         t0 = time.perf_counter()
+        c0 = 0.0 if self.dist is None else self.dist.seconds
         noise_rate, log_std_sched, _lr = cfg.adaptive_params(epoch)
         if cfg.fix_std:
             self.log_std = torch.full_like(self.log_std, log_std_sched)
@@ -183,48 +256,85 @@ class CopycatAgent:
             values = self.value(states).reshape(T, B)
             bootstrap = self.value(last_obs)
         adv, ret = estimate_advantages(traj.rewards, traj.masks, values,
-                                       bootstrap, cfg.gamma, cfg.tau)
+                                       bootstrap, cfg.gamma, cfg.tau,
+                                       dist=self.dist)
         batch = {"states": states,
                  "actions": traj.actions.reshape(T * B, self.action_dim),
                  "advantages": adv.reshape(-1), "returns": ret.reshape(-1),
                  "exps": traj.exps.reshape(-1)}
-        ppo_stats = ppo_update(self.policy, self.value, self.policy_opt,
-                               self.value_opt, self.log_std, batch, self.gen,
-                               cfg.clip_epsilon, cfg.num_optim_epoch,
-                               self.minibatch, log_std_opt=self.log_std_opt)
+        if self.dist is None:
+            ppo_stats = ppo_update(
+                self.policy, self.value, self.policy_opt, self.value_opt,
+                self.log_std, batch, self.gen, cfg.clip_epsilon,
+                cfg.num_optim_epoch, self.minibatch,
+                log_std_opt=self.log_std_opt)
+        else:
+            ppo_stats = ppo_update_dist(
+                self.policy, self.value, self.policy_opt, self.value_opt,
+                self.log_std, batch, self.ppo_gen, cfg.clip_epsilon,
+                cfg.num_optim_epoch, self.minibatch, self.dist, B,
+                log_std_opt=self.log_std_opt)
         self._sync()
         t2 = time.perf_counter()
 
+        # the epoch's sums over every rank's envs
         done_f = traj.dones.to(torch.float32)
-        n_done = torch.clamp(done_f.sum(), min=1.0)
-        scalars = {
-            "reward_mean": traj.rewards.mean(),
-            "c_reward_mean": traj.c_rewards.mean(),
-            "episodes": done_f.sum(),
-            "avg_percent": (traj.percents * done_f).sum() / n_done,
+        K = traj.reward_terms.shape[-1]
+        sums = torch.cat([torch.stack([
+            traj.rewards.sum(), traj.c_rewards.sum(), done_f.sum(),
+            (traj.percents * done_f).sum(),
             # 1-ulp tolerance, as in learn/metrics.py succ
-            "success_rate": ((traj.percents >= 1.0 - 1e-5) * done_f).sum()
-            / n_done,
+            ((traj.percents >= 1.0 - 1e-5) * done_f).sum()]).to(
+                torch.float32),
+            traj.reward_terms.sum((0, 1)).to(torch.float32)])
+        if self.dist is not None:
+            self.dist.all_reduce(sums)
+        n_steps = T * self.num_envs
+        n_done = torch.clamp(sums[2], min=1.0)
+        scalars = {
+            "reward_mean": sums[0] / n_steps,
+            "c_reward_mean": sums[1] / n_steps,
+            "episodes": sums[2],
+            "avg_percent": sums[3] / n_done,
+            "success_rate": sums[4] / n_done,
             "avg_eps_len": self.horizon * self.num_envs / n_done,
             **ppo_stats}
         stats = dict(zip(scalars, torch.stack(
             [torch.as_tensor(v, dtype=torch.float32, device=dev)
              for v in scalars.values()]).tolist()))
-        stats["reward_terms"] = traj.reward_terms.mean((0, 1)).tolist()
+        stats["reward_terms"] = (sums[5:5 + K] / n_steps).tolist()
         if cfg.end_reward:
             self.end_reward = stats["c_reward_mean"] * cfg.gamma / (
                 1.0 - cfg.gamma)
-        self.sampler.update_from_rollout(
-            *(x.cpu().numpy() for x in (traj.seq_idx, traj.dones,
-                                        traj.percents, traj.start_inds)))
+        self.sampler.update_from_rollout(*self._telemetry(traj))
+        self.epoch = epoch
+        if self.dist is not None:
+            self._check_replicas()
         stats["T_total"] = time.perf_counter() - t0
         stats["T_rollout"] = t1 - t0
         stats["T_update"] = t2 - t1
-        stats["steps"] = T * B
+        stats["steps"] = n_steps
         stats["steps_per_sec"] = stats["steps"] / stats["T_total"]
         stats["rollout_steps_per_sec"] = stats["steps"] / stats["T_rollout"]
-        self.epoch = epoch
+        if self.dist is not None:
+            stats["rank_rollout_steps_per_sec"] = T * B / stats["T_rollout"]
+            stats["T_collectives"] = self.dist.seconds - c0
         return stats
+
+    def _telemetry(self, traj):
+        """The sampler's (T, B) arrays seq_idx, dones, percents,
+        start_inds; under `dist` every rank's envs side by side in rank
+        order, as one process holding them all would see them (one
+        gather, in float64, which holds each value exactly)."""
+        parts = (traj.seq_idx, traj.dones, traj.percents, traj.start_inds)
+        if self.dist is None:
+            return [x.cpu().numpy() for x in parts]
+        T, B = traj.dones.shape
+        rows = self.dist.gather(torch.stack(
+            [x.to(torch.float64) for x in parts]))      # (W, 4, T, B)
+        rows = rows.permute(1, 2, 0, 3).reshape(4, T, -1).cpu().numpy()
+        return [rows[0].astype(np.int64), rows[1].astype(bool),
+                rows[2].astype(np.float32), rows[3].astype(np.int64)]
 
     # -- evaluation during training (agent_copycat.py:346-349) ----------------
     def eval_policy(self, track_best: bool = True) -> dict:
@@ -313,6 +423,7 @@ class CopycatAgent:
                                            self.cfg.value_htype, dev)
         self._make_optimizers()
         self.rs = RN.from_numpy(state["running_stats"], dev)
+        self._broadcast_state()
         if warm_start:
             return
         self.sampler.load_state_dict(state["sampler"])

@@ -71,14 +71,16 @@ def reset_like(topo: Topology, cfg: EnvConfig, model: Model, expert_lib,
 
 def make_rollout_fn(topo: Topology, cfg: EnvConfig, policy_mean_fn: Callable,
                     horizon: int, clip_obs: float = 5.0,
-                    fused_model: Model = None):
+                    fused_model: Model = None, dist=None):
     """Build rollout(model, expert_lib, aux, log_std, rs, env_state, gen,
     noise_rate, rfc_rate, seq_logits, end_reward, fail_pool,
     precision_freq) -> (env_state', rs', TrajBatch, last_obs_norm).
 
     `policy_mean_fn(normalized_obs) -> mean action`. With `fused_model`
     the physics runs through a control-step kernel
-    (`humanoid_im.make_env_step_batched`)."""
+    (`humanoid_im.make_env_step_batched`). Under `dist`
+    (learn/data_parallel.Dist) the running statistics merge every rank's
+    observations at each step."""
     env_step_batched = H.make_env_step_batched(topo, cfg,
                                                fused_model=fused_model)
 
@@ -96,7 +98,7 @@ def make_rollout_fn(topo: Topology, cfg: EnvConfig, policy_mean_fn: Callable,
             state = H.state_where(state.done, fresh, state)
 
             obs = H.get_obs(topo, model, cfg, state, expert_lib)
-            rs = RN.update_batch(rs, obs)
+            rs = RN.update_batch(rs, obs, dist=dist)
             nobs = RN.normalize(rs, obs, clip_obs)
             mean = policy_mean_fn(nobs)
             noise = torch.exp(log_std) * torch.randn(

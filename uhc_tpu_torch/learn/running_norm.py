@@ -37,23 +37,53 @@ def stack(stats) -> RunningStats:
                         torch.stack([r.m2 for r in stats]))
 
 
-def update_batch(rs: RunningStats, x: torch.Tensor,
-                 mask=None) -> RunningStats:
-    """Merge a (B, D) batch (optionally row-masked) into the stats."""
-    if mask is None:
-        bn = x.new_tensor(float(x.shape[0]))
-        bmean = x.mean(0)
-        bm2 = ((x - bmean) ** 2).sum(0)
-    else:
-        m = mask.to(x.dtype)[:, None]
-        bn = torch.clamp(m.sum(), min=1e-8)
-        bmean = (x * m).sum(0) / bn
-        bm2 = (((x - bmean) ** 2) * m).sum(0)
+def update_batch(rs: RunningStats, x: torch.Tensor, mask=None,
+                 dist=None) -> RunningStats:
+    """Merge a (B, D) batch (optionally row-masked) into the stats. Under
+    `dist` (learn/data_parallel.Dist) the batch is the global one: every
+    rank's (count, mean, m2) is gathered and merged in rank order, so every
+    rank holds the same statistics."""
+    bn, bmean, bm2 = _moments(x, mask)
+    if dist is not None:
+        bn, bmean, bm2 = _merge_ranks(dist.gather(
+            torch.cat([bn.reshape(1), bmean, bm2])))
+    if mask is not None:
+        bn = torch.clamp(bn, min=1e-8)
     n = rs.n + bn
     delta = bmean - rs.mean
     mean = rs.mean + delta * bn / n
     m2 = rs.m2 + bm2 + delta ** 2 * rs.n * bn / n
     return RunningStats(n, mean, m2)
+
+
+def _moments(x: torch.Tensor, mask=None):
+    """(count, mean, m2) of the rows of `x`, or of those `mask` keeps (the
+    count unclamped: it may be 0)."""
+    if mask is None:
+        bmean = x.mean(0)
+        return (x.new_tensor(float(x.shape[0])), bmean,
+                ((x - bmean) ** 2).sum(0))
+    m = mask.to(x.dtype)[:, None]
+    bn = m.sum()
+    bmean = (x * m).sum(0) / torch.clamp(bn, min=1e-8)
+    return bn, bmean, (((x - bmean) ** 2) * m).sum(0)
+
+
+def _merge_ranks(parts: torch.Tensor):
+    """Chan et al.'s merge of the (W, 1 + 2D) rows [count, mean, m2] of
+    the ranks, in rank order; a row of count 0 adds nothing."""
+    D = (parts.shape[1] - 1) // 2
+    n, mean, m2 = parts[0, 0], parts[0, 1:D + 1], parts[0, D + 1:]
+    for p in parts[1:]:
+        pn, pmean, pm2 = p[0], p[1:D + 1], p[D + 1:]
+        tot = n + pn
+        w = torch.where(tot > 0, pn / torch.clamp(tot, min=1e-30),
+                        torch.zeros_like(tot))
+        delta = pmean - mean
+        mean = mean + delta * w
+        m2 = m2 + pm2 + delta ** 2 * n * w
+        n = tot
+    return n, mean, m2
 
 
 def to_numpy(rs: RunningStats) -> dict:

@@ -461,20 +461,23 @@ class ControlStep:
             return qpos_out, qvel_out
         lib = self.library()
         P, I = self._device_tables(qpos.device)
-        stream = torch.cuda.current_stream(qpos.device).cuda_stream
-        if self.k1f:
-            rc = self._launch_k1f(lib, P, I, qpos, qvel, actions,
-                                  target_base, qpos_out, qvel_out, rfc_rate,
-                                  seq_idx, stream)
-        else:
-            entry = ("uhc_control_step_bf16" if self.precond_bf16
-                     else "uhc_control_step")
-            rc = getattr(lib, entry)(
-                P.data_ptr(), self.seq_ptr(seq_idx), I.data_ptr(),
-                qpos.data_ptr(), qvel.data_ptr(), actions.data_ptr(),
-                target_base.data_ptr(), qpos_out.data_ptr(),
-                qvel_out.data_ptr(), self.ws_ptr(B, qpos.device), B,
-                self.act_dim, float(rfc_rate), self.jg_floats, stream)
+        # the entry launches on the thread's current device: make it
+        # qpos's (a rank on cuda:1 may have cuda:0 current)
+        with torch.cuda.device(qpos.device):
+            stream = torch.cuda.current_stream(qpos.device).cuda_stream
+            if self.k1f:
+                rc = self._launch_k1f(lib, P, I, qpos, qvel, actions,
+                                      target_base, qpos_out, qvel_out,
+                                      rfc_rate, seq_idx, stream)
+            else:
+                entry = ("uhc_control_step_bf16" if self.precond_bf16
+                         else "uhc_control_step")
+                rc = getattr(lib, entry)(
+                    P.data_ptr(), self.seq_ptr(seq_idx), I.data_ptr(),
+                    qpos.data_ptr(), qvel.data_ptr(), actions.data_ptr(),
+                    target_base.data_ptr(), qpos_out.data_ptr(),
+                    qvel_out.data_ptr(), self.ws_ptr(B, qpos.device), B,
+                    self.act_dim, float(rfc_rate), self.jg_floats, stream)
         if rc != 0:
             raise RuntimeError(f"control_step kernel launch failed: CUDA "
                                f"error {rc}")

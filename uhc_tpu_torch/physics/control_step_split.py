@@ -99,13 +99,16 @@ class ControlStepSplit(ControlStep):
         P, I = self._device_tables(qpos.device)
         q_out, v_out = torch.empty_like(qpos), torch.empty_like(qvel)
         B = qpos.shape[0]
-        stream = torch.cuda.current_stream(qpos.device).cuda_stream
-        rc = getattr(self.library(), f"uhc_control_step_{entry}")(
-            P.data_ptr(), self.seq_ptr(seq_idx), I.data_ptr(),
-            qpos.data_ptr(), qvel.data_ptr(), actions.data_ptr(),
-            target_base.data_ptr(), q_out.data_ptr(), v_out.data_ptr(),
-            self.ws_ptr(B, qpos.device), X.data_ptr(), B, self.act_dim,
-            float(rfc_rate), self.jg_floats, stream)
+        ws = self.ws_ptr(B, qpos.device)
+        # the entry launches on the thread's current device: make it qpos's
+        with torch.cuda.device(qpos.device):
+            stream = torch.cuda.current_stream(qpos.device).cuda_stream
+            rc = getattr(self.library(), f"uhc_control_step_{entry}")(
+                P.data_ptr(), self.seq_ptr(seq_idx), I.data_ptr(),
+                qpos.data_ptr(), qvel.data_ptr(), actions.data_ptr(),
+                target_base.data_ptr(), q_out.data_ptr(), v_out.data_ptr(),
+                ws, X.data_ptr(), B, self.act_dim, float(rfc_rate),
+                self.jg_floats, stream)
         if rc != 0:
             raise RuntimeError(f"{entry} kernel launch failed: CUDA error "
                                f"{rc}")
