@@ -1,0 +1,9 @@
+"""Host ms a rollout step spends in the program's span `reset` (the fresh
+episodes and their merge into the state), over the window's epochs: the
+span's seconds over its calls, one a step; the mean over ranks. None
+where the program has no such span."""
+from benchmark.span_table import per_call_ms
+
+
+def read(ctx):
+    return per_call_ms(ctx, "epoch/rollout/reset")

@@ -3685,7 +3685,7 @@ def dp_profile(dev) -> tuple:
         path = os.path.join(prof, "trace.json")
         with open(path) as fh:
             text = fh.read()
-    spans = sorted(set(re.findall(r'"name": "(epoch \d+)"', text)))
+    spans = sorted(set(re.findall(r'"name": "uhc\.(epoch \d+)"', text)))
     kernel = "control_step_kernel" in text
     if spans != ["epoch 2", "epoch 3", "epoch 4"]:
         fails.append(f"profile: spans {spans}")

@@ -227,8 +227,9 @@ def test_cli_data_parallel_refuses_uhm(tmp_path, capsys):
 
 def test_profile_traces_epochs_two_to_four(tmp_path):
     """--profile DIR over 5 epochs on the CPU: DIR/trace.json, a Chrome
-    trace whose epoch spans are epochs 2, 3 and 4, with the CPU's
-    operators inside."""
+    trace whose epoch spans (the tracer's "uhc.epoch N") are epochs 2, 3
+    and 4, with the tracer's rollout span and the CPU's operators
+    inside."""
     from uhc_tpu_torch.cli import train
 
     prof = tmp_path / "prof"
@@ -240,8 +241,9 @@ def test_profile_traces_epochs_two_to_four(tmp_path):
     # read from the text, not parsed into objects
     text = (prof / "trace.json").read_text()
     assert '"traceEvents"' in text
-    assert set(re.findall(r'"name": "(epoch \d+)"', text)) == {
+    assert set(re.findall(r'"name": "uhc\.(epoch \d+)"', text)) == {
         "epoch 2", "epoch 3", "epoch 4"}
+    assert '"name": "uhc.rollout"' in text
     assert '"name": "aten::' in text
     log = (tmp_path / "run" / "log.txt").read_text()
     assert f"profiler trace (epochs 2-4) -> {prof / 'trace.json'}" in log

@@ -79,6 +79,50 @@ def test_epoch_equals_the_single_process_epoch(ranks, tmp_path):
     assert got["stats"]["rank_rollout_steps_per_sec"] > 0
 
 
+def test_collectives_by_kind(ranks):
+    """The first epoch's collective counters on each rank, calls and bytes
+    by kind, against what the shapes give: a gather of the (W, 1 + 2·obs)
+    float32 statistics at each rollout step, then the telemetry's
+    (W, 4, T, B) float64 and the digest's (W, 4) int64; the all_reduces
+    of GAE (2 and 1 floats), the value loss before (1), a pass's minibatch
+    counts (one a minibatch), each global minibatch's flat gradient, the
+    losses after (3) and the epoch's sums (5 + reward terms); no
+    broadcast inside an epoch. T_collectives is their time."""
+    res, _ = ranks
+    W, B = 2, R.ENVS // 2
+    for r in res:
+        got = r["still"]
+        st = got["stats"]
+        n_mb = R.HORIZON * R.ENVS // got["minibatch"]
+        passes = R.agent_cfg().num_optim_epoch
+        assert st["count.dp.gather.calls"] == R.HORIZON + 2
+        assert st["count.dp.gather.bytes"] == \
+            R.HORIZON * W * (1 + 2 * got["obs_dim"]) * 4 \
+            + W * 4 * R.HORIZON * B * 8 + W * 4 * 8
+        assert st["count.dp.all_reduce.calls"] == 2 + 1 + passes + \
+            passes * n_mb + 1 + 1
+        K = len(st["reward_terms"])
+        assert st["count.dp.all_reduce.bytes"] == 4 * (
+            2 + 1 + 1 + passes * n_mb + passes * n_mb * sum(got["params"])
+            + 3 + 5 + K)
+        assert "count.dp.broadcast.calls" not in st
+        assert st["epoch/update/exchange.n"] == passes * n_mb
+        assert st["epoch/rollout/obs/dp.gather.n"] == R.HORIZON
+        assert st["T_collectives"] > 0
+        # the sites the single process has not: a boolean index a global
+        # minibatch, the digest's copy of each parameter tensor, the
+        # log-std and the 3 statistics, its copy to the device and the
+        # comparison, GAE's count; the telemetry's four copies are one
+        sites = got["host_sync"]
+        assert st["count.host_sync"] == sum(sites.values())
+        assert sites["ppo.py", "global_rows"] == passes * n_mb
+        assert sites["agent.py", "replica_digest"] == \
+            len(got["params"]) + 4
+        assert sites["agent.py", "_check_replicas"] == 2
+        assert sites["agent.py", "_telemetry"] == 1
+        assert sites["gae.py", "estimate_advantages"] == 1
+
+
 def jax_leaves(tree):
     import jax
 

@@ -11,6 +11,8 @@ import time
 import numpy as np
 import torch
 
+from test_torch_helpers import host_sync_sites
+
 # the PPO batch: T steps × W·B envs, D obs dims, A actions
 T, B, D, A = 4, 6, 12, 5
 # the running-statistics batches: three of rows per rank, D dims
@@ -253,9 +255,13 @@ def agent_rank(d, out):
     a = agent(agent_cfg(explore=False), f"{out}/still", d)
     a.rs = warm_stats(a.obs_dim)
     a.env_states = take_envs(fixed_states(a), d.rank, a.local_envs)
-    st = a.optimize_policy(0)
+    with host_sync_sites() as sites:
+        st = a.optimize_policy(0)
     res["still"] = {"stats": st, **snapshot(a),
-                    "dones": int(st["episodes"])}
+                    "dones": int(st["episodes"]), "host_sync": sites,
+                    "obs_dim": a.obs_dim, "minibatch": a.minibatch,
+                    "params": [p.numel() for p in (
+                        *a.policy.parameters(), *a.value.parameters())]}
 
     a = agent(agent_cfg(), f"{out}/run", d, RUN_LEN)
     hist = [a.optimize_policy(i) for i in range(2)]

@@ -8,6 +8,7 @@ of the port's `load_fixture_humanoid`, so both sides compute mass
 properties the same way.
 Inputs are made from a seed with numpy and handed to both sides.
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -288,3 +289,30 @@ def jax_kin_state(st):
     return JK.KinEnvState(**{f.name: j(getattr(st, f.name))
                              for f in dataclasses.fields(st)},
                           rng=jax.random.split(jax.random.PRNGKey(0), B))
+
+
+@contextlib.contextmanager
+def host_sync_sites():
+    """A Counter of the functions that count the tracer's host_sync
+    (uhc_tpu_torch/utils/spans.py) while the block runs: (file name,
+    function) -> n."""
+    import collections
+    import sys
+
+    from uhc_tpu_torch.utils import spans
+
+    sites = collections.Counter()
+    tracer_count = spans.TRACER.count
+
+    def count(name, n=1):
+        if name == "host_sync":
+            # the caller of utils.spans.count
+            f = sys._getframe(2).f_code
+            sites[f.co_filename.rsplit("/", 1)[-1], f.co_name] += n
+        tracer_count(name, n)
+
+    spans.TRACER.count = count
+    try:
+        yield sites
+    finally:
+        del spans.TRACER.count

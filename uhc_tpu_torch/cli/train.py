@@ -43,8 +43,14 @@ single-process path and says so (the JAX rule: a mesh only over more than
 one device). With --agent uhm it refuses (the JAX CLI builds a mesh there
 and never passes it on). --profile DIR writes a torch.profiler trace (CPU
 and CUDA activity, Chrome trace format) of epochs epoch+2 to epoch+4 to
-DIR/trace.json, each epoch a span "epoch N"; under --data-parallel rank 0
-writes it.
+DIR/trace.json, each epoch a span "uhc.epoch N" with the tracer's spans
+inside it (utils/spans.py: the rollout, each step's reset, obs, policy,
+physics and post, the update's gae and PPO minibatches, the collectives),
+on the profiler's clock beside the device's kernels; under
+--data-parallel rank 0 writes it. Each epoch's row of metrics.jsonl
+carries the same span table as numbers: <path>.s (host seconds), <path>.n
+(calls), <path>.device_s (device seconds) and count.<name> (counters:
+host_sync, obs, dp.<kind>.calls / .bytes, launch.<entry>).
 
 --agent uhm (`learn.agent_uhm.UHMAgent`, with --cfg uhm_1, the preset of
 config/uhm_1.yml) trains the kinematic policy through the kin env: the
@@ -193,10 +199,9 @@ def run(args, device, dist=None):
     """The training run of parsed `args` on `device`, as one rank of
     `dist` (learn/data_parallel.Dist) or alone; returns (agent, per-epoch
     stats)."""
-    import torch
-
     from uhc_tpu_torch.config.config import Config
     from uhc_tpu_torch.learn.agent import CopycatAgent
+    from uhc_tpu_torch.utils import spans
     from uhc_tpu_torch.utils.metrics_sink import MetricsSink
 
     lead = dist is None or dist.rank == 0
@@ -268,7 +273,9 @@ def run(args, device, dist=None):
     try:
         with prof or contextlib.nullcontext():
             for i in range(args.epoch, epochs):
-                with torch.profiler.record_function(f"epoch {i}"):
+                # the copycat's epoch is a span of its own
+                with (spans.span("epoch", label=i) if uhm
+                      else contextlib.nullcontext()):
                     stats = agent.optimize_policy(i)
                 if prof is not None:
                     prof.step()

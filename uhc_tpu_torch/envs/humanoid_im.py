@@ -46,6 +46,7 @@ from uhc_tpu_torch.physics.model import (Model, Topology, env_models,
                                          model_batch_axes, model_is_batched,
                                          model_per_env)
 from uhc_tpu_torch.smpl.constants import head_index
+from uhc_tpu_torch.utils.spans import count, span
 
 
 @dataclasses.dataclass
@@ -190,6 +191,9 @@ def obs_v12(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
     next one."""
     qpos, qvel = state.qpos, state.qvel
     B = qpos.shape[0]
+    # a tensor copied from the host: on a card the copy waits for the
+    # stream (utils/spans.py counts it)
+    count("host_sync")
     base_rot = qpos.new_tensor(cfg.base_rot)
     if tgt is None:
         tgt = expert_at(expert_lib, state.seq_idx,
@@ -291,6 +295,7 @@ def obs_v4(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
     tokens)."""
     qpos, qvel = state.qpos, state.qvel
     B = qpos.shape[0]
+    count("host_sync")
     base_rot = qpos.new_tensor(cfg.base_rot)
     if tgt is None:
         tgt = expert_at(expert_lib, state.seq_idx,
@@ -346,6 +351,7 @@ def obs_v5(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
     transform, the target's qpos[:3] in rel_pos."""
     qpos, qvel = state.qpos, state.qvel
     B = qpos.shape[0]
+    count("host_sync")
     base_rot = qpos.new_tensor(cfg.base_rot)
     if tgt is None:
         tgt = expert_at(expert_lib, state.seq_idx,
@@ -391,6 +397,7 @@ def obs_v6(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
     (2·nb features): kept."""
     qpos, qvel = state.qpos, state.qvel
     B = qpos.shape[0]
+    count("host_sync")
     base_rot = qpos.new_tensor(cfg.base_rot)
     if tgt is None:
         tgt = expert_at(expert_lib, state.seq_idx,
@@ -433,6 +440,7 @@ def obs_v2_quat(topo: Topology, model: Model, cfg: EnvConfig,
     joint-position blocks, heading-relative and relative body quats."""
     qpos, qvel = state.qpos, state.qvel
     B = qpos.shape[0]
+    count("host_sync")
     base_rot = qpos.new_tensor(cfg.base_rot)
     if tgt is None:
         tgt = expert_at(expert_lib, state.seq_idx,
@@ -490,7 +498,8 @@ def observe(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
     (uhc_tpu/envs/humanoid_im.py:653-692). A shape-conditioned config
     appends each env's shape observation from the library; a library
     built without one is an error. Obs v2 of the ball family
-    (robot_ball) is v2_quat."""
+    (robot_ball) is v2_quat. Each call counts as the tracer's `obs`."""
+    count("obs")
     shape_obs = None
     if cfg.has_shape:
         if "shape_obs" not in expert_lib:
@@ -620,7 +629,8 @@ def env_post_step(topo: Topology, model: Model, cfg: EnvConfig,
     # the whole batch's advantages (the JAX package returns the NaN)
     reward = torch.where(blown, 0.0, reward)
     terms = torch.where(blown[:, None], 0.0, terms)
-    obs = observe(topo, model, cfg, state, expert_lib)
+    with span("obs"):
+        obs = observe(topo, model, cfg, state, expert_lib)
     return state, obs, reward, terms, done
 
 
@@ -699,7 +709,8 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
     where the JAX package runs XLA, the substeps run through the plain PCG
     chain with 5 iterations (the JAX default). The returned step carries
     the kernel wrapper it calls as `step.kernel` (None for the plain
-    chain)."""
+    chain). It runs in the tracer's spans physics (everything up to the
+    kernel's return) and post (`env_post_step`)."""
     kernel = None
     if fused_model is not None and cfg.action_type != "torque":
         from uhc_tpu_torch.physics.control_step import (PE_MODEL_LEAVES,
@@ -747,19 +758,21 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
 
     def step(model: Model, states: EnvState, actions, expert_lib,
              jpos_diffw, body_diffw, rfc_rate=1.0, train: bool = True):
-        m = env_models(model, states.seq_idx)
-        prev_bquat = get_body_quat(states.qpos)
-        tgt = expert_at(expert_lib, states.seq_idx,
-                        states.start_ind + states.cur_t + 1)
-        qpos, qvel = sim(m, states, actions,
-                         tgt["qpos"][:, 7:].contiguous(), rfc_rate)
-        # kinematic playback of the library's object track
-        states = dataclasses.replace(
-            states, qpos=qpos, qvel=qvel, prev_qpos=states.qpos,
-            cur_t=states.cur_t + 1, prev_bquat=prev_bquat,
-            obj_qpos=tgt.get("obj_pose", states.obj_qpos))
-        return env_post_step(topo, m, cfg, states, actions, expert_lib,
-                             jpos_diffw, body_diffw, train)
+        with span("physics"):
+            m = env_models(model, states.seq_idx)
+            prev_bquat = get_body_quat(states.qpos)
+            tgt = expert_at(expert_lib, states.seq_idx,
+                            states.start_ind + states.cur_t + 1)
+            qpos, qvel = sim(m, states, actions,
+                             tgt["qpos"][:, 7:].contiguous(), rfc_rate)
+            # kinematic playback of the library's object track
+            states = dataclasses.replace(
+                states, qpos=qpos, qvel=qvel, prev_qpos=states.qpos,
+                cur_t=states.cur_t + 1, prev_bquat=prev_bquat,
+                obj_qpos=tgt.get("obj_pose", states.obj_qpos))
+        with span("post"):
+            return env_post_step(topo, m, cfg, states, actions, expert_lib,
+                                 jpos_diffw, body_diffw, train)
 
     step.kernel = kernel
     return step
@@ -767,6 +780,7 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
 
 def match_heading_and_pos(qpos_1, qpos_2, base_rot):
     """Align qpos_2's heading and xy to qpos_1 (both (B, nq))."""
+    count("host_sync")
     base_rot = qpos_1.new_tensor(base_rot)
     heading_1 = heading_quat(quat_mul(qpos_1[:, 3:7], quat_inv(base_rot)))
     new_quat = quat_mul(heading_1, de_heading(qpos_2[:, 3:7]))

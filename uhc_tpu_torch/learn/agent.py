@@ -60,7 +60,6 @@ import hashlib
 import json
 import os
 import pickle
-import time
 import warnings
 from typing import Optional
 
@@ -81,9 +80,11 @@ from uhc_tpu_torch.learn import nets, running_norm as RN
 from uhc_tpu_torch.learn.gae import estimate_advantages
 from uhc_tpu_torch.learn.ppo import ppo_update, ppo_update_dist
 from uhc_tpu_torch.learn.rollout import init_env_states, make_rollout_fn
+from uhc_tpu_torch.physics import control_step as CS
 from uhc_tpu_torch.physics.model import model_from_numpy
 from uhc_tpu_torch.smpl.constants import default_diff_weights
 from uhc_tpu_torch.smpl.fixture_humanoid import load_fixture_humanoid
+from uhc_tpu_torch.utils import spans
 
 
 class CopycatAgent:
@@ -191,6 +192,7 @@ class CopycatAgent:
         h = hashlib.sha256()
         for t in (*self.policy.parameters(), *self.value.parameters(),
                   self.log_std, self.rs.n, self.rs.mean, self.rs.m2):
+            spans.count("host_sync")
             h.update(t.detach().cpu().numpy().tobytes())
         h.update(json.dumps(self.sampler.state_dict()).encode())
         return h.hexdigest()
@@ -198,9 +200,11 @@ class CopycatAgent:
     def _check_replicas(self):
         """Append this epoch's digest and raise if any rank's differs."""
         digest = self.replica_digest()
+        spans.count("host_sync")
         words = torch.tensor(np.frombuffer(bytes.fromhex(digest), np.int64),
                              device=self.device)
         rows = self.dist.gather(words)
+        spans.count("host_sync")
         if not bool((rows == rows[0]).all()):
             raise RuntimeError(f"rank {self.dist.rank}: the ranks' "
                                f"parameters, statistics or sampler diverged "
@@ -223,21 +227,69 @@ class CopycatAgent:
                                                 lr=self.cfg.policy_lr)
 
     def _sync(self):
+        spans.count("host_sync")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     # -- one PPO epoch --------------------------------------------------------
     def optimize_policy(self, epoch: int) -> dict:
         """Adaptive schedules + rollout + GAE + PPO + mining telemetry
-        (agent_copycat.py:326 optimize_policy / :279 per_epoch_update)."""
-        cfg, dev = self.cfg, self.device
-        t0 = time.perf_counter()
+        (agent_copycat.py:326 optimize_policy / :279 per_epoch_update).
+        The stats carry the epoch's span table (utils/spans.py): spans
+        epoch / rollout, rollout.sync, update, tail below it, the rollout
+        step's, PPO's and the collectives' further down, the counters,
+        and each kernel entry's launches as count.launch.<entry>;
+        T_rollout (rollout + rollout.sync), T_update and T_total read
+        these spans."""
+        spans.begin()
+        launches = dict(CS.LAUNCHES)
         c0 = 0.0 if self.dist is None else self.dist.seconds
+        with spans.span("epoch", label=epoch) as ep:
+            with spans.span("rollout"):
+                traj, last_obs = self._collect(epoch)
+            with spans.span("rollout.sync"):
+                self._sync()
+            with spans.span("update"):
+                ppo_stats = self._update(traj, last_obs)
+                self._sync()
+            with spans.span("tail"):
+                stats = self._epoch_stats(traj, ppo_stats)
+                if self.cfg.end_reward:
+                    self.end_reward = stats["c_reward_mean"] * \
+                        self.cfg.gamma / (1.0 - self.cfg.gamma)
+                self.sampler.update_from_rollout(*self._telemetry(traj))
+                self.epoch = epoch
+                if self.dist is not None:
+                    self._check_replicas()
+        for key, n in CS.LAUNCHES.items():
+            if n != launches.get(key, 0):
+                spans.count("launch." + key[0], n - launches.get(key, 0))
+        table = spans.table()
+        stats.update(table)
+        at = ep.path + spans.SEP
+        stats["T_total"] = table[ep.path + ".s"]
+        stats["T_rollout"] = (table[at + "rollout.s"]
+                              + table[at + "rollout.sync.s"])
+        stats["T_update"] = table[at + "update.s"]
+        stats["steps"] = self.horizon * self.num_envs
+        stats["steps_per_sec"] = stats["steps"] / stats["T_total"]
+        stats["rollout_steps_per_sec"] = stats["steps"] / stats["T_rollout"]
+        if self.dist is not None:
+            stats["rank_rollout_steps_per_sec"] = (
+                self.horizon * self.local_envs / stats["T_rollout"])
+            stats["T_collectives"] = self.dist.seconds - c0
+        return stats
+
+    def _collect(self, epoch: int):
+        """The epoch's schedules and rollout -> (traj, last_obs)."""
+        cfg, dev = self.cfg, self.device
         noise_rate, log_std_sched, _lr = cfg.adaptive_params(epoch)
         if cfg.fix_std:
             self.log_std = torch.full_like(self.log_std, log_std_sched)
         rfc_rate = (max(0.0, 1.0 - epoch / 10000.0)
                     if self.env_cfg.rfc_decay else 1.0)
+        # two copies from the host: on a card each waits for the stream
+        spans.count("host_sync", 2)
         seq_logits = torch.as_tensor(self.sampler.logits(), device=dev)
         fail_pool = torch.as_tensor(self.sampler.fail_start_pool(),
                                     dtype=torch.int64, device=dev)
@@ -247,9 +299,11 @@ class CopycatAgent:
             self.sim_model, self.expert_lib, self.aux, self.log_std, self.rs,
             self.env_states, self.gen, noise_rate, rfc_rate, seq_logits,
             self.end_reward, fail_pool, precision_freq)
-        self._sync()
-        t1 = time.perf_counter()
+        return traj, last_obs
 
+    def _update(self, traj, last_obs) -> dict:
+        """The value pass, GAE and PPO over the epoch's rollout."""
+        cfg = self.cfg
         T, B = traj.rewards.shape
         states = traj.states.reshape(T * B, self.obs_dim)
         with torch.no_grad():
@@ -263,21 +317,20 @@ class CopycatAgent:
                  "advantages": adv.reshape(-1), "returns": ret.reshape(-1),
                  "exps": traj.exps.reshape(-1)}
         if self.dist is None:
-            ppo_stats = ppo_update(
+            return ppo_update(
                 self.policy, self.value, self.policy_opt, self.value_opt,
                 self.log_std, batch, self.gen, cfg.clip_epsilon,
                 cfg.num_optim_epoch, self.minibatch,
                 log_std_opt=self.log_std_opt)
-        else:
-            ppo_stats = ppo_update_dist(
-                self.policy, self.value, self.policy_opt, self.value_opt,
-                self.log_std, batch, self.ppo_gen, cfg.clip_epsilon,
-                cfg.num_optim_epoch, self.minibatch, self.dist, B,
-                log_std_opt=self.log_std_opt)
-        self._sync()
-        t2 = time.perf_counter()
+        return ppo_update_dist(
+            self.policy, self.value, self.policy_opt, self.value_opt,
+            self.log_std, batch, self.ppo_gen, cfg.clip_epsilon,
+            cfg.num_optim_epoch, self.minibatch, self.dist, B,
+            log_std_opt=self.log_std_opt)
 
-        # the epoch's sums over every rank's envs
+    def _epoch_stats(self, traj, ppo_stats) -> dict:
+        """The epoch's sums over every rank's envs, as host numbers."""
+        T = traj.rewards.shape[0]
         done_f = traj.dones.to(torch.float32)
         K = traj.reward_terms.shape[-1]
         sums = torch.cat([torch.stack([
@@ -299,26 +352,11 @@ class CopycatAgent:
             "success_rate": sums[4] / n_done,
             "avg_eps_len": self.horizon * self.num_envs / n_done,
             **ppo_stats}
+        spans.count("host_sync", 2)
         stats = dict(zip(scalars, torch.stack(
-            [torch.as_tensor(v, dtype=torch.float32, device=dev)
+            [torch.as_tensor(v, dtype=torch.float32, device=self.device)
              for v in scalars.values()]).tolist()))
         stats["reward_terms"] = (sums[5:5 + K] / n_steps).tolist()
-        if cfg.end_reward:
-            self.end_reward = stats["c_reward_mean"] * cfg.gamma / (
-                1.0 - cfg.gamma)
-        self.sampler.update_from_rollout(*self._telemetry(traj))
-        self.epoch = epoch
-        if self.dist is not None:
-            self._check_replicas()
-        stats["T_total"] = time.perf_counter() - t0
-        stats["T_rollout"] = t1 - t0
-        stats["T_update"] = t2 - t1
-        stats["steps"] = n_steps
-        stats["steps_per_sec"] = stats["steps"] / stats["T_total"]
-        stats["rollout_steps_per_sec"] = stats["steps"] / stats["T_rollout"]
-        if self.dist is not None:
-            stats["rank_rollout_steps_per_sec"] = T * B / stats["T_rollout"]
-            stats["T_collectives"] = self.dist.seconds - c0
         return stats
 
     def _telemetry(self, traj):
@@ -328,10 +366,12 @@ class CopycatAgent:
         gather, in float64, which holds each value exactly)."""
         parts = (traj.seq_idx, traj.dones, traj.percents, traj.start_inds)
         if self.dist is None:
+            spans.count("host_sync", len(parts))
             return [x.cpu().numpy() for x in parts]
         T, B = traj.dones.shape
         rows = self.dist.gather(torch.stack(
             [x.to(torch.float64) for x in parts]))      # (W, 4, T, B)
+        spans.count("host_sync")
         rows = rows.permute(1, 2, 0, 3).reshape(4, T, -1).cpu().numpy()
         return [rows[0].astype(np.int64), rows[1].astype(bool),
                 rows[2].astype(np.float32), rows[3].astype(np.int64)]

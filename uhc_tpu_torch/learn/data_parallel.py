@@ -48,6 +48,8 @@ import traceback
 
 import torch
 
+from uhc_tpu_torch.utils import spans
+
 # the process group's timeout: a rank blocked in a collective longer than
 # this (a peer that died or hangs) raises
 DEFAULT_TIMEOUT_S = 1800.0
@@ -65,54 +67,49 @@ class Dist:
     group: object = None
     store: object = None
     _barriers: int = 0
-    _seconds: float = 0.0
-    _events: list = dataclasses.field(default_factory=list)
 
     @property
     def seconds(self) -> float:
-        """Time spent in collectives so far: on CUDA from events recorded
-        on the stream around each (no host synchronization while they
-        run; reading waits for the last), else by the host clock."""
-        for e0, e1 in self._events:
-            e1.synchronize()
-            self._seconds += e0.elapsed_time(e1) / 1e3
-        self._events.clear()
-        return self._seconds
+        """Time spent in collectives so far: the device seconds of the
+        tracer's `dp.<kind>` spans (utils/spans.py; on CUDA events
+        recorded on the stream around each, with no host synchronization
+        while they run, and reading waits for the last; else the host
+        clock)."""
+        return spans.device_seconds("dp.")
 
-    def _timed(self, op, t):
-        if self.device.type == "cuda":
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
+    def _timed(self, kind: str, op, t):
+        """Run collective `kind` on `t` inside its span `dp.<kind>`,
+        counting its calls and bytes."""
+        spans.count(f"dp.{kind}.calls")
+        spans.count(f"dp.{kind}.bytes", t.numel() * t.element_size())
+        with spans.span("dp." + kind, device=self.device):
             op(t)
-            e1.record()
-            self._events.append((e0, e1))
-        else:
-            t0 = time.perf_counter()
-            op(t)
-            self._seconds += time.perf_counter() - t0
         return t
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum `t` over the ranks, in place; returns it."""
+        return self._timed("all_reduce", self._all_reduce, t)
+
+    def _all_reduce(self, t):
         import torch.distributed as D
 
-        return self._timed(lambda x: D.all_reduce(x, group=self.group), t)
+        D.all_reduce(t, group=self.group)
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank `src`'s `t` on every rank, in place; returns it."""
         import torch.distributed as D
 
         return self._timed(
-            lambda x: D.broadcast(x, src, group=self.group), t)
+            "broadcast", lambda x: D.broadcast(x, src, group=self.group), t)
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """(W, *x.shape): row r is rank r's `x` (x of one shape and dtype
-        on every rank)."""
+        on every rank); counted as one `gather` of the (W, ...) buffer,
+        the all_reduce it is built from not counted again."""
         buf = torch.zeros((self.world_size, *x.shape), dtype=x.dtype,
                           device=self.device)
         buf[self.rank] = x
-        return self.all_reduce(buf)
+        return self._timed("gather", self._all_reduce, buf)
 
     def barrier(self) -> None:
         """Wait until every rank is here, with no time limit (rank 0's

@@ -24,12 +24,19 @@ the loss terms of those it holds (maybe none), the value loss divides its
 local sum by the global minibatch size and the policy loss by the global
 max(Σexps, 1), one all_reduce per minibatch sums the value, policy and
 log-std gradients, and the clip reads the norm of the summed gradient.
+
+Each minibatch runs in the tracer's device-timed phases forward (both
+losses), backward, exchange (the gradients' all_reduce; distributed
+only) and optimizer (the steps, the clip, zeroing the gradients);
+utils/spans.py. The value step comes after the policy's backward pass,
+which it does not touch: the two networks share no parameter.
 """
 from __future__ import annotations
 
 import torch
 
 from uhc_tpu_torch.learn.nets import gaussian_log_prob
+from uhc_tpu_torch.utils import spans
 
 
 def policy_loss(policy, log_std, s, a, adv, flp, exps, clip_epsilon,
@@ -61,6 +68,22 @@ def _clip_grads(params, clip):
             p.grad.mul_(scale)
 
 
+def _zero_grads(opts):
+    for opt in opts:
+        opt.zero_grad(set_to_none=True)
+
+
+def _step(value_opt, policy_opt, log_std_opt, clipped, clip):
+    """The value step, then the clip of the policy's gradient (and the
+    log-std's) and the policy's steps."""
+    value_opt.step()
+    if clip is not None:
+        _clip_grads(clipped, clip)
+    policy_opt.step()
+    if log_std_opt is not None:
+        log_std_opt.step()
+
+
 def minibatches(N: int, minibatch_size: int, perm):
     """Row indices of each minibatch of one pass: consecutive slices of
     `perm`, the remainder dropped (one batch of N rows when N is
@@ -86,23 +109,24 @@ def ppo_update(policy, value, policy_opt, value_opt, log_std, batch,
         v_before = value_loss(value, s, ret)
     pparams = list(policy.parameters())
     clipped = pparams + ([log_std] if log_std_opt is not None else [])
+    opts = [o for o in (value_opt, policy_opt, log_std_opt) if o is not None]
+    _zero_grads(opts)
     for _ in range(num_epochs):
         perm = torch.randperm(N, generator=generator,
                               device=generator.device).to(s.device)
         for idx in minibatches(N, minibatch_size, perm):
-            value_opt.zero_grad(set_to_none=True)
-            value_loss(value, s[idx], ret[idx]).backward()
-            value_opt.step()
-            policy_opt.zero_grad(set_to_none=True)
-            if log_std_opt is not None:
-                log_std_opt.zero_grad(set_to_none=True)
-            policy_loss(policy, log_std, s[idx], a[idx], adv[idx], flp[idx],
-                        exps[idx], clip_epsilon).backward()
-            if policy_grad_clip is not None:
-                _clip_grads(clipped, policy_grad_clip)
-            policy_opt.step()
-            if log_std_opt is not None:
-                log_std_opt.step()
+            phase = spans.phases(s.device)
+            with phase("forward"):
+                vl = value_loss(value, s[idx], ret[idx])
+                pl = policy_loss(policy, log_std, s[idx], a[idx], adv[idx],
+                                 flp[idx], exps[idx], clip_epsilon)
+            with phase("backward"):
+                vl.backward()
+                pl.backward()
+            with phase("optimizer"):
+                _step(value_opt, policy_opt, log_std_opt, clipped,
+                      policy_grad_clip)
+                _zero_grads(opts)
     with torch.no_grad():
         return {"value_loss_before": v_before,
                 "value_loss": value_loss(value, s, ret),
@@ -117,6 +141,8 @@ def global_rows(idx, envs: int, dist):
     B = envs * dist.world_size
     t, b = idx // B, idx % B
     own = (b // envs) == dist.rank
+    # a boolean index: its size waits for the device
+    spans.count("host_sync")
     return (t * envs + b - dist.rank * envs)[own]
 
 
@@ -138,6 +164,8 @@ def ppo_update_dist(policy, value, policy_opt, value_opt, log_std, batch,
     clipped = list(policy.parameters()) + (
         [log_std] if log_std_opt is not None else [])
     synced = vparams + clipped
+    opts = [o for o in (value_opt, policy_opt, log_std_opt) if o is not None]
+    _zero_grads(opts)
     for _ in range(num_epochs):
         perm = torch.randperm(N, generator=generator,
                               device=generator.device).to(s.device)
@@ -146,26 +174,27 @@ def ppo_update_dist(policy, value, policy_opt, value_opt, log_std, batch,
         # every minibatch's global Σexps, one all_reduce a pass
         counts = dist.all_reduce(torch.stack([exps[r].sum() for r in rows]))
         for r, count in zip(rows, counts):
-            for opt in (value_opt, policy_opt, log_std_opt):
-                if opt is not None:
-                    opt.zero_grad(set_to_none=True)
-            value_loss(value, s[r], ret[r], len(mbs[0])).backward()
-            policy_loss(policy, log_std, s[r], a[r], adv[r], flp[r],
-                        exps[r], clip_epsilon,
-                        torch.clamp(count, min=1.0)).backward()
-            flat = dist.all_reduce(torch.cat([
-                (p.grad if p.grad is not None
-                 else torch.zeros_like(p)).reshape(-1) for p in synced]))
-            at = 0
-            for p in synced:
-                p.grad = flat[at:at + p.numel()].view_as(p)
-                at += p.numel()
-            value_opt.step()
-            if policy_grad_clip is not None:
-                _clip_grads(clipped, policy_grad_clip)
-            policy_opt.step()
-            if log_std_opt is not None:
-                log_std_opt.step()
+            phase = spans.phases(s.device)
+            with phase("forward"):
+                vl = value_loss(value, s[r], ret[r], len(mbs[0]))
+                pl = policy_loss(policy, log_std, s[r], a[r], adv[r], flp[r],
+                                 exps[r], clip_epsilon,
+                                 torch.clamp(count, min=1.0))
+            with phase("backward"):
+                vl.backward()
+                pl.backward()
+            with phase("exchange"):
+                flat = dist.all_reduce(torch.cat([
+                    (p.grad if p.grad is not None
+                     else torch.zeros_like(p)).reshape(-1) for p in synced]))
+                at = 0
+                for p in synced:
+                    p.grad = flat[at:at + p.numel()].view_as(p)
+                    at += p.numel()
+            with phase("optimizer"):
+                _step(value_opt, policy_opt, log_std_opt, clipped,
+                      policy_grad_clip)
+                _zero_grads(opts)
     with torch.no_grad():
         sums = dist.all_reduce(torch.stack([
             value_loss(value, s, ret, 1.0),

@@ -21,6 +21,7 @@ from uhc_tpu_torch.config.config import EnvConfig
 from uhc_tpu_torch.envs import humanoid_im as H
 from uhc_tpu_torch.learn import running_norm as RN
 from uhc_tpu_torch.physics.model import Model, Topology
+from uhc_tpu_torch.utils.spans import span
 
 
 class TrajBatch(NamedTuple):
@@ -80,7 +81,9 @@ def make_rollout_fn(topo: Topology, cfg: EnvConfig, policy_mean_fn: Callable,
     the physics runs through a control-step kernel
     (`humanoid_im.make_env_step_batched`). Under `dist`
     (learn/data_parallel.Dist) the running statistics merge every rank's
-    observations at each step."""
+    observations at each step. Each step runs in the tracer's spans
+    reset, obs, policy, then the env step's physics and post
+    (utils/spans.py)."""
     env_step_batched = H.make_env_step_batched(topo, cfg,
                                                fused_model=fused_model)
 
@@ -92,21 +95,25 @@ def make_rollout_fn(topo: Topology, cfg: EnvConfig, policy_mean_fn: Callable,
         B = state.qpos.shape[0]
         steps = []
         for _ in range(horizon):
-            # finished episodes restart on a freshly drawn sequence
-            fresh = reset_like(topo, cfg, model, expert_lib, aux, B, gen,
-                               seq_logits, fail_pool, precision_freq)
-            state = H.state_where(state.done, fresh, state)
+            with span("reset"):
+                # finished episodes restart on a freshly drawn sequence
+                fresh = reset_like(topo, cfg, model, expert_lib, aux, B,
+                                   gen, seq_logits, fail_pool,
+                                   precision_freq)
+                state = H.state_where(state.done, fresh, state)
+            with span("obs"):
+                obs = H.get_obs(topo, model, cfg, state, expert_lib)
+                rs = RN.update_batch(rs, obs, dist=dist)
+                nobs = RN.normalize(rs, obs, clip_obs)
+            with span("policy"):
+                mean = policy_mean_fn(nobs)
+                noise = torch.exp(log_std) * torch.randn(
+                    mean.shape, generator=gen, device=mean.device)
+                use_mean = torch.rand(B, generator=gen,
+                                      device=mean.device) < 1.0 - noise_rate
+                action = torch.where(use_mean[:, None], mean, mean + noise)
 
-            obs = H.get_obs(topo, model, cfg, state, expert_lib)
-            rs = RN.update_batch(rs, obs, dist=dist)
-            nobs = RN.normalize(rs, obs, clip_obs)
-            mean = policy_mean_fn(nobs)
-            noise = torch.exp(log_std) * torch.randn(
-                mean.shape, generator=gen, device=mean.device)
-            use_mean = torch.rand(B, generator=gen, device=mean.device) < \
-                1.0 - noise_rate
-            action = torch.where(use_mean[:, None], mean, mean + noise)
-
+            # the env step runs in its own spans, physics and post
             state2, _, reward, terms, done = env_step_batched(
                 model, state, action, expert_lib, aux["jpos_diffw"],
                 aux["body_diffw"], rfc_rate, train=True)

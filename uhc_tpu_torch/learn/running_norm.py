@@ -8,6 +8,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from uhc_tpu_torch.utils.spans import count
+
 
 @dataclasses.dataclass
 class RunningStats:
@@ -61,6 +63,9 @@ def _moments(x: torch.Tensor, mask=None):
     count unclamped: it may be 0)."""
     if mask is None:
         bmean = x.mean(0)
+        # a tensor copied from the host: on a card the copy waits for the
+        # stream (utils/spans.py counts it)
+        count("host_sync")
         return (x.new_tensor(float(x.shape[0])), bmean,
                 ((x - bmean) ** 2).sum(0))
     m = mask.to(x.dtype)[:, None]

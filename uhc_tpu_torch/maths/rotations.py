@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from uhc_tpu_torch.utils.spans import count
+
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a × b over the last axis (broadcasting leading dims)."""
@@ -33,6 +35,9 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    # a tensor copied from the host: on a card the copy waits for the
+    # stream (utils/spans.py counts it)
+    count("host_sync")
     return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
 
 
@@ -164,6 +169,7 @@ def euler_zyx_from_quat(q: torch.Tensor) -> torch.Tensor:
 
 def heading_quat(q: torch.Tensor) -> torch.Tensor:
     """Zero the x/y imaginary parts and renormalize."""
+    count("host_sync")
     return quat_normalize(q * q.new_tensor([1.0, 0.0, 0.0, 1.0]))
 
 

@@ -81,6 +81,7 @@ from uhc_tpu_torch.physics.model import (MODEL_BASE_NDIM, Model, Topology,
                                          env_models, model_from_numpy,
                                          model_to_numpy)
 from uhc_tpu_torch.smpl.constants import self_collision_pairs
+from uhc_tpu_torch.utils.spans import count
 
 KPTS, SC, MAXPAIR = 16, 3, 64
 # the trees a model library runs on (K1e): every tree of up to 32 bodies,
@@ -418,6 +419,7 @@ class ControlStep:
                              f"contiguous int32 ({qpos.shape[0]},) on "
                              f"{qpos.device}")
         if seq_idx.numel():
+            count("host_sync")
             lo, hi = (int(v) for v in torch.aminmax(seq_idx))
             if lo < 0 or hi >= self.num_models:
                 raise ValueError(f"seq_idx spans [{lo}, {hi}], the library "

@@ -18,6 +18,7 @@ from uhc_tpu_torch.maths import (angvel_fd, de_heading, multi_quat_diff,
 from uhc_tpu_torch.physics import engine as E
 from uhc_tpu_torch.physics import solver as S
 from uhc_tpu_torch.smpl.constants import ee_indices
+from uhc_tpu_torch.utils.spans import count
 
 
 def _terms(topo, model, cfg, state, expert_lib, aux, explicit: bool):
@@ -72,6 +73,9 @@ def _vf_reward(topo, cfg, action, explicit: bool):
 
 
 def _weighted(cfg, action, terms):
+    # a tensor copied from the host: on a card the copy waits for the
+    # stream (utils/spans.py counts it)
+    count("host_sync")
     ws = action.new_tensor([cfg.w_p, cfg.w_v, cfg.w_e, cfg.w_c, cfg.w_vf])
     return (ws * terms).sum(1) / ws.sum()
 
@@ -111,6 +115,7 @@ def world_rfc_implicit_v1_mul(topo, model, cfg, state, action, expert_lib,
 
 
 def _ee(topo, device):
+    count("host_sync")
     return torch.as_tensor(ee_indices(topo).astype("int64"), device=device)
 
 
@@ -162,6 +167,7 @@ def _local_terms(topo, model, cfg, state, expert_lib, aux):
 
 
 def _normalized(ws, terms):
+    count("host_sync")
     ws = terms.new_tensor(ws)
     return (ws * terms).sum(1) / ws.sum()
 
@@ -215,6 +221,8 @@ def _v2_terms(topo, model, cfg, state, action, expert_lib):
     kin = E.fk(topo, model, state.qpos)
     B = state.qpos.shape[0]
     jw = cfg.rw("jpos_diffw", None)
+    if jw is not None:
+        count("host_sync")
     jw = (state.qpos.new_tensor(jw) if jw is not None
           else state.qpos.new_ones(topo.nbody))
     cur_bquat = H.get_body_quat(state.qpos)
@@ -252,6 +260,7 @@ def world_rfc_implicit_v3(topo, model, cfg, state, action, expert_lib, aux):
     """reward_function.py:307: their weighted sum, not divided by the
     weights' sum (as in the reference)."""
     terms = _v2_terms(topo, model, cfg, state, action, expert_lib)
+    count("host_sync")
     ws = terms.new_tensor([cfg.rw("w_p", 0.4), cfg.rw("w_wp", 0.4),
                            cfg.rw("w_c", 100.0), cfg.rw("w_j", 100.0),
                            cfg.rw("w_v", 0.005), cfg.rw("w_vf", 1.0)])
