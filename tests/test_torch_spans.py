@@ -216,27 +216,26 @@ def test_agent_epoch_returns_the_span_table(epoch):
 def test_agent_epoch_counts_its_host_synchronizations(epoch):
     """Every site where the host waits on a card, counted on the CPU too:
     the agent's (the sampler's two copies to the device, the two
-    synchronizations, the stats' two copies back, the telemetry's four)
-    and the small tensors that the observation, the reward, the reset
-    and the running statistics copy from the host at every step (the
-    plain physics chain, which the CPU runs in place of the kernel,
-    counts its own)."""
+    synchronizations, the stats' two copies back, the telemetry's four).
+    The observation, the reward, the reset, the running statistics and
+    the plain physics chain copy nothing from the host at a step: their
+    small constants are made once a process (`utils/consts.py`), and only
+    that first copy of each counts."""
+    from uhc_tpu_torch.utils import consts
+
     _, st, sites = epoch
     assert st["count.host_sync"] == sum(sites.values())
-    assert {k: n for k, n in sites.items() if k[0] == "agent.py"} == {
-        ("agent.py", "_collect"): 2, ("agent.py", "_sync"): 2,
-        ("agent.py", "_epoch_stats"): 2, ("agent.py", "_telemetry"): 4}
-    # once a step (the running statistics, the reward's weights) and once
-    # more for the bootstrap observation (its heading's base rotation)
-    assert sites["running_norm.py", "_moments"] == HORIZON
-    assert sites["reward_function.py", "_weighted"] == HORIZON
-    assert sites["humanoid_im.py", "obs_v12"] == 2 * HORIZON + 1
-    assert {"quat_conj", "heading_quat", "match_heading_and_pos",
-            "_ee"} <= {f for _, f in sites}
+    agent = {("agent.py", "_collect"): 2, ("agent.py", "_sync"): 2,
+             ("agent.py", "_epoch_stats"): 2, ("agent.py", "_telemetry"): 4}
+    assert {k: n for k, n in sites.items() if k[0] == "agent.py"} == agent
+    assert set(sites) - set(agent) <= {("consts.py", "const")}
+    assert sites["consts.py", "const"] <= len(consts._CACHE)
 
 
 def test_the_next_epoch_starts_a_new_table(epoch):
     a, st, _ = epoch
     st2 = a.optimize_policy(1)
     assert st2["count.obs"] == st["count.obs"]
+    # the constants are made: the agent's ten waits alone
+    assert st2["count.host_sync"] == 10
     assert st2["epoch/rollout/policy.n"] == HORIZON

@@ -35,6 +35,7 @@ from typing import Any, Dict
 import torch
 
 from uhc_tpu_torch.config.config import EnvConfig
+from uhc_tpu_torch.envs.step_graph import EnvStep
 from uhc_tpu_torch.maths import (de_heading, de_heading_new, heading_angle,
                                  heading_angle_new, heading_quat,
                                  heading_quat_new, quat_from_euler_zyx,
@@ -46,6 +47,7 @@ from uhc_tpu_torch.physics.model import (Model, Topology, env_models,
                                          model_batch_axes, model_is_batched,
                                          model_per_env)
 from uhc_tpu_torch.smpl.constants import head_index
+from uhc_tpu_torch.utils.consts import const
 from uhc_tpu_torch.utils.spans import count, span
 
 
@@ -191,10 +193,7 @@ def obs_v12(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
     next one."""
     qpos, qvel = state.qpos, state.qvel
     B = qpos.shape[0]
-    # a tensor copied from the host: on a card the copy waits for the
-    # stream (utils/spans.py counts it)
-    count("host_sync")
-    base_rot = qpos.new_tensor(cfg.base_rot)
+    base_rot = const(tuple(cfg.base_rot), qpos)
     if tgt is None:
         tgt = expert_at(expert_lib, state.seq_idx,
                         state.start_ind + state.cur_t + 1 + delta_t)
@@ -295,8 +294,7 @@ def obs_v4(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
     tokens)."""
     qpos, qvel = state.qpos, state.qvel
     B = qpos.shape[0]
-    count("host_sync")
-    base_rot = qpos.new_tensor(cfg.base_rot)
+    base_rot = const(tuple(cfg.base_rot), qpos)
     if tgt is None:
         tgt = expert_at(expert_lib, state.seq_idx,
                         state.start_ind + state.cur_t + 1)
@@ -351,8 +349,7 @@ def obs_v5(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
     transform, the target's qpos[:3] in rel_pos."""
     qpos, qvel = state.qpos, state.qvel
     B = qpos.shape[0]
-    count("host_sync")
-    base_rot = qpos.new_tensor(cfg.base_rot)
+    base_rot = const(tuple(cfg.base_rot), qpos)
     if tgt is None:
         tgt = expert_at(expert_lib, state.seq_idx,
                         state.start_ind + state.cur_t + 1)
@@ -397,8 +394,7 @@ def obs_v6(topo: Topology, model: Model, cfg: EnvConfig, state: EnvState,
     (2·nb features): kept."""
     qpos, qvel = state.qpos, state.qvel
     B = qpos.shape[0]
-    count("host_sync")
-    base_rot = qpos.new_tensor(cfg.base_rot)
+    base_rot = const(tuple(cfg.base_rot), qpos)
     if tgt is None:
         tgt = expert_at(expert_lib, state.seq_idx,
                         state.start_ind + state.cur_t + 1)
@@ -440,8 +436,7 @@ def obs_v2_quat(topo: Topology, model: Model, cfg: EnvConfig,
     joint-position blocks, heading-relative and relative body quats."""
     qpos, qvel = state.qpos, state.qvel
     B = qpos.shape[0]
-    count("host_sync")
-    base_rot = qpos.new_tensor(cfg.base_rot)
+    base_rot = const(tuple(cfg.base_rot), qpos)
     if tgt is None:
         tgt = expert_at(expert_lib, state.seq_idx,
                         state.start_ind + state.cur_t + 1)
@@ -710,7 +705,10 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
     chain with 5 iterations (the JAX default). The returned step carries
     the kernel wrapper it calls as `step.kernel` (None for the plain
     chain). It runs in the tracer's spans physics (everything up to the
-    kernel's return) and post (`env_post_step`)."""
+    kernel's return) and post (`env_post_step`). On a card, with
+    `ControlStep` (K1, K1d, K1e, K1f) as the kernel, a call whose inputs
+    repeat an earlier call's shapes and read tensors replays a CUDA graph
+    of the whole step (`envs.step_graph`)."""
     kernel = None
     if fused_model is not None and cfg.action_type != "torque":
         from uhc_tpu_torch.physics.control_step import (PE_MODEL_LEAVES,
@@ -756,7 +754,7 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
                                    states.qvel, actions, target_base,
                                    rfc_rate, 5)
 
-    def step(model: Model, states: EnvState, actions, expert_lib,
+    def body(model: Model, states: EnvState, actions, expert_lib,
              jpos_diffw, body_diffw, rfc_rate=1.0, train: bool = True):
         with span("physics"):
             m = env_models(model, states.seq_idx)
@@ -774,14 +772,12 @@ def make_env_step_batched(topo: Topology, cfg: EnvConfig,
             return env_post_step(topo, m, cfg, states, actions, expert_lib,
                                  jpos_diffw, body_diffw, train)
 
-    step.kernel = kernel
-    return step
+    return EnvStep(body, kernel)
 
 
 def match_heading_and_pos(qpos_1, qpos_2, base_rot):
     """Align qpos_2's heading and xy to qpos_1 (both (B, nq))."""
-    count("host_sync")
-    base_rot = qpos_1.new_tensor(base_rot)
+    base_rot = const(tuple(base_rot), qpos_1)
     heading_1 = heading_quat(quat_mul(qpos_1[:, 3:7], quat_inv(base_rot)))
     new_quat = quat_mul(heading_1, de_heading(qpos_2[:, 3:7]))
     return torch.cat([qpos_1[:, :2], qpos_2[:, 2:3], new_quat,

@@ -11,7 +11,11 @@ import math
 
 import torch
 
-from uhc_tpu_torch.utils.spans import count
+from uhc_tpu_torch.utils.consts import const
+
+# a quaternion's conjugation signs, and the mask that keeps its heading
+CONJ_SIGNS = (1.0, -1.0, -1.0, -1.0)
+HEADING_MASK = (1.0, 0.0, 0.0, 1.0)
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -35,10 +39,7 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    # a tensor copied from the host: on a card the copy waits for the
-    # stream (utils/spans.py counts it)
-    count("host_sync")
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    return q * const(CONJ_SIGNS, q)
 
 
 def quat_inv(q: torch.Tensor) -> torch.Tensor:
@@ -169,8 +170,7 @@ def euler_zyx_from_quat(q: torch.Tensor) -> torch.Tensor:
 
 def heading_quat(q: torch.Tensor) -> torch.Tensor:
     """Zero the x/y imaginary parts and renormalize."""
-    count("host_sync")
-    return quat_normalize(q * q.new_tensor([1.0, 0.0, 0.0, 1.0]))
+    return quat_normalize(q * const(HEADING_MASK, q))
 
 
 def heading_angle(q: torch.Tensor) -> torch.Tensor:

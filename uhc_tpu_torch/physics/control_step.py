@@ -418,7 +418,13 @@ class ControlStep:
                              f"{seq_idx.dtype} on {seq_idx.device}, expected "
                              f"contiguous int32 ({qpos.shape[0]},) on "
                              f"{qpos.device}")
-        if seq_idx.numel():
+        if seq_idx.numel() and seq_idx.is_cuda and \
+                torch.cuda.is_current_stream_capturing():
+            # a CUDA graph's capture (envs/step_graph.py): the host cannot
+            # read the range, so the card checks it at every replay
+            torch._assert_async(((seq_idx >= 0)
+                                 & (seq_idx < self.num_models)).all())
+        elif seq_idx.numel():
             count("host_sync")
             lo, hi = (int(v) for v in torch.aminmax(seq_idx))
             if lo < 0 or hi >= self.num_models:

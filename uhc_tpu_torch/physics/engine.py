@@ -410,9 +410,8 @@ def project_vf_cp(model: Model, cp):
     the box, so the lever arm stays within the body's extent."""
     model = model_per_env(model, cp.shape[0])
     pts, m = model.contact_point, model.contact_mask[..., None] > 0
-    big = torch.tensor(1e9, dtype=pts.dtype, device=pts.device)
-    lo = torch.where(m, pts, big).amin(-2, keepdim=True)
-    hi = torch.where(m, pts, -big).amax(-2, keepdim=True)
+    lo = torch.where(m, pts, 1e9).amin(-2, keepdim=True)
+    hi = torch.where(m, pts, -1e9).amax(-2, keepdim=True)
     return torch.minimum(torch.maximum(cp, lo), hi)
 
 

@@ -25,6 +25,7 @@ from uhc_tpu_torch.maths import (heading_quat, quat_inv, quat_mul,
 from uhc_tpu_torch.physics import engine as E
 from uhc_tpu_torch.physics import linalg as LA
 from uhc_tpu_torch.physics.model import Model, Topology, model_per_env
+from uhc_tpu_torch.utils.consts import const
 
 
 def exact_inverse(A: torch.Tensor) -> torch.Tensor:
@@ -146,7 +147,7 @@ def implicit_rfc(cfg, qpos, actions, ndof: int, rfc_rate):
     if cfg.residual_force and not explicit_rfc(cfg):
         vf = actions[:, ndof:ndof + 6] * (cfg.residual_force_scale
                                           * rfc_rate)
-        base_rot = qpos.new_tensor(cfg.base_rot)
+        base_rot = const(tuple(cfg.base_rot), qpos)
         hq = heading_quat(quat_mul(qpos[:, 3:7], quat_inv(base_rot)))
         vf = torch.cat([quat_rotate(hq, vf[:, :3]), vf[:, 3:]], 1)
         qfrc[:, :6] = torch.clamp(vf, -cfg.residual_force_lim,

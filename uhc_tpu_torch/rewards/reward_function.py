@@ -18,7 +18,7 @@ from uhc_tpu_torch.maths import (angvel_fd, de_heading, multi_quat_diff,
 from uhc_tpu_torch.physics import engine as E
 from uhc_tpu_torch.physics import solver as S
 from uhc_tpu_torch.smpl.constants import ee_indices
-from uhc_tpu_torch.utils.spans import count
+from uhc_tpu_torch.utils.consts import const
 
 
 def _terms(topo, model, cfg, state, expert_lib, aux, explicit: bool):
@@ -32,7 +32,7 @@ def _terms(topo, model, cfg, state, expert_lib, aux, explicit: bool):
     kin = E.fk(topo, model, state.qpos)
     B = state.qpos.shape[0]
     jpos_diffw, body_diffw = aux["jpos_diffw"], aux["body_diffw"]
-    cur_ee = kin["xpos"][:, _ee(topo, state.qpos.device)].reshape(B, -1)
+    cur_ee = kin["xpos"][:, _ee(topo, state.qpos)].reshape(B, -1)
     cur_bquat = H.get_body_quat(state.qpos)
     cur_bangvel = angvel_fd(state.prev_bquat, cur_bquat, cfg.ctrl_dt)
     cur_com = kin["xipos"][:, 0]
@@ -73,10 +73,7 @@ def _vf_reward(topo, cfg, action, explicit: bool):
 
 
 def _weighted(cfg, action, terms):
-    # a tensor copied from the host: on a card the copy waits for the
-    # stream (utils/spans.py counts it)
-    count("host_sync")
-    ws = action.new_tensor([cfg.w_p, cfg.w_v, cfg.w_e, cfg.w_c, cfg.w_vf])
+    ws = const((cfg.w_p, cfg.w_v, cfg.w_e, cfg.w_c, cfg.w_vf), action)
     return (ws * terms).sum(1) / ws.sum()
 
 
@@ -114,9 +111,9 @@ def world_rfc_implicit_v1_mul(topo, model, cfg, state, action, expert_lib,
             terms)
 
 
-def _ee(topo, device):
-    count("host_sync")
-    return torch.as_tensor(ee_indices(topo).astype("int64"), device=device)
+def _ee(topo, like):
+    """The end-effector bodies' rows, on `like`'s device."""
+    return const(tuple(int(i) for i in ee_indices(topo)), like, torch.int64)
 
 
 def _local_terms(topo, model, cfg, state, expert_lib, aux):
@@ -139,7 +136,7 @@ def _local_terms(topo, model, cfg, state, expert_lib, aux):
     cur_qvel = qvel_fd(prev, qpos, dt)
     cur_rlinv_local = transform_vec(cur_qvel[:, :3], prev[:, 3:7], c)
     cur_ee = transform_vec(
-        kin["xpos"][:, _ee(topo, qpos.device)] - qpos[:, None, :3],
+        kin["xpos"][:, _ee(topo, qpos)] - qpos[:, None, :3],
         qpos[:, None, 3:7], c).reshape(B, -1)
     cur_bquat = H.get_body_quat(qpos)
     cur_bangvel = angvel_fd(state.prev_bquat, cur_bquat, dt)
@@ -167,8 +164,7 @@ def _local_terms(topo, model, cfg, state, expert_lib, aux):
 
 
 def _normalized(ws, terms):
-    count("host_sync")
-    ws = terms.new_tensor(ws)
+    ws = const(tuple(ws), terms)
     return (ws * terms).sum(1) / ws.sum()
 
 
@@ -221,9 +217,7 @@ def _v2_terms(topo, model, cfg, state, action, expert_lib):
     kin = E.fk(topo, model, state.qpos)
     B = state.qpos.shape[0]
     jw = cfg.rw("jpos_diffw", None)
-    if jw is not None:
-        count("host_sync")
-    jw = (state.qpos.new_tensor(jw) if jw is not None
+    jw = (const(tuple(jw), state.qpos) if jw is not None
           else state.qpos.new_ones(topo.nbody))
     cur_bquat = H.get_body_quat(state.qpos)
     cur_bangvel = angvel_fd(state.prev_bquat, cur_bquat, cfg.ctrl_dt)
@@ -260,10 +254,9 @@ def world_rfc_implicit_v3(topo, model, cfg, state, action, expert_lib, aux):
     """reward_function.py:307: their weighted sum, not divided by the
     weights' sum (as in the reference)."""
     terms = _v2_terms(topo, model, cfg, state, action, expert_lib)
-    count("host_sync")
-    ws = terms.new_tensor([cfg.rw("w_p", 0.4), cfg.rw("w_wp", 0.4),
-                           cfg.rw("w_c", 100.0), cfg.rw("w_j", 100.0),
-                           cfg.rw("w_v", 0.005), cfg.rw("w_vf", 1.0)])
+    ws = const((cfg.rw("w_p", 0.4), cfg.rw("w_wp", 0.4),
+                cfg.rw("w_c", 100.0), cfg.rw("w_j", 100.0),
+                cfg.rw("w_v", 0.005), cfg.rw("w_vf", 1.0)), terms)
     return (ws * terms).sum(1), terms
 
 

@@ -33,6 +33,7 @@ spans sit in code several layers below the agent that reads the table.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -74,6 +75,19 @@ class Tracer:
 
     def count(self, name: str, n=1) -> None:
         self.counts[name] = self.counts.get(name, 0) + n
+
+    @contextlib.contextmanager
+    def aside(self):
+        """Run the block with the epoch's table set aside, as for work
+        recorded but not run (a CUDA graph's capture): the block's spans
+        are dropped, its counters go to the dict the block gets, and the
+        table is afterwards as it was before the block."""
+        rows, counts = self.rows, self.counts
+        self.rows, self.counts = {}, {}
+        try:
+            yield self.counts
+        finally:
+            self.rows, self.counts = rows, counts
 
     def table(self) -> dict:
         """The epoch's table as flat numbers (see the module's doc)."""
@@ -223,6 +237,11 @@ def count(name: str, n=1) -> None:
 
 def begin() -> None:
     TRACER.begin()
+
+
+def aside():
+    """The process's tracer's table set aside for a block (`Tracer.aside`)."""
+    return TRACER.aside()
 
 
 def table() -> dict:
